@@ -1,0 +1,617 @@
+"""Smoke run of the PyTorch port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing its numbers beside the card's name and power limit:
+
+  1. build the CUDA kernels from src/repro_torch/csrc (one nvcc per source,
+     all at once) and print ptxas's register / spill report;
+  2. hold every kernel against its plain PyTorch version at qwen3-0.6b's
+     widths (Hk=8, G=2, D=128): at the main path's own call shapes (the
+     fixed batch's 4 x 576-slot ring; the engine's 12 lanes over its
+     96-block pool of 16 slots, with idle lanes, shared blocks and -1 table
+     entries; the CoW block copy on the pool's 28-layer K and kv_pos
+     leaves), and at longer caches (B=4, S in {1024, 4096}, bf16 and int8,
+     ring and paged), with the wrapper's time, the kernel's alone, the plain
+     version's, the least time the card could take (bound) and one library
+     call's time as a yardstick;
+  3. serve qwen3-0.6b at full width with random weights: the fixed-batch
+     launcher (prefill 4x512, 64 decode steps over the contiguous ring),
+  4. then the continuous-batching engine (paged pool, prefix sharing, a
+     12-request trace with a shared-prefix cluster), checking that every
+     request finishes, all logits are finite, copy-on-write fired, and that
+     phases 3-4 launched every kernel (launch counters set to 0 before
+     phase 3, read after phase 4); a few of the main path's own
+     flash-decode calls are copied as they run and held against the plain
+     version afterwards;
+  5. check the kernels' model path against the plain path on the CPU at the
+     smoke config in f32 (prefill + teacher-forced decode, ring and paged).
+
+Any failed check raises, so the script exits non-zero and prints no result.
+The last three lines are the kernels' JSON summary, the card's name and
+power limit, and {"ok": true, "device": {...}}.  Without a CUDA device, or
+without the repository beside it, it fails.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
+F32_FLOPS = 67e12                # f32 outside the tensor cores
+# Flash-decode, kernel vs plain version on the same inputs: the f32 output
+# before its cast (acc / l) differs only by the order of the sums; each
+# reading is printed beside that of a planted fault (one KV tile of one row
+# dropped from the plain version), which the limit must separate.  The bf16
+# outputs are each the f32 output rounded by at most half a bf16 step (2**-8
+# of the rounded value), so they may differ by that rounding on both sides
+# plus the f32 difference: |got - want| <= 2**-8 (|got| + |want|) +
+# TOL_F32_OUT.
+TOL_F32_OUT = 1e-5
+BF16_HALF_STEP = 2.0 ** -8
+TOL_F32_MODEL = 1e-3             # f32 logits, card vs CPU (sum order)
+
+# The main path's geometry (phases 3-4), which phase 2 also runs.
+FIXED = dict(batch=4, prompt_len=512, gen=64)         # ring of 576 slots
+ENGINE = dict(slots=12, cache_len=128, block_size=16)  # 96-block pool
+ENGINE_POOL_BLOCKS = (ENGINE["slots"] * ENGINE["cache_len"]
+                      // ENGINE["block_size"])
+
+
+def _card() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+class Timer:
+    """Mean device time of one call.  The call is captured once in a CUDA
+    graph and the graph replayed between two CUDA events, so the events
+    bracket the call's device work and not the host's Python between its
+    launches; the 50 MB L2 is flushed before every replay (the main path
+    finds the cache cold: a decode step streams every layer's cache once).
+    """
+
+    def __init__(self):
+        self.flush = torch.empty(64 * 2 ** 20, dtype=torch.float32,
+                                 device="cuda")
+
+    def ms(self, fn, iters: int) -> float:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        torch.cuda.synchronize()
+        evs = [(torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+        for start, end in evs:
+            self.flush.zero_()
+            start.record()
+            graph.replay()
+            end.record()
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in evs) / iters
+
+
+def _bound_ms(nbytes: float, flops: float) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _quant(x):
+    amax = x.abs().amax(-1, keepdim=True)
+    scale = (torch.clamp(amax, min=1e-6) / 127.0).to(torch.bfloat16)
+    q = torch.clamp(torch.round(x / scale.float()), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _decode_case(rows, S: int, int8: bool, paged: bool, *, n_blocks=0,
+                 Hk=8, G=2, D=128, bs=16, seed=0):
+    """Inputs of one decode call at qwen3-0.6b's widths: one row per entry
+    of ``rows`` (its position; -1 is an idle lane, which must come out 0).
+    The ring holds positions 0..q_pos of each row.  The paged pool
+    (``n_blocks`` blocks of ``bs``) shares its first two blocks between all
+    active rows, and leaves the table entries past each row's position,
+    and every entry of an idle lane, ungranted (-1)."""
+    dev = "cuda"
+    B = len(rows)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, 1, Hk * G, D), generator=g, device=dev)
+    q_pos = torch.tensor(rows, dtype=torch.int32, device=dev)
+    if paged:
+        T = S // bs
+        n_blocks = n_blocks or B * T + 8
+        perm = torch.randperm(n_blocks, generator=g, device=dev).tolist()
+        tbl = np.full((B, T), -1, np.int32)
+        kv_pos = np.full((n_blocks, bs), -1, np.int32)
+        nxt = 2
+        for b, qp in enumerate(rows):
+            for j in range(qp // bs + 1 if qp >= 0 else 0):
+                if j < 2:
+                    tbl[b, j] = perm[j]            # shared prefix blocks
+                else:
+                    tbl[b, j] = perm[nxt]
+                    nxt += 1
+                ar = np.arange(j * bs, (j + 1) * bs)
+                kv_pos[tbl[b, j]] = np.where(ar <= qp, ar, -1)
+        kv_shape = (n_blocks, bs, Hk, D)
+        kv_pos = torch.from_numpy(kv_pos).to(dev)
+        tbl = torch.from_numpy(tbl).to(dev)
+    else:
+        kv_shape = (B, S, Hk, D)
+        ar = torch.arange(S, device=dev, dtype=torch.int32)
+        kv_pos = torch.where(ar[None] <= q_pos[:, None], ar[None],
+                             torch.full_like(ar[None], -1)).contiguous()
+        tbl = None
+    k = torch.randn(kv_shape, generator=g, device=dev)
+    v = torch.randn(kv_shape, generator=g, device=dev)
+    kw = {}
+    if int8:
+        k, ks = _quant(k)
+        v, vs = _quant(v)
+        kw = {"k_scale": ks, "v_scale": vs}
+    else:
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    q = q.to(torch.bfloat16)
+    if tbl is not None:
+        kw["block_tables"] = tbl
+    return (q, k, v, kv_pos, q_pos), kw
+
+
+def _needed_slots(args, kw):
+    """Physical slots some row's mask keeps: the data-dependent part of the
+    work (each such K/V row is read once at the least)."""
+    from repro_torch.kernels import flash_decode as fd
+    q, k, v, kv_pos, q_pos = args
+    B = q.shape[0]
+    tbl = kw.get("block_tables")
+    if tbl is None:
+        keep = fd._slot_mask(kv_pos, q_pos[:, None], 0, kind="causal",
+                             window=0)
+        return int(keep.sum())
+    bs = k.shape[1]
+    T = tbl.shape[1]
+    _, _, gpos, _, _ = fd.paged_gather(k, v, kv_pos, None, None, tbl)
+    keep = fd._slot_mask(gpos, q_pos[:, None], 0, kind="causal", window=0)
+    phys = (tbl.clamp(min=0).long()[:, :, None] * bs
+            + torch.arange(bs, device=tbl.device)).reshape(B, T * bs)
+    return int(torch.unique(phys[keep]).numel())
+
+
+def _sdpa_inputs(args, kw):
+    """The library yardstick's inputs: the gathered, dequantized cache in
+    bf16 and a boolean mask, laid out for scaled_dot_product_attention."""
+    from repro_torch.kernels import flash_decode as fd
+    q, k, v, kv_pos, q_pos = args
+    ks, vs = kw.get("k_scale"), kw.get("v_scale")
+    if kw.get("block_tables") is not None:
+        k, v, kv_pos, ks, vs = fd.paged_gather(k, v, kv_pos, ks, vs,
+                                               kw["block_tables"])
+    if ks is not None:
+        k = (k.float() * ks.float()).to(torch.bfloat16)
+        v = (v.float() * vs.float()).to(torch.bfloat16)
+    mask = fd._slot_mask(kv_pos, q_pos[:, None], 0, kind="causal", window=0)
+    return (q.transpose(1, 2), k.transpose(1, 2).contiguous(),
+            v.transpose(1, 2).contiguous(), mask[:, None, None, :])
+
+
+def _f32_outs(args, kw):
+    """The f32 outputs before the cast, (B, Hk, G, D): the kernel's (its
+    partials combined; a comparison launch, not counted) and the plain
+    version's."""
+    from repro_torch.kernels import flash_decode as fd
+    launch, (m, l, acc) = fd.flash_decode_launcher(*args, **kw)
+    launch()
+    got = fd._combine(m[..., None], l[..., None], acc, axis=2)
+    m, l, acc = fd.flash_decode_ref(*args, return_partials=True, **kw)
+    return got, acc / torch.clamp(l, min=1e-30)
+
+
+def _hold_to_plain(label: str, args, kw, got=None) -> float:
+    """Hold one flash-decode call against the plain version on the same
+    inputs: the f32 output within TOL_F32_OUT, the output (``got``, or a
+    new call) within what bf16 rounding allows, idle lanes exactly 0, and a
+    planted fault (the plain version with one KV tile of row 0 dropped)
+    outside TOL_F32_OUT.  Returns the f32 reading."""
+    from repro_torch.kernels import flash_decode as fd
+    if got is None:
+        got = fd.flash_decode_cuda(*args, **kw)
+    want = fd.flash_decode_ref(*args, **kw)
+    k32, r32 = _f32_outs(args, kw)
+    err = float((k32 - r32).abs().max())
+    g, w = got.float(), want.float()
+    over = float(((g - w).abs() - BF16_HALF_STEP * (g.abs() + w.abs())
+                  - TOL_F32_OUT).max())
+    q_pos = fd._rows(args[4], args[0].shape[0], args[0].device)
+    kv_pos, tbl = args[3].clone(), kw.get("block_tables")
+    active = (q_pos >= 0).nonzero().flatten().tolist()
+    b0 = active[0]
+    if tbl is None:                           # the first 128-slot tile of b0
+        kv_pos[b0, :128] = -1
+    else:                                     # its last granted block
+        kv_pos[int(tbl[b0, int(q_pos[b0]) // args[1].shape[1]])] = -1
+    _, planted32 = _f32_outs(args[:3] + (kv_pos, q_pos), kw)
+    planted = float((k32 - planted32).abs().max())
+    idle = [b for b in range(len(q_pos)) if b not in active]
+    _check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+    _check(err <= TOL_F32_OUT, f"{label}: f32 output max err {err} > "
+           f"{TOL_F32_OUT}")
+    _check(over <= 0.0, f"{label}: bf16 output off by more than its "
+           f"rounding allows ({over} over)")
+    _check(not idle or torch.count_nonzero(got[idle]) == 0,
+           f"{label}: idle lane not exactly 0")
+    _check(planted > TOL_F32_OUT, f"{label}: a dropped tile reads {planted}, "
+           f"inside the tolerance {TOL_F32_OUT}")
+    print(f"  {label}: f32 max_abs_err {err:.3g} (tol {TOL_F32_OUT}; one "
+          f"tile dropped reads {planted:.3g}), bf16 max_abs_err "
+          f"{float((g - w).abs().max()):.3g} (within rounding), "
+          f"{len(idle)} idle lanes exactly 0")
+    return err
+
+
+def phase_kernels(card: str, timer: Timer) -> dict:
+    """Every kernel against its plain version at the main path's own call
+    shapes (the fixed batch's ring and the engine's pool, bf16, the rows the
+    JSON line keeps) and at longer caches (S = 1024, 4096; bf16 and int8)."""
+    from repro_torch.kernels import flash_decode as fd
+    F = torch.nn.functional
+    P, gen = FIXED["prompt_len"], FIXED["gen"]
+    S_eng = ENGINE["cache_len"]
+    engine_rows = [S_eng - 1, 100, -1, 64, 17, -1, 90, 40, 3, -1, 111, 56]
+    cases = [("main path: fixed batch ring", [P + gen - 1] * FIXED["batch"],
+              P + gen, False, False, 0),
+             ("main path: engine pool", engine_rows, S_eng, False, True,
+              ENGINE_POOL_BLOCKS)]
+    for S in (1024, 4096):
+        rows4 = [S - 1, S - 100, 3 * S // 4, S // 2 + 5]
+        for int8 in (False, True):
+            for paged in (False, True):
+                cases.append((f"S={S} {'int8' if int8 else 'bf16'}", rows4,
+                              S, int8, paged, 0))
+    rows = {}
+    for label, q_rows, S, int8, paged, n_blocks in cases:
+        name = "flash_decode_paged" if paged else "flash_decode"
+        args, kw = _decode_case(q_rows, S, int8, paged, n_blocks=n_blocks)
+        err = _hold_to_plain(f"{name} {label}", args, kw)
+        q, k, v = args[:3]
+        B, _, H, D = q.shape
+        Hk = k.shape[2]
+        slots = _needed_slots(args, kw)
+        row_bytes = Hk * D * k.element_size() * 2
+        if int8:
+            row_bytes += Hk * 2 * 2          # bf16 scales
+        tbl = kw.get("block_tables")
+        meta = (args[3].numel() * 4 +
+                (tbl.numel() * 4 if tbl is not None else 0))
+        nbytes = (q.numel() * 2 + slots * row_bytes + meta + B * H * D * 2)
+        flops = 4 * (H // Hk) * D * Hk * slots
+        bound, by = _bound_ms(nbytes, flops)
+        ms = timer.ms(lambda: fd.flash_decode_cuda(*args, **kw), 50)
+        launch, _ = fd.flash_decode_launcher(*args, **kw)
+        kernel_ms = timer.ms(launch, 50)
+        plain = timer.ms(lambda: fd.flash_decode_ref(*args, **kw), 5)
+        sq, sk, sv, smask = _sdpa_inputs(args, kw)
+        lib = timer.ms(lambda: F.scaled_dot_product_attention(
+            sq, sk, sv, attn_mask=smask, enable_gqa=True), 50)
+        print(f"[{card}] kernel {name} {label} (B={B}, S={S}): wrapper "
+              f"{ms:.4f} ms, kernel alone {kernel_ms:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {bound:.4f} ms ({by}, "
+              f"{nbytes / 1e6:.2f} MB), sdpa {lib:.4f} ms")
+        if label.startswith("main path"):        # the rows the JSON keeps
+            rows[name] = dict(max_abs_err=err, ms=ms, kernel_ms=kernel_ms,
+                              plain_ms=plain, bound_ms=bound, bound_by=by,
+                              library_ms=lib, shape=label)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    n_blocks = ENGINE_POOL_BLOCKS                  # the engine's pool leaves
+    for leaf_name, shape, dtype in (
+            ("k", (28, n_blocks, 16, 8, 128), torch.bfloat16),
+            ("kv_pos", (28, n_blocks, 16), torch.int32)):
+        base = torch.randint(-1000, 1000, shape, generator=g, device="cuda")
+        leaf = base.to(dtype)
+        want = leaf.clone()
+        fd.paged_block_copy_ref(want, 5, 40)
+        fd.paged_block_copy_cuda(leaf, 5, 40)
+        torch.cuda.synchronize()
+        _check(torch.equal(leaf, want), f"block copy {leaf_name} not exact")
+        nbytes = 2 * shape[0] * leaf[0, 0].numel() * leaf.element_size()
+        bound, by = _bound_ms(nbytes, 0.0)
+        ms = timer.ms(lambda: fd.paged_block_copy_cuda(leaf, 5, 40), 50)
+        plain = timer.ms(lambda: fd.paged_block_copy_ref(leaf, 5, 40), 50)
+        lib = timer.ms(lambda: leaf[:, 40].copy_(leaf[:, 5]), 50)
+        print(f"[{card}] kernel paged_block_copy {leaf_name} "
+              f"{tuple(shape)} {str(dtype)[6:]}: max_abs_err 0 (exact), "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} "
+              f"ms ({by}, {nbytes / 1e6:.2f} MB), copy_ {lib:.4f} ms")
+        if leaf_name == "k":               # the wrapper runs only the kernel
+            rows["paged_block_copy"] = dict(
+                max_abs_err=0.0, ms=ms, kernel_ms=ms, plain_ms=plain,
+                bound_ms=bound, bound_by=by, library_ms=lib,
+                shape=f"engine pool leaf {tuple(shape)}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 3-4: the main path at full width
+# ---------------------------------------------------------------------------
+
+def _engine_trace(cfg):
+    """Eight Poisson requests from the launcher's trace maker plus a
+    shared-prefix cluster: a donor, a divergent tail and two identical
+    replays of a 40-token core.  The core ends inside its third 16-slot
+    block, so a replay's first own token lands in a shared block and
+    copy-on-write fires."""
+    from repro_torch.launch.serve import make_trace
+    gen = 16
+    trace = make_trace(cfg, 8, gen=gen, max_prompt=96, rate=1.0, seed=0)
+    rng = np.random.default_rng(1)
+    core = rng.integers(0, cfg.vocab_size, 40).tolist()
+    tail = rng.integers(0, cfg.vocab_size, 8).tolist()
+    for rid, prompt, arrival in (("cd", core, 0), ("ct", core + tail, 2),
+                                 ("cu0", core, 3), ("cu1", core, 4)):
+        trace.append({"id": rid, "prompt": prompt, "max_new_tokens": gen,
+                      "arrival_step": arrival})
+    return sorted(trace, key=lambda r: r["arrival_step"])
+
+
+class _CallRecorder:
+    """Wraps the flash-decode wrapper during the main path and keeps a copy
+    of the inputs and output of every ``every``-th call of each layout (at
+    most ``keep`` each), to be held against the plain version after the run.
+    The wrapped call itself is unchanged, so is its launch count."""
+
+    def __init__(self, fd, every: int = 500, keep: int = 4):
+        self.fd, self.real = fd, fd.flash_decode_cuda
+        self.every, self.keep = every, keep
+        self.seen = {"ring": 0, "paged": 0}
+        self.calls = []
+
+    def __enter__(self):
+        self.fd.flash_decode_cuda = self
+        return self
+
+    def __exit__(self, *exc):
+        self.fd.flash_decode_cuda = self.real
+
+    def __call__(self, *args, **kw):
+        out = self.real(*args, **kw)
+        layout = "ring" if kw.get("block_tables") is None else "paged"
+        n = self.seen[layout]
+        self.seen[layout] += 1
+        if n % self.every == 0 and n // self.every < self.keep:
+            copy = lambda x: x.clone() if torch.is_tensor(x) else x
+            self.calls.append((f"{layout} call {n}",
+                               tuple(copy(a) for a in args),
+                               {k: copy(v) for k, v in kw.items()},
+                               out.clone()))
+        return out
+
+
+def phase_main_path(card: str, cfg, params) -> dict:
+    from repro_torch.kernels import flash_decode as fd
+    with _CallRecorder(fd) as recorder:
+        launches = _run_main_path(card, cfg, params)
+    print(f"[{card}] the main path's own flash-decode calls, held against "
+          f"the plain version on copies of their inputs:")
+    for label, args, kw, out in recorder.calls:
+        _hold_to_plain(f"{label}, q {tuple(args[0].shape)}, k "
+                       f"{tuple(args[1].shape)}", args, kw, got=out)
+    _check({l.split()[0] for l, *_ in recorder.calls} == {"ring", "paged"},
+           "no main-path call of each layout was recorded")
+    return launches
+
+
+def _run_main_path(card: str, cfg, params) -> dict:
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.launch.serve import run_engine, run_fixed_batch
+    from repro_torch.models import transformer
+
+    fd.reset_launches()
+    t0 = time.perf_counter()
+    res = run_fixed_batch(cfg, params, device="cuda", quiet=True, **FIXED)
+    wall = time.perf_counter() - t0
+    _check(res["finite"], "fixed batch: non-finite logits")
+    _check(res["tokens"].shape == (4, 65), "fixed batch: token shape")
+    fixed_launches = dict(fd.LAUNCHES)
+    _check(fixed_launches["flash_decode"] == 64 * cfg.num_layers,
+           f"fixed batch: {fixed_launches} contiguous launches")
+    print(f"[{card}] fixed batch qwen3-0.6b full width: prefill 4x512 "
+          f"{res['prefill_tok_per_s']:.0f} tok/s, decode first step "
+          f"{res['first_step_s']:.3f} s, steady "
+          f"{res['decode_tok_per_s']:.1f} tok/s (63 steps x 4), "
+          f"wall {wall:.1f} s, launches {fixed_launches}")
+
+    finite = []
+    logits_fn = transformer.logits_fn
+
+    def checked_logits(*a, **k):              # every logits tensor the
+        lg = logits_fn(*a, **k)                # engine computes
+        finite.append(torch.isfinite(lg).all())
+        return lg
+
+    trace = _engine_trace(cfg)
+    transformer.logits_fn = checked_logits
+    try:
+        t0 = time.perf_counter()
+        done, summ, engine = run_engine(cfg, params, trace, device="cuda",
+                                        quiet=True, **ENGINE)
+        wall = time.perf_counter() - t0
+    finally:
+        transformer.logits_fn = logits_fn
+    launches = dict(fd.LAUNCHES)
+    _check(len(done) == len(trace), "engine: not every request finished")
+    for r in trace:
+        _check(len(done[r["id"]].tokens) == r["max_new_tokens"],
+               f"engine: {r['id']} stopped short")
+    _check(all(bool(f) for f in finite), "engine: non-finite logits")
+    _check(summ["cow_copies"] >= 1, "engine: copy-on-write never fired")
+    _check(summ["full_prompt_hits"] >= 1, "engine: no full-prompt hit")
+    engine.pool.assert_partition()
+    _check(engine.pool.blocks_in_use == 0, "engine: blocks leaked")
+    _check(engine.pool.pool_blocks == ENGINE_POOL_BLOCKS,
+           "engine: pool geometry differs from the one phase 2 checks")
+    for name in ("flash_decode", "flash_decode_paged", "paged_block_copy"):
+        _check(launches[name] > 0, f"main path never launched {name}")
+    print(f"[{card}] engine qwen3-0.6b full width, paged + prefix sharing: "
+          f"{summ['requests']} requests, {summ['decode_tokens']} decode "
+          f"tokens in {summ['decode_steps']} steps, "
+          f"{summ['steady_tok_per_s']:.1f} tok/s steady, itl p50 "
+          f"{summ['itl_p50_s'] * 1e3:.2f} ms, ttft p50 "
+          f"{summ['ttft_p50_s'] * 1e3:.1f} ms, share hits "
+          f"{summ['share_hits']} ({summ['full_prompt_hits']} full), cow "
+          f"{summ['cow_copies']}, {len(finite)} logits tensors finite, "
+          f"wall {wall:.1f} s")
+    print(f"[{card}] main-path launches (fixed batch + engine): {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5: small-input reference
+# ---------------------------------------------------------------------------
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def phase_reference(card: str) -> None:
+    """Smoke config in f32: the card (kernels) against the CPU (plain
+    versions), same weights, teacher-forced tokens; ring and paged."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.registry import get_model
+    cfg = get_smoke_config("qwen3-0.6b")
+    api = get_model(cfg)
+    params = api.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (3, 20)))
+    teacher = torch.as_tensor(rng.integers(0, cfg.vocab_size, (8, 3, 1)))
+    ring, bs = 32, 8
+    table = torch.tensor([[3, 9, 0, 6], [1, 11, 4, -1], [10, 2, 7, 5]],
+                         dtype=torch.int32)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        for layout in ("ring", "paged"):
+            cache, lg = api.prefill(p, cfg, {"tokens": prompt.to(dev)},
+                                    cache_len=ring)
+            steps = [lg]
+            batch = {}
+            if layout == "paged":
+                pool = {}
+                for name, leaf in cache.items():
+                    fill = -1 if leaf.dtype == torch.int32 else 0
+                    shape = (leaf.shape[0], 12, bs) + tuple(leaf.shape[3:])
+                    pl = torch.full(shape, fill, dtype=leaf.dtype, device=dev)
+                    for b in range(3):
+                        for j in range(4):
+                            if table[b, j] >= 0:
+                                pl[:, int(table[b, j])] = \
+                                    leaf[:, b, j * bs:(j + 1) * bs]
+                    pool[name] = pl
+                cache = pool
+                batch = {"block_tbl": table.to(dev), "ring_len": ring}
+            for i in range(8):
+                pos = torch.tensor([20 + i, 20 + i, -1 if i % 2 else 20 + i],
+                                   device=dev)
+                if layout == "ring":
+                    pos = 20 + i
+                lg, cache = api.decode_step(
+                    p, cfg, cache,
+                    {"token": teacher[i].to(dev), "pos": pos, **batch})
+                steps.append(lg)
+            outs[(dev, layout)] = torch.cat([s.cpu() for s in steps], 1)
+    for layout in ("ring", "paged"):
+        a, b = outs[("cuda", layout)], outs[("cpu", layout)]
+        _check(a.shape == (3, 9, cfg.vocab_size), "reference: logits shape")
+        _check(bool(torch.isfinite(a).all()), "reference: non-finite")
+        err = float((a - b).abs().max())
+        _check(err <= TOL_F32_MODEL, f"reference {layout}: card vs CPU "
+               f"logits max err {err} > {TOL_F32_MODEL}")
+        print(f"[{card}] reference smoke f32 {layout}: card vs CPU logits "
+              f"max_abs_err {err:.3g} (tol {TOL_F32_MODEL}), 9 steps x 3 "
+              f"rows")
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this script runs on "
+                         "the card only")
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models.registry import get_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = _card()
+    print(f"card: {card}; torch {torch.__version__}, cuda "
+          f"{torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    logs = build.build()
+    build_s = time.perf_counter() - t0
+    print(f"[{card}] build: {build_s:.1f} s for {sorted(logs) or 'nothing'} "
+          f"(one nvcc per source, in parallel)")
+    for name, log in sorted(logs.items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+
+    timer = Timer()
+    rows = phase_kernels(card, timer)
+    del timer
+
+    cfg = get_config("qwen3-0.6b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = get_model(cfg).init(cfg, gen, device="cuda")
+    launches = phase_main_path(card, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+
+    phase_reference(card)
+
+    src = {"flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
+                            "src/repro/kernels/flash_decode.py:299"),
+           "flash_decode_paged": ("src/repro_torch/csrc/flash_decode.cu",
+                                  "src/repro/kernels/flash_decode.py:377"),
+           "paged_block_copy": ("src/repro_torch/csrc/block_copy.cu",
+                                "src/repro/kernels/flash_decode.py:437")}
+    kernels = [{"name": name, "route": "cuda", "source": src[name][0],
+                "replaces": src[name][1], "launches": launches[name],
+                **rows[name]} for name in src]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,37 @@
+"""Architecture registry: ``--arch <id>`` resolution for the port's
+launchers and tests.  Only the architectures the port serves are listed."""
+
+from __future__ import annotations
+
+import importlib
+from typing import Dict, Tuple
+
+from repro_torch.configs.base import ModelConfig
+
+# arch id -> module name under repro_torch.configs
+_ARCH_MODULES: Dict[str, str] = {
+    "qwen3-0.6b": "qwen3_0_6b",
+}
+
+ALL_ARCHS: Tuple[str, ...] = tuple(_ARCH_MODULES)
+
+
+def _module(arch: str):
+    if arch not in _ARCH_MODULES:
+        raise KeyError(
+            f"unknown arch {arch!r}; available: {', '.join(sorted(_ARCH_MODULES))}"
+        )
+    return importlib.import_module(
+        f"repro_torch.configs.{_ARCH_MODULES[arch]}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    cfg = _module(arch).CONFIG
+    cfg.validate()
+    return cfg
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    cfg = _module(arch).smoke_config()
+    cfg.validate()
+    return cfg

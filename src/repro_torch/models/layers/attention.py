@@ -1,0 +1,272 @@
+"""Attention: GQA + qk-norm + logit softcap + sliding window + prefix-LM,
+with a ring-buffer (or paged-pool) KV cache for decode.
+
+Position-based masking: every mask is derived from the absolute positions
+of the query rows (``q_pos``) and of the KV slots (``kv_pos``); a slot with
+position ``-1`` is invalid (empty ring slot).  One rule serves prefill,
+sliding-window decode and prefix-LM.
+
+Decode writes the new token's K/V into the cache IN PLACE (the reference
+returns a new cache); ``attn_decode`` returns the same dict it was given.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers.embeddings import apply_rope
+from repro_torch.models.layers.linear import dense, init_dense
+from repro_torch.models.layers.norms import init_rmsnorm, rmsnorm
+
+_NEG_INF = torch.finfo(torch.float32).min
+
+
+def init_attention(generator: torch.Generator, cfg, *, layers: int = 0,
+                   dtype=torch.float32, device=None):
+    """q/k/v/o projections (+ per-head qk RMSNorm scales)."""
+    dh = cfg.resolved_head_dim()
+    kw = dict(layers=layers, dtype=dtype, device=device)
+    p = {
+        "wq": init_dense(generator, cfg.d_model, cfg.num_heads * dh, **kw),
+        "wk": init_dense(generator, cfg.d_model, cfg.num_kv_heads * dh, **kw),
+        "wv": init_dense(generator, cfg.d_model, cfg.num_kv_heads * dh, **kw),
+        "wo": init_dense(generator, cfg.num_heads * dh, cfg.d_model, **kw),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = init_rmsnorm(dh, layers=layers, device=device)
+        p["k_norm"] = init_rmsnorm(dh, layers=layers, device=device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Masking and full-sequence attention
+# ---------------------------------------------------------------------------
+
+def _as_b(pos, batch: int, device) -> torch.Tensor:
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=device)
+    if pos.ndim == 1:
+        pos = pos[None, :].expand(batch, pos.shape[0])
+    return pos
+
+
+def _mask(q_pos, kv_pos, kind: str, window: int, prefix_len):
+    """(B, 1, 1, Sq, Skv) boolean mask from absolute positions."""
+    qp = q_pos[:, None, None, :, None]
+    kp = kv_pos[:, None, None, None, :]
+    valid = kp >= 0
+    if kind == "causal":
+        m = kp <= qp
+    elif kind == "prefix":
+        pl = torch.as_tensor(prefix_len, dtype=torch.int32,
+                             device=qp.device).reshape(-1, 1, 1, 1, 1)
+        m = (kp <= qp) | (kp < pl)
+    elif kind == "full":
+        m = torch.ones(qp.shape[:-1] + (kp.shape[-1],), dtype=torch.bool,
+                       device=qp.device)
+    else:
+        raise ValueError(kind)
+    if window > 0 and kind != "full":
+        m = m & (qp - kp < window)
+    return m & valid
+
+
+def sdpa(q, k, v, *, q_pos, kv_pos, kind: str = "causal", window: int = 0,
+         prefix_len=None, softcap: float = 0.0):
+    """Naive scaled dot-product attention with f32 scores and softmax.
+
+    q: (B, Sq, H, D); k, v: (B, Skv, Hk, D); returns (B, Sq, H, D) in
+    q.dtype.  The reference's blockwise path for 4k+ prefills is not ported
+    yet.
+    """
+    B, Sq, H, D = q.shape
+    Hk = k.shape[2]
+    G = H // Hk
+    q_pos = _as_b(q_pos, B, q.device)
+    kv_pos = _as_b(kv_pos, B, q.device)
+    qg = q.reshape(B, Sq, Hk, G, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * D ** -0.5
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    m = _mask(q_pos, kv_pos, kind, window, prefix_len)
+    s = torch.where(m, s, torch.full_like(s, _NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    # fully-masked rows produce uniform garbage; zero them via the mask
+    p = torch.where(m.any(dim=-1, keepdim=True), p,
+                    torch.zeros_like(p)).to(q.dtype)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(q.dtype))
+    return o.reshape(B, Sq, H, D)
+
+
+def _project_qkv(params, cfg, x, positions):
+    dh = cfg.resolved_head_dim()
+    B, S = x.shape[0], x.shape[1]
+    q = dense(params["wq"], x).reshape(B, S, cfg.num_heads, dh)
+    k = dense(params["wk"], x).reshape(B, S, cfg.num_kv_heads, dh)
+    v = dense(params["wv"], x).reshape(B, S, cfg.num_kv_heads, dh)
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
+    pos = _as_b(positions, B, x.device)
+    return (apply_rope(q, pos, cfg.rope_theta),
+            apply_rope(k, pos, cfg.rope_theta), v)
+
+
+def attention(params, cfg, x, *, positions, kind: str = "causal",
+              window: int = 0, prefix_len=None, return_kv: bool = False):
+    """Full-sequence self-attention. x: (B, S, d) -> (B, S, d)."""
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    o = sdpa(q, k, v, q_pos=positions, kv_pos=positions, kind=kind,
+             window=window, prefix_len=prefix_len,
+             softcap=cfg.attn_logit_softcap)
+    B, S = x.shape[0], x.shape[1]
+    y = dense(params["wo"], o.reshape(B, S, -1))
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Decode with ring-buffer / paged KV cache
+# ---------------------------------------------------------------------------
+
+def kv_cache_int8() -> bool:
+    """int8 KV cache with per-slot, per-head absmax scales; the reference's
+    ``REPRO_KV_INT8`` switch, read the same way."""
+    return os.environ.get("REPRO_KV_INT8", "0") == "1"
+
+
+def init_attn_cache(batch: int, cache_len: int, num_kv_heads: int,
+                    head_dim: int, *, layers: int = 0, dtype=torch.bfloat16,
+                    device=None):
+    """Empty ring cache (all positions -1); ``layers`` > 0 stacks a leading
+    layer axis.  For a paged pool, ``batch`` is the block count and
+    ``cache_len`` the block size."""
+    lead = (layers,) if layers else ()
+    shape = lead + (batch, cache_len, num_kv_heads, head_dim)
+    pos = torch.full(lead + (batch, cache_len), -1, dtype=torch.int32,
+                     device=device)
+    if kv_cache_int8():
+        sshape = shape[:-1] + (1,)
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(sshape, dtype=torch.bfloat16,
+                                   device=device),
+            "v_scale": torch.zeros(sshape, dtype=torch.bfloat16,
+                                   device=device),
+            "kv_pos": pos,
+        }
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "kv_pos": pos}
+
+
+def _quant_kv(x):
+    """(..., dh) -> (int8 codes, bf16 scales (..., 1))."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-6) / 127.0
+    q = torch.clamp(torch.round(x32 / scale), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def _write_rows(buf, idx, keep, val):
+    """``buf[idx[b]] = val[b]`` for the rows where ``keep[b]``, without a
+    host sync.  A row that must not write (inactive lane, ungranted block)
+    is pointed at the first kept row's target with that row's value, so
+    duplicate indices always carry one value; with no kept row every row
+    rewrites the value already stored at index 0."""
+    first = keep.to(torch.int32).argmax().reshape(1)   # 0 when none kept
+    any_keep = keep.index_select(0, first)[0]
+    tgt = torch.where(any_keep, idx.index_select(0, first)[0],
+                      torch.zeros_like(idx[0]))
+    val_first = torch.where(any_keep, val.index_select(0, first)[0],
+                            buf.index_select(0, tgt.reshape(1))[0])
+    rows = keep.reshape((-1,) + (1,) * (val.ndim - 1))
+    buf[torch.where(keep, idx, tgt)] = torch.where(rows, val, val_first)
+
+
+def attn_decode(params, cfg, x_t, cache, pos, *, window: int = 0,
+                kind: str = "causal", prefix_len=None, block_tbl=None,
+                ring_len=None):
+    """One decode step.
+
+    x_t: (B, 1, d); ``pos`` a scalar (every row at one position) or (B,)
+    per-row positions (ragged continuous batching; ``pos[b] == -1`` marks
+    row b inactive: its ring slot is left untouched and its output is
+    fully masked, so exactly 0).  cache: one layer's ring from
+    ``init_attn_cache``.  Returns (y_t, cache) with the cache updated in
+    place.
+
+    Paged mode (``block_tbl`` (B, T) int32 + ``ring_len``): the cache
+    leaves are a shared block pool — k/v (n_blocks, bs, Hk, D), kv_pos
+    (n_blocks, bs) — and row b's ring slot ``pos % ring_len`` resolves
+    through its table row to a physical slot.  Inactive rows and ungranted
+    blocks write nothing (live requests never share a write block: the
+    engine copies a shared block before writing into it).
+
+    Attention over the cache goes through ``ops.flash_decode``: the CUDA
+    kernel on the card, its plain version on the CPU.
+    """
+    B = x_t.shape[0]
+    dev = x_t.device
+    paged = block_tbl is not None
+    int8 = "k_scale" in cache
+    if isinstance(pos, int):           # a device fill, not a blocking copy
+        pos = torch.full((), pos, dtype=torch.int32, device=dev)
+    pos = pos.to(device=dev, dtype=torch.int32)
+    ragged = pos.ndim == 1
+    if paged and not ragged:
+        raise ValueError("paged decode requires per-row (B,) positions")
+    pos_b = pos[:, None] if ragged else pos.reshape(1, 1).expand(B, 1)
+    q, k_t, v_t = _project_qkv(params, cfg, x_t, pos_b)
+    new = {}
+    if int8:
+        new["k"], new["k_scale"] = _quant_kv(k_t[:, 0])
+        new["v"], new["v_scale"] = _quant_kv(v_t[:, 0])
+    else:
+        new["k"], new["v"] = k_t[:, 0], v_t[:, 0]
+
+    if paged:
+        n_blocks, bs = cache["k"].shape[:2]
+        slot = torch.remainder(pos.clamp(min=0), ring_len)
+        rows = torch.arange(B, device=dev)
+        pb = block_tbl[rows, slot // bs].long()            # physical block
+        keep = (pos >= 0) & (pb >= 0)
+        idx = pb * bs + slot % bs
+        for name, val in new.items():
+            buf = cache[name]
+            _write_rows(buf.view((n_blocks * bs,) + buf.shape[2:]), idx,
+                        keep, val.to(buf.dtype))
+        _write_rows(cache["kv_pos"].view(-1), idx, keep, pos)
+    elif ragged:
+        # every row writes its own lane: inactive rows rewrite the old slot
+        cache_len = cache["k"].shape[1]
+        active = pos >= 0
+        slots = torch.remainder(pos.clamp(min=0), cache_len).long()
+        rows = torch.arange(B, device=dev)
+        for name, val in new.items():
+            buf = cache[name]
+            keep = active.reshape((B,) + (1,) * (val.ndim - 1))
+            buf[rows, slots] = torch.where(keep, val.to(buf.dtype),
+                                           buf[rows, slots])
+        kvp = cache["kv_pos"]
+        kvp[rows, slots] = torch.where(active, pos, kvp[rows, slots])
+    else:
+        cache_len = cache["k"].shape[1]
+        slot = torch.remainder(pos, cache_len).reshape(1).long()
+        for name, val in new.items():
+            buf = cache[name]
+            buf.index_copy_(1, slot, val[:, None].to(buf.dtype))
+        cache["kv_pos"].index_copy_(1, slot, pos_b)
+
+    o = ops.flash_decode(
+        q.contiguous(), cache["k"], cache["v"], cache["kv_pos"], pos,
+        k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+        kind=kind, window=window, prefix_len=prefix_len,
+        softcap=cfg.attn_logit_softcap, block_tables=block_tbl)
+    y = dense(params["wo"], o.reshape(B, 1, -1))
+    return y, cache

@@ -1,0 +1,23 @@
+"""RMSNorm (f32 inside, cast back)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def init_rmsnorm(dim: int, *, layers: int = 0, device=None):
+    """Scale of ones, f32 whatever the model's dtype (as the reference);
+    ``layers`` > 0 stacks a leading layer axis."""
+    shape = (layers, dim) if layers else (dim,)
+    return {"scale": torch.ones(shape, dtype=torch.float32, device=device)}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6, *,
+            gemma_style: bool = False) -> torch.Tensor:
+    """RMSNorm in f32, cast back. ``gemma_style`` uses (1 + scale)."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * (var + eps) ** -0.5
+    scale = params["scale"].float()
+    y = y * (1.0 + scale) if gemma_style else y * scale
+    return y.to(x.dtype)

@@ -1,0 +1,241 @@
+"""Dense decoder-only transformer (qwen3-style: GQA + qk-norm, tied
+embeddings, SwiGLU).
+
+Parameters are a nested dict of tensors laid out as the reference's pytree:
+every leaf under ``"layers"`` carries a leading layer axis (the reference
+stacks layers with ``jax.vmap``), and ``w`` matrices are (in, out).  The
+reference's ``lax.scan`` over layers is a Python loop here.  Decode updates
+the cache in place.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers.attention import (_quant_kv, attention,
+                                                 attn_decode, init_attention,
+                                                 init_attn_cache,
+                                                 kv_cache_int8)
+from repro_torch.models.layers.embeddings import (embed, init_embedding,
+                                                  unembed)
+from repro_torch.models.layers.linear import dense, init_dense
+from repro_torch.models.layers.mlp import init_mlp, mlp
+from repro_torch.models.layers.norms import init_rmsnorm, rmsnorm
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg`` is a model this port runs."""
+    unported = [f for f, on in (("local_global_alternating",
+                                 cfg.local_global_alternating),
+                                ("post_block_norm", cfg.post_block_norm))
+                if on]
+    if cfg.family != "dense" or unported:
+        raise NotImplementedError(
+            f"{cfg.name}: only the plain dense family is ported "
+            f"(family {cfg.family!r}, unported options {unported})")
+
+
+def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
+    """Random parameters drawn from ``generator`` (which must live on
+    ``device``), with the reference's shapes, dtypes and scales."""
+    check_ported(cfg)
+    dtype = dtype_of(cfg.param_dtype)
+    L = cfg.num_layers
+    kw = dict(layers=L, dtype=dtype, device=device)
+    p = {
+        "embed": init_embedding(generator, cfg.vocab_size, cfg.d_model,
+                                dtype=dtype, device=device),
+        "layers": {
+            "attn_norm": init_rmsnorm(cfg.d_model, layers=L, device=device),
+            "attn": init_attention(generator, cfg, **kw),
+            "mlp_norm": init_rmsnorm(cfg.d_model, layers=L, device=device),
+            "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, **kw),
+        },
+        "final_norm": init_rmsnorm(cfg.d_model, device=device),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = init_dense(generator, cfg.d_model, cfg.vocab_size,
+                                  dtype=dtype, device=device)
+    return p
+
+
+def layer(tree, i: int):
+    """Layer ``i``'s slice of a layer-stacked dict (views, no copies)."""
+    return {k: layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Blocks and the full-sequence trunk
+# ---------------------------------------------------------------------------
+
+def _block(p, cfg: ModelConfig, x, *, positions, window, kind="causal",
+           prefix_len=None, capture=None):
+    """One pre-norm block.  With ``capture`` (a list) the layer's post-RoPE
+    (k, v) is appended to it (prefill)."""
+    a_in = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
+    h = attention(p["attn"], cfg, a_in, positions=positions, kind=kind,
+                  window=window, prefix_len=prefix_len,
+                  return_kv=capture is not None)
+    if capture is not None:
+        h, kv = h
+        capture.append(kv)
+    x = x + h
+    return x + mlp(p["mlp"], rmsnorm(p["mlp_norm"], x, cfg.norm_eps),
+                   cfg.activation)
+
+
+def forward_hidden(params, cfg: ModelConfig, x, *, positions,
+                   prefix_len=None, kind: str = "causal"):
+    """Embedded input (B, S, d) -> final hidden (B, S, d)."""
+    kind = "prefix" if prefix_len is not None else kind
+    for i in range(cfg.num_layers):
+        x = _block(layer(params["layers"], i), cfg, x, positions=positions,
+                   window=cfg.sliding_window, kind=kind,
+                   prefix_len=prefix_len)
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def embed_tokens(params, cfg: ModelConfig, tokens):
+    x = embed(params["embed"], tokens).to(dtype_of(cfg.compute_dtype))
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
+    return x
+
+
+def logits_fn(params, cfg: ModelConfig, hidden):
+    if cfg.tie_embeddings:
+        lg = unembed(params["embed"], hidden)
+    else:
+        lg = dense(params["lm_head"], hidden)
+    if cfg.final_logit_softcap > 0:
+        c = cfg.final_logit_softcap
+        lg = c * torch.tanh(lg / c)
+    return lg
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def ring_length(cfg: ModelConfig, seq_len: int, *,
+                force_window: int = 0) -> int:
+    """Ring-buffer slots per layer: the window when one applies, else the
+    whole sequence."""
+    w = force_window or cfg.sliding_window
+    return min(seq_len, w) if w > 0 else seq_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
+               force_window: int = 0, dtype=torch.bfloat16, device="cuda"):
+    """Layer-stacked ring caches: leaves (L, batch, ring, ...)."""
+    check_ported(cfg)
+    return init_attn_cache(batch, ring_length(cfg, seq_len,
+                                              force_window=force_window),
+                           cfg.num_kv_heads, cfg.resolved_head_dim(),
+                           layers=cfg.num_layers, dtype=dtype, device=device)
+
+
+def decode_step(params, cfg: ModelConfig, cache, token, pos, *,
+                force_window: int = 0, prefix_len=None, block_tbl=None,
+                ring_len=None):
+    """token (B, 1) int, pos scalar or (B,) -> (logits (B, 1, V), cache).
+
+    The cache is updated in place and returned.  ``block_tbl``/``ring_len``
+    select the paged-pool layout (one shared block pool per layer, one
+    table for every layer; see ``repro_torch.serve.cache_pool``)."""
+    x = embed_tokens(params, cfg, token)
+    w = force_window or cfg.sliding_window
+    for i in range(cfg.num_layers):
+        lp = layer(params["layers"], i)
+        h, _ = attn_decode(lp["attn"], cfg,
+                           rmsnorm(lp["attn_norm"], x, cfg.norm_eps),
+                           layer(cache, i), pos, window=w,
+                           prefix_len=prefix_len, block_tbl=block_tbl,
+                           ring_len=ring_len)
+        x = x + h
+        x = x + mlp(lp["mlp"], rmsnorm(lp["mlp_norm"], x, cfg.norm_eps),
+                    cfg.activation)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return logits_fn(params, cfg, x), cache
+
+
+# ---------------------------------------------------------------------------
+# Prefill: full forward capturing KV into ring caches + last-token logits
+# ---------------------------------------------------------------------------
+
+def _scatter_ring(k, v, positions, cache_len: int):
+    """k, v: (B, S, Hk, dh) post-RoPE -> ring cache of ``cache_len`` slots
+    holding the last ``cache_len`` positions (int8 when REPRO_KV_INT8)."""
+    B, S = k.shape[:2]
+    take = min(S, cache_len)
+    pos_tail = positions[-take:]
+    slots = torch.remainder(pos_tail, cache_len).long()
+
+    def scatter(val):
+        out = torch.zeros((B, cache_len) + tuple(val.shape[2:]),
+                          dtype=val.dtype, device=val.device)
+        out[:, slots] = val[:, -take:]
+        return out
+
+    cp = torch.full((B, cache_len), -1, dtype=torch.int32, device=k.device)
+    cp[:, slots] = pos_tail[None].expand(B, take)
+    if kv_cache_int8():
+        kq, ks = _quant_kv(k)
+        vq, vs = _quant_kv(v)
+        return {"k": scatter(kq), "v": scatter(vq), "k_scale": scatter(ks),
+                "v_scale": scatter(vs), "kv_pos": cp}
+    return {"k": scatter(k), "v": scatter(v), "kv_pos": cp}
+
+
+def _finalize_prefill(params, cfg: ModelConfig, x, cache, true_len):
+    """Last-token logits; with ``true_len`` (B,) (right-padded prompts)
+    logits come from row position ``true_len - 1`` and ring slots written
+    by pad positions are invalidated (kv_pos -> -1)."""
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    B, S = x.shape[:2]
+    if true_len is None:
+        return cache, logits_fn(params, cfg, x[:, -1:, :])
+    tl = torch.as_tensor(true_len, dtype=torch.int32,
+                         device=x.device).reshape(-1).expand(B)
+    rows = torch.arange(B, device=x.device)
+    last = x[rows, torch.clamp(tl - 1, 0, S - 1).long()][:, None, :]
+    kvp = cache["kv_pos"]                        # (L, B, cache_len)
+    cache["kv_pos"] = torch.where(kvp >= tl[None, :, None],
+                                  torch.full_like(kvp, -1), kvp)
+    return cache, logits_fn(params, cfg, last)
+
+
+def prefill(params, cfg: ModelConfig, tokens, *, force_window: int = 0,
+            prefix_len=None, cache_len: int = 0, true_len=None):
+    """tokens (B, S) -> (cache, last-token logits (B, 1, V)).
+
+    Runs the trunk layer by layer, capturing each layer's (k, v) into its
+    ring buffer (layer-stacked leaves (L, B, ring, ...)).  ``true_len`` (B,)
+    marks rows right-padded to a bucket length."""
+    check_ported(cfg)
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    x = embed_tokens(params, cfg, tokens)
+    kind = "prefix" if prefix_len is not None else "causal"
+    ring = ring_length(cfg, max(S, cache_len), force_window=force_window)
+    w = force_window or cfg.sliding_window
+    cache_dtype = dtype_of(cfg.compute_dtype)
+    rings = []
+    for i in range(cfg.num_layers):
+        kv = []
+        x = _block(layer(params["layers"], i), cfg, x, positions=positions,
+                   window=w, kind=kind, prefix_len=prefix_len, capture=kv)
+        k, v = kv[0]
+        rings.append(_scatter_ring(k.to(cache_dtype), v.to(cache_dtype),
+                                   positions, ring))
+    cache = {name: torch.stack([r[name] for r in rings])
+             for name in rings[0]}
+    return _finalize_prefill(params, cfg, x, cache, true_len)

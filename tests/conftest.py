@@ -20,3 +20,8 @@ def rng():
 @pytest.fixture()
 def key():
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU with nvcc; skips without one")

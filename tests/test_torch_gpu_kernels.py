@@ -1,0 +1,246 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU with sm_90a and nvcc; without one it
+skips.  This file imports neither jax nor the JAX package (the card's
+machine has no jax), so on that machine it runs without the repository's
+conftest:
+
+  PYTHONPATH=src python -m pytest -q --noconftest -m gpu \
+      tests/test_torch_gpu_kernels.py
+
+Tolerances: the f32 output before its cast to q's dtype (acc / l of the
+partials) within 1e-5 for every cache type, since both sides see the same
+inputs and differ only in the order of their sums; a bf16 output within
+what rounding those f32 outputs allows: |got - want| <= 2**-8 (|got| +
+|want|) + 1e-5 (each side rounds by at most half a bf16 step, 2**-8 of its
+value).  Block copies
+and empty rows are exact.  The kernel is built for G = 2 and D in {64, 128}
+(the ported configurations' head geometries) and refuses the rest.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import ops
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA not available)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _quant(x):
+    amax = x.abs().amax(-1, keepdim=True)
+    scale = (torch.clamp(amax, min=1e-6) / 127.0).to(torch.bfloat16)
+    q = torch.clamp(torch.round(x / scale.float()), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _ring(dev, *, B, S, Hk, G, D, dtype, wrap=False, empty_row=None,
+          seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((B, 1, Hk * G, D), generator=g)
+    k = torch.randn((B, S, Hk, D), generator=g)
+    v = torch.randn((B, S, Hk, D), generator=g)
+    pos = np.array([(S + S // 3 + b) if wrap else (S - 1 - 7 * b)
+                    for b in range(B)])
+    kv_pos = np.full((B, S), -1, np.int32)
+    for b in range(B):
+        lo = max(0, pos[b] - S + 1)
+        p = np.arange(lo, pos[b] + 1)
+        kv_pos[b, p % S] = p
+    if empty_row is not None:
+        kv_pos[empty_row] = -1
+    kw = {}
+    if dtype == torch.int8:
+        k, ks = _quant(k)
+        v, vs = _quant(v)
+        kw = {"k_scale": ks.to(dev), "v_scale": vs.to(dev)}
+        q = q.to(torch.bfloat16)
+    else:
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    return (q.to(dev), k.to(dev), v.to(dev),
+            torch.from_numpy(kv_pos).to(dev),
+            torch.from_numpy(pos.astype(np.int32)).to(dev), kw)
+
+
+TOL_F32 = 1e-5
+
+
+def _close(got, want, tol):
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _f32_out(fn, *args, **kw):
+    m, l, acc = fn(*args, return_partials=True, **kw)
+    return acc / torch.clamp(l, min=1e-30)
+
+
+def _assert_matches_plain(args, kw):
+    """Kernel (through ops) against the plain version on the same inputs;
+    returns the kernel's output."""
+    _close(_f32_out(ops.flash_decode, *args, **kw),
+           _f32_out(fd.flash_decode_ref, *args, **kw), TOL_F32)
+    got = ops.flash_decode(*args, **kw)
+    want = fd.flash_decode_ref(*args, **kw)
+    if got.dtype == torch.bfloat16:
+        g, w = got.float(), want.float()
+        err = (g - w).abs()
+        assert torch.all(err <= 2 ** -8 * (g.abs() + w.abs()) + TOL_F32), \
+            err.max()
+    else:
+        _close(got, want, TOL_F32)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8],
+                         ids=["bf16", "f32", "int8"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_contiguous_kernel_matches_plain(cuda, dtype, D):
+    q, k, v, kv_pos, pos, kw = _ring(cuda, B=3, S=1000, Hk=2, G=2, D=D,
+                                     dtype=dtype, empty_row=1, seed=D)
+    got = _assert_matches_plain((q, k, v, kv_pos, pos), kw)
+    assert torch.count_nonzero(got[1]) == 0          # empty row: exactly 0
+
+
+@pytest.mark.parametrize("G,D", [(1, 128), (4, 128), (2, 96)])
+def test_kernel_refuses_other_head_geometries(cuda, G, D):
+    q, k, v, kv_pos, pos, _ = _ring(cuda, B=1, S=256, Hk=2, G=G, D=D,
+                                    dtype=torch.bfloat16)
+    n = dict(fd.LAUNCHES)
+    with pytest.raises(ValueError, match="must be"):
+        ops.flash_decode(q, k, v, kv_pos, pos)
+    assert fd.LAUNCHES == n
+
+
+@pytest.mark.parametrize("kw", [dict(window=300), dict(kind="prefix",
+                                                        prefix_len=100),
+                                dict(kind="full"), dict(softcap=5.0)],
+                         ids=["window", "prefix", "full", "softcap"])
+def test_contiguous_kernel_masks(cuda, kw):
+    q, k, v, kv_pos, pos, _ = _ring(cuda, B=2, S=640, Hk=2, G=2, D=128,
+                                    dtype=torch.float32, wrap=True, seed=3)
+    _assert_matches_plain((q, k, v, kv_pos, pos), kw)
+
+
+def test_return_partials(cuda):
+    q, k, v, kv_pos, pos, _ = _ring(cuda, B=2, S=4096, Hk=2, G=2, D=128,
+                                    dtype=torch.float32, empty_row=0, seed=4)
+    got = ops.flash_decode(q, k, v, kv_pos, pos, return_partials=True)
+    want = fd.flash_decode_ref(q, k, v, kv_pos, pos, return_partials=True)
+    for a, b in zip(got, want):
+        _close(a, b, 1e-4)
+    assert torch.all(got[0][0] == -1e30) and torch.all(got[1][0] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8],
+                         ids=["bf16", "f32", "int8"])
+def test_paged_kernel_matches_plain(cuda, dtype):
+    """Shared prefix blocks in several tables, -1 entries, a stale block."""
+    B, bs, T, Hk, G, D = 4, 16, 20, 8, 2, 128
+    nb = 64
+    g = torch.Generator(device="cpu").manual_seed(7)
+    q = torch.randn((B, 1, Hk * G, D), generator=g)
+    k = torch.randn((nb, bs, Hk, D), generator=g)
+    v = torch.randn((nb, bs, Hk, D), generator=g)
+    perm = torch.randperm(nb, generator=g).tolist()
+    tbl = np.full((B, T), -1, np.int32)
+    q_pos = np.array([T * bs - 1, 150, 37, 200], np.int32)
+    shared = perm[:3]                          # a 3-block common prefix
+    nxt = 3
+    for b in range(B):
+        need = q_pos[b] // bs + 1
+        for j in range(need):
+            if j < 3:
+                tbl[b, j] = shared[j]
+            else:
+                tbl[b, j] = perm[nxt]
+                nxt += 1
+    kv_pos = np.full((nb, bs), -1, np.int32)
+    for b in range(B):
+        for j in range(T):
+            if tbl[b, j] >= 0:
+                for o in range(bs):
+                    if j * bs + o <= q_pos[b]:
+                        kv_pos[tbl[b, j], o] = max(kv_pos[tbl[b, j], o],
+                                                   j * bs + o)
+    kv_pos[perm[-1]] = np.arange(bs)           # stale, cited by no table
+    kw = {}
+    if dtype == torch.int8:
+        k, ks = _quant(k)
+        v, vs = _quant(v)
+        kw = {"k_scale": ks.to(cuda), "v_scale": vs.to(cuda)}
+        q = q.to(torch.bfloat16)
+    else:
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    args = (q.to(cuda), k.to(cuda), v.to(cuda),
+            torch.from_numpy(kv_pos).to(cuda),
+            torch.from_numpy(q_pos).to(cuda))
+    t = torch.from_numpy(tbl).to(cuda)
+    _assert_matches_plain(args, dict(block_tables=t, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8,
+                                   torch.int32])
+@pytest.mark.parametrize("tail", [(16, 8, 128), (16,), (3, 5)],
+                         ids=["kv", "kv_pos", "odd"])
+def test_block_copy_bit_exact(cuda, dtype, tail):
+    g = torch.Generator(device="cpu").manual_seed(1)
+    base = torch.randint(-100, 100, (4, 10) + tail, generator=g)
+    leaf = base.to(dtype).to(cuda)
+    want = leaf.clone()
+    fd.paged_block_copy_ref(want, 7, 2)
+    got = ops.block_copy(leaf, 7, 2)
+    assert got is leaf
+    assert torch.equal(got, want)
+
+
+def test_launch_counters(cuda):
+    fd.reset_launches()
+    q, k, v, kv_pos, pos, _ = _ring(cuda, B=1, S=256, Hk=1, G=2, D=64,
+                                    dtype=torch.float32)
+    ops.flash_decode(q, k, v, kv_pos, pos)
+    fd.flash_decode_ref(q, k, v, kv_pos, pos)      # plain: not counted
+    ops.block_copy(torch.zeros((2, 3, 4), device=cuda), 0, 1)
+    assert fd.LAUNCHES == {"flash_decode": 1, "flash_decode_paged": 0,
+                           "paged_block_copy": 1}
+
+
+def test_smoke_model_on_card_matches_cpu(cuda):
+    """The smoke config in f32: prefill + 4 decode steps on the card (the
+    kernels) against the CPU (the plain versions), same weights."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.registry import get_model
+    cfg = get_smoke_config("qwen3-0.6b")
+    api = get_model(cfg)
+    params = api.init(cfg, torch.Generator(device="cpu").manual_seed(0),
+                      device="cpu")
+    params_gpu = _to(params, cuda)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=g)
+    teacher = torch.randint(0, cfg.vocab_size, (4, 2, 1), generator=g)
+    outs = []
+    for dev, p in (("cpu", params), (cuda, params_gpu)):
+        cache, lg = api.prefill(p, cfg, {"tokens": toks.to(dev)},
+                                cache_len=32)
+        steps = [lg]
+        for i in range(4):
+            lg, cache = api.decode_step(p, cfg, cache,
+                                        {"token": teacher[i].to(dev),
+                                         "pos": 12 + i})
+            steps.append(lg)
+        outs.append(torch.cat([s.cpu() for s in steps], 1))
+    _close(outs[1], outs[0], 1e-3)
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
