@@ -6,26 +6,41 @@ Phases, each printing its numbers beside the card's name and power limit:
 
   1. build the CUDA kernels from src/repro_torch/csrc (one nvcc per source,
      all at once) and print ptxas's register / spill report;
-  2. hold every kernel against its plain PyTorch version at qwen3-0.6b's
-     widths (Hk=8, G=2, D=128): at the main path's own call shapes (the
-     fixed batch's 4 x 576-slot ring; the engine's 12 lanes over its
-     96-block pool of 16 slots, with idle lanes, shared blocks and -1 table
-     entries; the CoW block copy on the pool's 28-layer K and kv_pos
-     leaves), and at longer caches (B=4, S in {1024, 4096}, bf16 and int8,
-     ring and paged), with the wrapper's time, the kernel's alone, the plain
-     version's, the least time the card could take (bound) and one library
-     call's time as a yardstick;
+  2. hold every kernel against its plain PyTorch version:
+     - flash-decode and the block copy at qwen3-0.6b's widths (Hk=8, G=2,
+       D=128): at the main path's own call shapes (the fixed batch's 4 x
+       576-slot ring; the engine's 12 lanes over its 96-block pool of 16
+       slots, with idle lanes, shared blocks and -1 table entries; the CoW
+       block copy on the pool's 28-layer K and kv_pos leaves), and at
+       longer caches (B=4, S in {1024, 4096}, bf16 and int8, ring and
+       paged);
+     - the wire hop, int8 and bf16, full and quantize-only, at the fit's
+       upload size (8,388,608 adapter elements in rows of 128) and at a
+       ragged 1001 rows, equal bit for bit;
+     with the wrapper's time, the kernel's alone, the plain version's, the
+     least time the card could take (bound) and one library call's time as
+     a yardstick where one exists;
   3. serve qwen3-0.6b at full width with random weights: the fixed-batch
      launcher (prefill 4x512, 64 decode steps over the contiguous ring),
   4. then the continuous-batching engine (paged pool, prefix sharing, a
      12-request trace with a shared-prefix cluster), checking that every
      request finishes, all logits are finite, copy-on-write fired, and that
-     phases 3-4 launched every kernel (launch counters set to 0 before
-     phase 3, read after phase 4); a few of the main path's own
+     phases 3-4 launched every serving kernel (launch counters set to 0
+     before phase 3, read after phase 4); a few of the main path's own
      flash-decode calls are copied as they run and held against the plain
      version afterwards;
-  5. check the kernels' model path against the plain path on the CPU at the
-     smoke config in f32 (prefill + teacher-forced decode, ring and paged).
+  5. fit fedtime-llama2-7b at full width (32 layers, d_model 4096, bf16,
+     NF4 base, LoRA rank 8; the schedule cut to 8 clients, 2 clusters, 2
+     clients a round, 2 local steps, 2 rounds, batch 4) with
+     ``federated_fit``, once on the int8 wire and once on bf16, and score it
+     with ``evaluate_forecaster``: each run's hop kernel launched (its count
+     set to 0 before the run, read after), losses and metrics finite, the
+     bytes up equal to the wire's price times the uploads, peak device
+     memory printed, and the run's first hop calls held against the plain
+     version;
+  6. check the model path on the card against the plain path on the CPU at
+     the smoke configs in f32: qwen3-0.6b prefill + teacher-forced decode
+     (ring and paged), and a 2-round fit on the int8 wire.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last three lines are the kernels' JSON summary, the card's name and
@@ -57,6 +72,20 @@ F32_FLOPS = 67e12                # f32 outside the tensor cores
 TOL_F32_OUT = 1e-5
 BF16_HALF_STEP = 2.0 ** -8
 TOL_F32_MODEL = 1e-3             # f32 logits, card vs CPU (sum order)
+# f32 smoke fit, card vs CPU: round losses, relative.  The losses are means
+# of local losses whose adapters differ by f32 sum order (and, through it,
+# by at most one int8 wire step in an element of an upload).
+TOL_FIT_LOSS = 1e-4
+
+# The federated fit (phase 5): fedtime-llama2-7b at full width; the schedule
+# is cut from the config's 555 clients, 8 clusters, 16 clients a round and 40
+# local steps to fit the run's time limit.  Widths and depth are not cut.
+FIT_SCHEDULE = dict(num_clients=8, num_clusters=2, clients_per_round=2,
+                    local_steps=2)
+FIT = dict(rounds=2, batch_size=4)
+FIT_CHANNELS = 2                 # channels per client
+HOP_QBLOCK = 128                 # REPRO_FED_QBLOCK's default
+HOP_ELEMS = 32 * 4 * (4096 * 8 + 8 * 4096)   # the LoRA payload: 8,388,608
 
 # The main path's geometry (phases 3-4), which phase 2 also runs.
 FIXED = dict(batch=4, prompt_len=512, gen=64)         # ring of 576 slots
@@ -357,6 +386,110 @@ def phase_kernels(card: str, timer: Timer) -> dict:
     return rows
 
 
+def _hop_case(rows: int, wire: str, full: bool, seed: int = 0):
+    """Inputs of one hop at the adapter delta's scale: ``rows`` rows of
+    HOP_QBLOCK values with an all-zero row (the 1e-30 scale floor) and a
+    row whose scale is 1 (ties at x.5).  ``full``: codes (and scales)
+    received; else the quantize-only form that every upload runs."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n, Q = rows * HOP_QBLOCK, HOP_QBLOCK
+    acc = torch.randn(n, generator=g, device="cuda") * 1e-2
+    res = torch.randn(n, generator=g, device="cuda") * 1e-5
+    acc[:Q] = 0.0
+    res[:2 * Q] = 0.0
+    acc[Q:2 * Q] = torch.arange(Q, device="cuda") - Q / 2 + 0.5
+    acc[Q] = 127.0
+    codes = scales = None
+    if full and wire == "int8":
+        codes = torch.randint(-127, 128, (n,), generator=g, device="cuda",
+                              dtype=torch.int8)
+        scales = torch.rand(rows, generator=g, device="cuda") * 1e-3
+    elif full:
+        codes = (torch.randn(n, generator=g, device="cuda") * 1e-2).to(
+            torch.bfloat16)
+    return acc, codes, scales, res
+
+
+def _hop_bytes(args, wire: str) -> int:
+    """Each input read once and each output written once: acc, res (f32),
+    received codes and scales where given; acc, res, codes and (int8) one
+    scale per row out."""
+    acc, codes, scales, res = args
+    code_bytes = 1 if wire == "int8" else 2
+    rows = acc.numel() // HOP_QBLOCK
+    out = acc.numel() * (8 + code_bytes) + (4 * rows if wire == "int8"
+                                            else 0)
+    inp = sum(t.numel() * t.element_size()
+              for t in (acc, codes, scales, res) if t is not None)
+    return inp + out
+
+
+def _hold_hop(label: str, args, wire: str, got=None) -> float:
+    """The hop kernel (``got``, or a new call) against its plain version on
+    the same inputs: every output equal bit for bit.  Returns the largest
+    difference as a number (0)."""
+    from repro_torch.kernels import wire_hop as wh
+    if got is None:
+        got = wh.fused_hop_cuda(*args, wire=wire, qblock=HOP_QBLOCK)
+    want = wh.fused_hop_ref(*args, wire=wire, qblock=HOP_QBLOCK)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, b in zip(("acc", "codes", "scales", "res"), got, want):
+        _check((a is None) == (b is None), f"{label}: {name} missing")
+        if a is None:
+            continue
+        _check(a.dtype == b.dtype and a.shape == b.shape,
+               f"{label}: {name} dtype/shape")
+        _check(torch.equal(a.view(torch.uint8), b.view(torch.uint8)),
+               f"{label}: {name} not equal bit for bit")
+        err = max(err, float((a.float() - b.float()).abs().max()))
+    print(f"  {label}: acc, codes, scales, residual equal bit for bit")
+    return err
+
+
+def phase_hop_kernels(card: str, timer: Timer) -> dict:
+    """The wire-hop kernel against its plain version, both wires and both
+    forms, at the main path's size (HOP_ELEMS, qblock 128) and at a ragged
+    row count; timed at the main path's size.  The JSON keeps the
+    quantize-only form, the one every upload runs."""
+    from repro_torch.kernels import wire_hop as wh
+    rows_main = HOP_ELEMS // HOP_QBLOCK
+    rows = {}
+    for wire in ("int8", "bf16"):
+        for full in (False, True):
+            form = "full" if full else "quantize-only"
+            ragged = _hop_case(1001, wire, full, seed=1)
+            _hold_hop(f"wire_hop_{wire} {form} 1001 x {HOP_QBLOCK}",
+                      ragged, wire)
+            args = _hop_case(rows_main, wire, full)
+            err = _hold_hop(f"wire_hop_{wire} {form} {rows_main} x "
+                            f"{HOP_QBLOCK}", args, wire)
+            nbytes = _hop_bytes(args, wire)
+            # f32 operations per element: the adds, abs, max, quotient,
+            # rint, clamp, product and difference of the int8 wire; the
+            # adds, two casts and the difference of bf16
+            ops = (11 if full else 10) if wire == "int8" else 5
+            bound, by = _bound_ms(nbytes, ops * HOP_ELEMS)
+            kw = dict(wire=wire, qblock=HOP_QBLOCK)
+            ms = timer.ms(lambda: wh.fused_hop_cuda(*args, **kw), 50)
+            launch, _ = wh.wire_hop_launcher(*args, **kw)
+            kernel_ms = timer.ms(launch, 50)
+            plain = timer.ms(lambda: wh.fused_hop_ref(*args, **kw), 10)
+            print(f"[{card}] kernel wire_hop_{wire} {form} ({HOP_ELEMS} "
+                  f"elements, qblock {HOP_QBLOCK}): wrapper {ms:.4f} ms, "
+                  f"kernel alone {kernel_ms:.4f} ms, plain {plain:.4f} ms, "
+                  f"bound {bound:.4f} ms ({by}, {nbytes / 1e6:.2f} MB), "
+                  f"library none")
+            if not full:
+                rows[f"wire_hop_{wire}"] = dict(
+                    max_abs_err=err, ms=ms, kernel_ms=kernel_ms,
+                    plain_ms=plain, bound_ms=bound, bound_by=by,
+                    library_ms=None,
+                    shape=f"quantize-only, {HOP_ELEMS} elements")
+            del args
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4: the main path at full width
 # ---------------------------------------------------------------------------
@@ -492,7 +625,215 @@ def _run_main_path(card: str, cfg, params) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: small-input reference
+# phase 5: the federated fit at full width
+# ---------------------------------------------------------------------------
+
+class _HopRecorder:
+    """Wraps the hop wrapper during the fit and keeps a copy of the inputs
+    and outputs of the first ``keep`` calls of each wire, to be held
+    against the plain version after the run.  The wrapped call itself is
+    unchanged, so is its launch count."""
+
+    def __init__(self, wh, keep: int = 2):
+        self.wh, self.real, self.keep = wh, wh.fused_hop_cuda, keep
+        self.calls = []
+
+    def __enter__(self):
+        self.wh.fused_hop_cuda = self
+        return self
+
+    def __exit__(self, *exc):
+        self.wh.fused_hop_cuda = self.real
+
+    def __call__(self, acc, codes, scales, res, *, wire, qblock):
+        copy = lambda x: None if x is None else x.clone()  # noqa: E731
+        args = tuple(copy(a) for a in (acc, codes, scales, res))
+        out = self.real(acc, codes, scales, res, wire=wire, qblock=qblock)
+        if sum(w == wire for w, *_ in self.calls) < self.keep:
+            self.calls.append((wire, qblock, args,
+                               tuple(copy(o) for o in out)))
+        return out
+
+
+class _Stopwatch:
+    """Wraps ``module.name`` during a run and sums the wall time of its
+    calls, each closed by ``torch.cuda.synchronize()`` so that the device
+    work they queued is inside; ``first`` is when the first call began."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.real = getattr(module, name)
+        self.seconds, self.calls, self.first = 0.0, 0, None
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+    def __call__(self, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if self.first is None:
+            self.first = t0
+        out = self.real(*args, **kw)
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return out
+
+
+def _fit_config():
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config("fedtime-llama2-7b")
+    return cfg.replace(fedtime=dataclasses.replace(cfg.fedtime,
+                                                   **FIT_SCHEDULE))
+
+
+def _fit_data(ft):
+    from repro_torch.data.federated import client_windows, partition_clients
+    from repro_torch.data.timeseries import (DATASETS, generate,
+                                             make_windows, train_test_split)
+    train, test = train_test_split(generate(DATASETS["etth1"]))
+    clients = partition_clients(train, ft.num_clients, seed=0,
+                                channels_per_client=FIT_CHANNELS)
+    cdata = client_windows(clients, ft.lookback, ft.horizon, max_windows=64)
+    xte, yte = make_windows(test, ft.lookback, ft.horizon, stride=8)
+    return cdata, xte[..., :FIT_CHANNELS], yte[..., :FIT_CHANNELS]
+
+
+def phase_fit(card: str) -> dict:
+    """``federated_fit`` at fedtime-llama2-7b's widths (bf16, QLoRA on,
+    synthetic ETTh1) once on the int8 wire and once on bf16, then
+    ``evaluate_forecaster`` on the test windows.  Each run is one main
+    path: the hop launch counts are set to 0 just before it and read just
+    after."""
+    from repro_torch.core import comm, fedtime
+    from repro_torch.core.lora import count_params, lora_tree
+    from repro_torch.dist import fedcomm
+    from repro_torch.kernels import wire_hop as wh
+    from repro_torch.train import fed_trainer
+    from repro_torch.train.trainer import evaluate_forecaster
+    cfg = _fit_config()
+    ft = cfg.fedtime
+    cdata, xte, yte = _fit_data(ft)
+    print(f"[{card}] fit {cfg.name}: widths as published ({cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+          f"lookback {ft.lookback}, horizon {ft.horizon}, patches "
+          f"{ft.patch_len}/{ft.patch_stride}, LoRA rank {ft.lora_rank} on "
+          f"wq/wk/wv/wo, NF4 qblock {ft.qlora_block}, {cfg.compute_dtype}); "
+          f"cut: clients 555 -> {ft.num_clients} of {FIT_CHANNELS} "
+          f"channels, clusters 8 -> {ft.num_clusters}, clients a round 16 "
+          f"-> {ft.clients_per_round}, local steps 40 -> {ft.local_steps}, "
+          f"{FIT['rounds']} rounds, batch {FIT['batch_size']}; "
+          f"{len(xte)} test windows")
+    launches = {}
+    for wire in ("int8", "bf16"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        wh.reset_launches()
+        t0 = time.perf_counter()
+        with _HopRecorder(wh) as recorder, \
+                _Stopwatch(fed_trainer, "local_update") as fits, \
+                _Stopwatch(fedcomm, "quantize_update") as wires:
+            res = fed_trainer.federated_fit(cfg, cdata, wire=wire, seed=0,
+                                            device="cuda", **FIT)
+            torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        setup_s = fits.first - t0
+        n = dict(wh.LAUNCHES)
+        launches[f"wire_hop_{wire}"] = n[f"wire_hop_{wire}"]
+        _check(n[f"wire_hop_{wire}"] > 0, f"fit {wire}: no hop launched")
+        other = "bf16" if wire == "int8" else "int8"
+        _check(n[f"wire_hop_{other}"] == 0, f"fit {wire}: {other} hop ran")
+        n_elems = count_params(lora_tree(res.base_params))
+        _check(n_elems == HOP_ELEMS, f"fit: {n_elems} adapter elements, "
+               f"not {HOP_ELEMS}")
+        up = sum(l.comm.bytes_up for l in res.logs)
+        want_up = comm.wire_payload_bytes(n_elems, wire) * n[
+            f"wire_hop_{wire}"]
+        _check(up == want_up, f"fit {wire}: {up} bytes up, the wire prices "
+               f"{want_up}")
+        losses = [l.train_loss for l in res.logs]
+        _check(len(losses) > 0 and all(np.isfinite(losses)),
+               f"fit {wire}: round losses {losses}")
+        t0 = time.perf_counter()
+        metrics = evaluate_forecaster(
+            lambda p, x: fedtime.forward(p, cfg, x),
+            res.params_for_cluster(0), xte, yte)
+        eval_s = time.perf_counter() - t0
+        _check(all(np.isfinite(v) for v in metrics.values()),
+               f"fit {wire}: metrics {metrics}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"[{card}] fit {wire} wire: {len(res.logs)} cluster rounds, "
+              f"{n[f'wire_hop_{wire}']} uploads of {n_elems} adapter "
+              f"elements, {up} bytes up (= wire_payload_bytes x uploads), "
+              f"round losses {[round(l, 4) for l in losses]}, trainable "
+              f"{res.trainable_frac:.4%}, test MSE {metrics['mse']:.4f} "
+              f"MAE {metrics['mae']:.4f}, peak device memory {peak:.2f} GiB")
+        print(f"[{card}] fit {wire} wire, host clock: {fit_s:.2f} s in all: "
+              f"set-up (init, NF4 quantization, clustering) {setup_s:.2f} s, "
+              f"{fits.calls} client fits {fits.seconds:.2f} s "
+              f"({fits.seconds / (fits.calls * cfg.fedtime.local_steps):.3f}"
+              f" s a local step), {wires.calls} uploads through the wire "
+              f"{wires.seconds:.3f} s, the rest (deltas, screen, FedAdam) "
+              f"{fit_s - setup_s - fits.seconds - wires.seconds:.2f} s; "
+              f"evaluation of {len(xte)} windows {eval_s:.2f} s")
+        for w, qblock, args, out in recorder.calls:
+            _check(qblock == HOP_QBLOCK, f"fit: hop qblock {qblock}")
+            _hold_hop(f"main-path wire_hop_{w} call, {args[0].numel()} "
+                      f"elements", args, w, got=out)
+        _check(len(recorder.calls) > 0, f"fit {wire}: no hop recorded")
+        del res, recorder
+    return launches
+
+
+def _fit_reference(card: str) -> None:
+    """The smoke config in f32 on the int8 wire: the fit on the card (the
+    hop kernel) against the fit on the CPU (its plain version), same seed:
+    the same clusters and bytes, round losses within TOL_FIT_LOSS."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import fedtime
+    from repro_torch.core.lora import lora_tree
+    from repro_torch.data.federated import client_windows, partition_clients
+    from repro_torch.data.timeseries import (DATASETS, generate,
+                                             train_test_split)
+    from repro_torch.train.fed_trainer import federated_fit
+    cfg = get_smoke_config("fedtime-llama2-7b")
+    ft = cfg.fedtime
+    train, _ = train_test_split(generate(DATASETS["etth1"], timesteps=1000))
+    cdata = client_windows(partition_clients(train, ft.num_clients, seed=0,
+                                             channels_per_client=2),
+                           ft.lookback, ft.horizon, max_windows=16)
+    base = fedtime.init(cfg, torch.Generator().manual_seed(0),
+                        num_channels=2, device="cpu")
+    kw = dict(rounds=2, batch_size=4, wire="int8", kmeans_first=0)
+    out = {"cpu": federated_fit(cfg, cdata, base_params=base, device="cpu",
+                                **kw)}
+    # the card's generator draws other A matrices: hand it the CPU's
+    ad0 = lora_tree(out["cpu"].base_params)
+    out["cuda"] = federated_fit(cfg, cdata, base_params=_to(base, "cuda"),
+                                init_adapters=_to(ad0, "cuda"),
+                                device="cuda", **kw)
+    a, b = out["cuda"], out["cpu"]
+    _check(np.array_equal(a.assignments, b.assignments),
+           "fit reference: clusters differ")
+    _check([l.comm.bytes_up for l in a.logs] ==
+           [l.comm.bytes_up for l in b.logs], "fit reference: bytes differ")
+    err = max(abs(x.train_loss - y.train_loss) / abs(y.train_loss)
+              for x, y in zip(a.logs, b.logs))
+    _check(err <= TOL_FIT_LOSS, f"fit reference: card vs CPU round losses "
+           f"differ by {err} (relative) > {TOL_FIT_LOSS}")
+    print(f"[{card}] reference smoke fit f32 int8 wire: card vs CPU round "
+          f"losses max rel err {err:.3g} (tol {TOL_FIT_LOSS}), "
+          f"{len(a.logs)} cluster rounds, clusters and bytes equal")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: small-input reference
 # ---------------------------------------------------------------------------
 
 def _to(tree, dev):
@@ -586,6 +927,7 @@ def main() -> None:
 
     timer = Timer()
     rows = phase_kernels(card, timer)
+    rows.update(phase_hop_kernels(card, timer))
     del timer
 
     cfg = get_config("qwen3-0.6b")
@@ -595,14 +937,22 @@ def main() -> None:
     del params
     torch.cuda.empty_cache()
 
+    launches.update(phase_fit(card))
+    torch.cuda.empty_cache()
+
     phase_reference(card)
+    _fit_reference(card)
 
     src = {"flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
                             "src/repro/kernels/flash_decode.py:299"),
            "flash_decode_paged": ("src/repro_torch/csrc/flash_decode.cu",
                                   "src/repro/kernels/flash_decode.py:377"),
            "paged_block_copy": ("src/repro_torch/csrc/block_copy.cu",
-                                "src/repro/kernels/flash_decode.py:437")}
+                                "src/repro/kernels/flash_decode.py:437"),
+           "wire_hop_int8": ("src/repro_torch/csrc/wire_hop.cu",
+                             "src/repro/kernels/ring_allreduce.py:118"),
+           "wire_hop_bf16": ("src/repro_torch/csrc/wire_hop.cu",
+                             "src/repro/kernels/ring_allreduce.py:150")}
     kernels = [{"name": name, "route": "cuda", "source": src[name][0],
                 "replaces": src[name][1], "launches": launches[name],
                 **rows[name]} for name in src]

@@ -2,7 +2,8 @@
 
 The reference's parameters are a nested dict of arrays; the port keeps the
 same tree (same keys, the stacked leading layer axis, ``w`` as (in, out),
-the tied embedding table), so the bridge only converts leaves.  bf16 leaves
+the tied embedding table, uint8 NF4 codes with f32 absmax scales), so the
+bridge only converts leaves.  bf16 leaves
 travel as numpy arrays of ``ml_dtypes.bfloat16`` (what ``np.asarray`` gives
 for a bf16 JAX array), reinterpreted bit for bit.
 """
@@ -36,20 +37,79 @@ def _map(tree, fn):
             for k, v in tree.items()}
 
 
-def params_from_jax(tree, cfg: ModelConfig, device="cuda"):
-    """The reference's parameter tree (leaves as numpy arrays) -> the port's
-    parameters on ``device``.  Raises if the tree does not describe
-    ``cfg``'s dense model."""
-    params = _map(tree, lambda a: _to_tensor(a, device))
-    table = params.get("embed", {}).get("table")
-    if table is None or tuple(table.shape) != (cfg.vocab_size, cfg.d_model):
+def tree_to_torch(tree, device="cuda"):
+    """Any tree of numpy arrays -> the same tree of tensors on ``device``,
+    bit for bit (adapter trees, batches), with no shape check."""
+    return _map(tree, lambda a: _to_tensor(a, device))
+
+
+def _shape(params, *path):
+    node = params
+    for k in path:
+        if not isinstance(node, dict) or k not in node:
+            return None
+        node = node[k]
+    return tuple(node.shape)
+
+
+def _check_dense(params, cfg: ModelConfig) -> None:
+    table = _shape(params, "embed", "table")
+    if table != (cfg.vocab_size, cfg.d_model):
         raise ValueError(f"params_from_jax: embed table does not match "
                          f"{cfg.name} ({cfg.vocab_size}, {cfg.d_model})")
-    wq = params.get("layers", {}).get("attn", {}).get("wq", {}).get("w")
-    if wq is None or tuple(wq.shape) != (cfg.num_layers, cfg.d_model,
-                                         cfg.q_dim):
+    if _shape(params, "layers", "attn", "wq", "w") != (
+            cfg.num_layers, cfg.d_model, cfg.q_dim):
         raise ValueError(f"params_from_jax: layers are not a stack of "
                          f"{cfg.num_layers} {cfg.name} blocks")
+
+
+def _check_fedtime(params, cfg: ModelConfig) -> None:
+    """The FedTime tree: patch embedding, a block stack whose attention
+    weights are plain ``w`` or NF4 ``w_nf4``/``absmax`` (with or without
+    LoRA leaves), final norm, forecast head and RevIN."""
+    ft = cfg.fedtime
+    L, d = cfg.num_layers, cfg.d_model
+    n = (ft.lookback - ft.patch_len) // ft.patch_stride + 1
+    want = {("patch", "w_p"): (ft.patch_len, d),
+            ("patch", "w_pos"): (n, d),
+            ("final_norm", "scale"): (d,),
+            ("head", "w"): (n * d, ft.horizon),
+            ("layers", "mlp", "down", "w"): (L, cfg.d_ff, d)}
+    for name, out in (("wq", cfg.q_dim), ("wk", cfg.kv_dim),
+                      ("wv", cfg.kv_dim), ("wo", d)):
+        din = cfg.q_dim if name == "wo" else d
+        site = ("layers", "attn", name)
+        if _shape(params, *site, "w") is not None:
+            want[site + ("w",)] = (L, din, out)
+        else:
+            want[site + ("w_nf4",)] = (L, din, out // 2)
+            absmax = _shape(params, *site, "absmax")
+            if absmax is None or absmax[0] != L:
+                raise ValueError(f"params_from_jax: {'/'.join(site)} has "
+                                 f"neither w nor a stack of NF4 scales")
+        if _shape(params, *site, "lora_a") is not None:
+            want[site + ("lora_b",)] = (
+                L, _shape(params, *site, "lora_a")[-1], out)
+    for path, shape in want.items():
+        got = _shape(params, *path)
+        if got != shape:
+            raise ValueError(f"params_from_jax: {'/'.join(path)} is {got}, "
+                             f"not {shape} of {cfg.name}")
+    m = _shape(params, "revin", "gamma")
+    if m is None or _shape(params, "revin", "beta") != m:
+        raise ValueError("params_from_jax: revin gamma/beta missing")
+
+
+def params_from_jax(tree, cfg: ModelConfig, device="cuda"):
+    """The reference's parameter tree (leaves as numpy arrays) -> the port's
+    parameters on ``device``.  A tree with a ``patch`` embedding is a
+    FedTime model and is checked as one; any other must describe ``cfg``'s
+    dense model.  Raises if the tree does not match ``cfg``."""
+    params = tree_to_torch(tree, device)
+    if "patch" in params:
+        _check_fedtime(params, cfg)
+    else:
+        _check_dense(params, cfg)
     return params
 
 

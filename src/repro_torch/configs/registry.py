@@ -1,5 +1,6 @@
 """Architecture registry: ``--arch <id>`` resolution for the port's
-launchers and tests.  Only the architectures the port serves are listed."""
+launchers, trainers and tests.  Only the architectures the port runs are
+listed."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from repro_torch.configs.base import ModelConfig
 # arch id -> module name under repro_torch.configs
 _ARCH_MODULES: Dict[str, str] = {
     "qwen3-0.6b": "qwen3_0_6b",
+    "fedtime-llama2-7b": "fedtime_llama2_7b",
 }
 
 ALL_ARCHS: Tuple[str, ...] = tuple(_ARCH_MODULES)

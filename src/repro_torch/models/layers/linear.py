@@ -1,16 +1,22 @@
-"""Linear projection.
+"""Linear projection with LoRA / QLoRA.
 
-The reference's ``dense`` also dispatches LoRA (``lora_a``/``lora_b``) and
-NF4-quantized (``w_nf4``/``absmax``) weights; those belong to the
-fine-tuning slice of the port.  Here only the plain ``{"w"}`` form runs,
-with ``w`` stored (in, out) so that ``x @ w`` is the reference's product.
+The parameter dict ``p`` dispatches the math, as the reference's ``dense``:
+
+  {"w"}                                   -> x @ w
+  {"w", "lora_a", "lora_b", "lora_scale"} -> x @ w + s * (x @ A) @ B   (LoRA)
+  {"w_nf4", "absmax", ...}                -> x @ dequant(W) [+ LoRA]   (QLoRA)
+
+``w`` is stored (in, out).  A quantized base is dequantized to f32 and cast
+to ``x``'s dtype, and the product is left to ``torch.matmul``, as the
+reference leaves it to XLA: no path of the reference runs its
+``qlora_matmul`` kernel.  NF4 layout: see ``repro_torch.core.quant``.
 """
 
 from __future__ import annotations
 
 import torch
 
-_LATER = ("w_nf4", "absmax", "lora_a", "lora_b", "lora_scale")
+from repro_torch.core.quant import nf4_dequant
 
 
 def init_dense(generator: torch.Generator, in_dim: int, out_dim: int, *,
@@ -26,9 +32,15 @@ def init_dense(generator: torch.Generator, in_dim: int, out_dim: int, *,
 
 
 def dense(p, x: torch.Tensor) -> torch.Tensor:
-    """Apply the linear map ``x @ w`` in ``x``'s dtype."""
-    later = [k for k in _LATER if k in p]
-    if later:
-        raise NotImplementedError(
-            f"dense: {later} (LoRA / QLoRA) are not ported yet")
-    return x @ p["w"].to(x.dtype)
+    """Apply a (possibly LoRA-adapted, possibly NF4-quantized) linear map in
+    ``x``'s dtype."""
+    if "w_nf4" in p:
+        w = nf4_dequant(p["w_nf4"], p["absmax"]).to(x.dtype)
+    else:
+        w = p["w"].to(x.dtype)
+    y = x @ w
+    if "lora_a" in p:
+        a = p["lora_a"].to(x.dtype)
+        b = p["lora_b"].to(x.dtype)
+        y = y + (x @ a) @ b * p["lora_scale"].to(x.dtype)
+    return y

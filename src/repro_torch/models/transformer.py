@@ -42,22 +42,29 @@ def check_ported(cfg: ModelConfig) -> None:
             f"(family {cfg.family!r}, unported options {unported})")
 
 
+def init_blocks(cfg: ModelConfig, generator: torch.Generator,
+                device="cuda"):
+    """The layer-stacked block parameters (leaves (L, ...)) drawn from
+    ``generator``, with the reference's shapes, dtypes and scales."""
+    check_ported(cfg)
+    L = cfg.num_layers
+    kw = dict(layers=L, dtype=dtype_of(cfg.param_dtype), device=device)
+    return {
+        "attn_norm": init_rmsnorm(cfg.d_model, layers=L, device=device),
+        "attn": init_attention(generator, cfg, **kw),
+        "mlp_norm": init_rmsnorm(cfg.d_model, layers=L, device=device),
+        "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, **kw),
+    }
+
+
 def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     """Random parameters drawn from ``generator`` (which must live on
     ``device``), with the reference's shapes, dtypes and scales."""
-    check_ported(cfg)
     dtype = dtype_of(cfg.param_dtype)
-    L = cfg.num_layers
-    kw = dict(layers=L, dtype=dtype, device=device)
     p = {
         "embed": init_embedding(generator, cfg.vocab_size, cfg.d_model,
                                 dtype=dtype, device=device),
-        "layers": {
-            "attn_norm": init_rmsnorm(cfg.d_model, layers=L, device=device),
-            "attn": init_attention(generator, cfg, **kw),
-            "mlp_norm": init_rmsnorm(cfg.d_model, layers=L, device=device),
-            "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, **kw),
-        },
+        "layers": init_blocks(cfg, generator, device),
         "final_norm": init_rmsnorm(cfg.d_model, device=device),
     }
     if not cfg.tie_embeddings:

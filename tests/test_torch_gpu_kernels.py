@@ -16,6 +16,9 @@ what rounding those f32 outputs allows: |got - want| <= 2**-8 (|got| +
 value).  Block copies
 and empty rows are exact.  The kernel is built for G = 2 and D in {64, 128}
 (the ported configurations' head geometries) and refuses the rest.
+
+The wire-hop kernel (int8 and bf16 wires, full and quantize-only forms)
+must equal its plain version bit for bit: acc, codes, scales and residual.
 """
 
 import numpy as np
@@ -244,3 +247,82 @@ def test_smoke_model_on_card_matches_cpu(cuda):
 def _to(tree, dev):
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
             for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# The wire hop
+# ---------------------------------------------------------------------------
+
+def _hop_inputs(dev, rows, qblock, wire, full, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n = rows * qblock
+    acc = torch.randn(n, generator=g) * 3
+    res = torch.randn(n, generator=g) * 1e-3
+    acc[:qblock] = 0.0                              # an all-zero row
+    res[:qblock] = 0.0
+    acc[qblock:2 * qblock] = torch.arange(qblock) - qblock / 2 + 0.5
+    acc[qblock] = 127.0                             # scale 1: ties at x.5
+    res[qblock:2 * qblock] = 0.0
+    codes = scales = None
+    if full:
+        if wire == "int8":
+            codes = torch.randint(-127, 128, (n,), generator=g).to(
+                torch.int8).to(dev)
+            scales = (torch.rand(rows, generator=g) * 0.1).to(dev)
+        else:
+            codes = torch.randn(n, generator=g).to(torch.bfloat16).to(dev)
+    return acc.to(dev), codes, scales, res.to(dev)
+
+
+def _same_bits(a, b):
+    if a is None or b is None:
+        return a is None and b is None
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return torch.equal(a.contiguous().view(torch.uint8),
+                       b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.parametrize("wire", ["int8", "bf16"])
+@pytest.mark.parametrize("full", [True, False])
+@pytest.mark.parametrize("rows,qblock", [
+    (65536, 128),          # the main path: LLaMA-2-7B-width adapters
+    (1001, 128), (77, 64), (13, 32), (5, 1024)])
+def test_wire_hop_kernel_bit_exact(cuda, wire, full, rows, qblock):
+    from repro_torch.kernels import wire_hop as wh
+    args = _hop_inputs(cuda, rows, qblock, wire, full)
+    got = wh.fused_hop_cuda(*args, wire=wire, qblock=qblock)
+    want = wh.fused_hop_ref(*args, wire=wire, qblock=qblock)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("acc", "codes", "scales", "res"), got, want):
+        assert _same_bits(a, b), name
+
+
+def test_wire_hop_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels import wire_hop as wh
+    acc = torch.zeros(96 * 4, device=cuda)
+    with pytest.raises(ValueError, match="qblock"):
+        wh.fused_hop_cuda(acc, None, None, acc, wire="int8", qblock=96)
+    with pytest.raises(ValueError, match="wire"):
+        wh.fused_hop_cuda(acc, None, None, acc, wire="f32", qblock=128)
+    with pytest.raises(ValueError, match="aligned"):
+        wh.fused_hop_cuda(acc[1:257], None, None, acc[:256], wire="bf16",
+                          qblock=128)
+
+
+def test_quantize_update_on_card_equals_cpu(cuda):
+    from repro_torch.dist import fedcomm
+    g = torch.Generator(device="cpu").manual_seed(3)
+    tree = {"b": {"lora_a": torch.randn(2, 64, 8, generator=g)},
+            "a": {"lora_b": torch.randn(2, 8, 37, generator=g)}}
+    for wire in ("int8", "bf16"):
+        res_c = res_g = None
+        for _ in range(3):
+            dq_c, res_c = fedcomm.quantize_update(tree, res_c, wire=wire,
+                                                  qblock=128)
+            dq_g, res_g = fedcomm.quantize_update(_to(tree, cuda), res_g,
+                                                  wire=wire, qblock=128)
+            assert _same_bits(res_g.cpu(), res_c)
+            for k in ("a", "b"):
+                for leaf, t in dq_c[k].items():
+                    assert _same_bits(dq_g[k][leaf].cpu(), t)

@@ -20,6 +20,7 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 
@@ -92,7 +93,10 @@ def main() -> None:
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / args.steps
     events = prof.key_averages()
-    dev_us = sum(e.self_device_time_total for e in events) / args.steps
+    # kernels only: an operator's row repeats the device time of the
+    # kernels it launched
+    dev_us = sum(e.self_device_time_total for e in events
+                 if e.device_type == DeviceType.CUDA) / args.steps
     launches = sum(e.count for e in events
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                 "cudaLaunchKernelExC")) / args.steps
