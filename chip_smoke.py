@@ -20,6 +20,16 @@ Phases, each printing its numbers beside the card's name and power limit:
      with the wrapper's time, the kernel's alone, the plain version's, the
      least time the card could take (bound) and one library call's time as
      a yardstick where one exists;
+  2b. drive ``repro_torch.kernels.ops``' qlora_matmul, rmsnorm and
+     flash_attention, which no model path calls (as in the reference), at
+     the shapes fedtime-llama2-7b's local step would give them (bf16, 8
+     series x 63 patch tokens, d_model 4096, 32 heads of 128, LoRA rank 8,
+     NF4 qblock 64), at the reference benchmark's --full shapes (f32) and
+     at one ragged shape each; the launch counts set to 0 before and read
+     after; each output held against the plain version beside a planted
+     fault's reading, and timed as in phase 2 (the library yardsticks:
+     ``F.rms_norm``, ``scaled_dot_product_attention``, the port's dense
+     path);
   3. serve qwen3-0.6b at full width with random weights: the fixed-batch
      launcher (prefill 4x512, 64 decode steps over the contiguous ring),
   4. then the continuous-batching engine (paged pool, prefix sharing, a
@@ -61,6 +71,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12                # f32 outside the tensor cores
+BF16_FLOPS = 989e12              # bf16 products on the tensor cores
 # Flash-decode, kernel vs plain version on the same inputs: the f32 output
 # before its cast (acc / l) differs only by the order of the sums; each
 # reading is printed beside that of a planted fault (one KV tile of one row
@@ -121,9 +132,12 @@ class Timer:
     def __init__(self):
         self.flush = torch.empty(64 * 2 ** 20, dtype=torch.float32,
                                  device="cuda")
+        # one side stream for every warm-up: cuBLAS keeps a workspace for
+        # each stream it has run on, which a new stream per call would pile up
+        self.side = torch.cuda.Stream()
 
     def ms(self, fn, iters: int) -> float:
-        side = torch.cuda.Stream()
+        side = self.side
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             for _ in range(2):
@@ -144,9 +158,9 @@ class Timer:
         return sum(s.elapsed_time(e) for s, e in evs) / iters
 
 
-def _bound_ms(nbytes: float, flops: float) -> tuple:
+def _bound_ms(nbytes: float, flops: float, rate: float = F32_FLOPS) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -488,6 +502,248 @@ def phase_hop_kernels(card: str, timer: Timer) -> dict:
                     shape=f"quantize-only, {HOP_ELEMS} elements")
             del args
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: the kernels.ops entries qlora_matmul, rmsnorm, flash_attention
+# ---------------------------------------------------------------------------
+
+def _ops_cases(cfg):
+    """(kernel, label, make) for each call of the ops phase: the shapes
+    fedtime-llama2-7b's local step would give each kernel (bf16, 8 series x
+    63 patch tokens), the reference benchmark's --full shapes (f32) and one
+    ragged shape.  ``make(gen)`` draws the call's arguments on the card."""
+    from repro_torch.core.patching import num_patches
+    ft = cfg.fedtime
+    S = num_patches(ft.lookback, ft.patch_len, ft.patch_stride)
+    series = FIT["batch_size"] * FIT_CHANNELS
+    M = series * S
+    d, H, Dh = cfg.d_model, cfg.num_heads, cfg.head_dim
+    s = ft.lora_alpha / ft.lora_rank
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def qlora(M, K, N, r, qb, dtype):
+        def make(g):
+            from repro_torch.core.quant import nf4_quantize
+            w = torch.randn((K, N), generator=g, device="cuda") * 0.02
+            wq, am = nf4_quantize(w, qb)
+            x = torch.randn((M, K), generator=g, device="cuda").to(dtype)
+            a = torch.randn((K, r), generator=g, device="cuda") * 0.1
+            b = torch.randn((r, N), generator=g, device="cuda") * 0.1
+            return (x, wq, am.reshape(K, N // qb), a, b, s)
+        return make
+
+    def norm(shape, dtype):
+        return lambda g: (
+            torch.randn(shape, generator=g, device="cuda").to(dtype),
+            torch.randn(shape[-1], generator=g, device="cuda").to(dtype))
+
+    def attn(shape, dtype, causal):
+        return lambda g: tuple(
+            torch.randn(shape, generator=g, device="cuda").to(dtype)
+            for _ in range(3)) + (causal,)
+
+    return [
+        ("qlora_matmul", f"fit wq (M {M}, K = N {d}, r {ft.lora_rank}, "
+         f"qblock {ft.qlora_block}, bf16)",
+         qlora(M, d, d, ft.lora_rank, ft.qlora_block, bf16)),
+        ("qlora_matmul", "benchmark --full (512, 1024, 1024, r 8, f32)",
+         qlora(512, 1024, 1024, 8, 64, f32)),
+        ("qlora_matmul", "ragged (37, 200, 192, r 8, f32)",
+         qlora(37, 200, 192, 8, 64, f32)),
+        ("rmsnorm", f"fit ({M}, {d}) bf16", norm((M, d), bf16)),
+        ("rmsnorm", "benchmark --full (64, 4096) f32", norm((64, 4096), f32)),
+        ("rmsnorm", "ragged (4, 37, 512) f32", norm((4, 37, 512), f32)),
+        ("flash_attention", f"fit causal ({series}, {H}, {S}, {Dh}) bf16",
+         attn((series, H, S, Dh), bf16, True)),
+        ("flash_attention", "benchmark --full causal (4, 8, 1024, 128) f32",
+         attn((4, 8, 1024, 128), f32, True)),
+        ("flash_attention", "benchmark --full full (4, 8, 1024, 128) f32",
+         attn((4, 8, 1024, 128), f32, False)),
+        ("flash_attention", "ragged causal (2, 4, 100, 128) f32",
+         attn((2, 4, 100, 128), f32, True)),
+    ]
+
+
+def _ops_call(name, args):
+    """The ops entry with the reference's signature."""
+    from repro_torch.kernels import ops
+    if name == "flash_attention":
+        return ops.flash_attention(*args[:3], causal=args[3])
+    return getattr(ops, name)(*args)
+
+
+def _attention_plain(q, k, v, keep):
+    """The plain attention's f32 arithmetic with an explicit (S, S) keep
+    mask, for the planted faults."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (
+        q.shape[-1] ** -0.5)
+    s = s.masked_fill(~keep, torch.finfo(torch.float32).min)
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), v.float())
+
+
+def _ops_plain(name, args):
+    """(the plain version's output that the kernel is held to, the limit
+    (atol, rtol), its reason, [(a planted fault, its output)]).
+
+    In bf16, qlora and rmsnorm round once, at the end, on both sides: one
+    bf16 step (a relative 2**-7) over the f32 limit.  The plain attention
+    casts p to bf16 and the kernel does not, so a bf16 attention output is
+    held to the plain version run on the same inputs in f32, within its own
+    rounding: half a step (2**-8)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import qlora_matmul as qm
+    from repro_torch.kernels import rmsnorm as rn
+    bf16 = args[0].dtype == torch.bfloat16
+    if name == "qlora_matmul":
+        x, wq, am, a, b, s = args
+        flipped = wq.clone()
+        flipped[wq.shape[0] // 2, 0] ^= 0x80        # one nibble flipped
+        tol, why = 1e-4, "f32 sums in another order (the reference's 1e-4)"
+        planted = [("one flipped nibble", qm.qlora_matmul_ref(
+                        x, flipped, am, a, b, s)),
+                   ("the LoRA term dropped", qm.qlora_matmul_ref(
+                        x, wq, am, a, b, 0.0))]
+        want = qm.qlora_matmul_ref(*args)
+    elif name == "rmsnorm":
+        x, scale = args
+        tol, why = 2e-5, "f32 sum of squares in another order (2e-5)"
+        want = rn.rmsnorm_ref(x, scale)
+        unscaled = want.clone()                     # a missed ragged tail
+        unscaled[..., -1] = rn.rmsnorm_ref(
+            x, torch.ones_like(scale))[..., -1]
+        planted = [("the last value left unscaled", unscaled)]
+    else:
+        q, k, v, causal = args
+        S = q.shape[2]
+        tol, why = 2e-5, "f32 sums and exp in another order (2e-5)"
+        want = fa.flash_attention_ref(q.float(), k.float(), v.float(), causal)
+        keep = torch.ones((S, S), dtype=torch.bool, device=q.device)
+        if causal:
+            fault = "one key too many under the causal mask"
+            keep = keep.tril(diagonal=1)
+        else:
+            fault = "the last key dropped"
+            keep[:, -1] = False
+        planted = [(fault, _attention_plain(q, k, v, keep))]
+    rel = (2.0 ** -8 if name == "flash_attention" else 2.0 ** -7) if bf16 \
+        else 0.0
+    return want, (tol, tol + rel), why, planted
+
+
+def _over(got, want, atol, rtol) -> float:
+    """max(|got - want| - (atol + rtol |want|)): <= 0 within the limit."""
+    g, w = got.float(), want.float()
+    return float(((g - w).abs() - atol - rtol * w.abs()).max())
+
+
+def _ops_bound(name, args, out):
+    """(bound ms, bound by, MB moved) of one call: each input read once and
+    the output written once; operations at the rate for the inputs' type
+    (bf16 products on the tensor cores, f32 on the CUDA cores)."""
+    rate = BF16_FLOPS if args[0].dtype == torch.bfloat16 else F32_FLOPS
+    tensors = [t for t in args if isinstance(t, torch.Tensor)]
+    nbytes = (sum(t.numel() * t.element_size() for t in tensors)
+              + out.numel() * out.element_size())
+    if name == "qlora_matmul":
+        (M, K), r, N = args[0].shape, args[3].shape[1], out.shape[1]
+        flops = 2 * M * K * N + 2 * M * K * r + 2 * M * r * N
+    elif name == "rmsnorm":
+        flops = 4 * args[0].numel()
+    else:
+        B, H, S, D = args[0].shape
+        pairs = S * (S + 1) // 2 if args[3] else S * S
+        flops = 4 * B * H * D * pairs
+    t, by = _bound_ms(nbytes, flops, rate)
+    return t, by, nbytes / 1e6
+
+
+def _ops_library(name, args):
+    """One PyTorch call that computes the same function, as a yardstick:
+    ``F.rms_norm``, ``scaled_dot_product_attention``, and for qlora the
+    port's own dense path (``nf4_dequant``, ``torch.matmul``, the LoRA
+    products).  The port's ops never call these."""
+    F = torch.nn.functional
+    if name == "rmsnorm":
+        x, scale = args
+        w = scale.to(x.dtype)
+        return lambda: F.rms_norm(x, (x.shape[-1],), weight=w, eps=1e-6)
+    if name == "flash_attention":
+        q, k, v, causal = args
+        return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=causal)
+    from repro_torch.models.layers.linear import dense
+    x, wq, am, a, b, s = args
+    p = {"w_nf4": wq, "absmax": am.reshape(-1), "lora_a": a, "lora_b": b,
+         "lora_scale": torch.full((), s, device=x.device)}
+    return lambda: dense(p, x)
+
+
+def phase_ops_kernels(card: str, timer: Timer):
+    """``repro_torch.kernels.ops``' qlora_matmul, rmsnorm and
+    flash_attention on the card.  Their main path is the ops entries
+    themselves, as in the reference (no model path calls them): every case
+    is driven through them once, with the launch counts set to 0 just
+    before and read just after.  Then each call's output is held against
+    the plain version beside a planted fault's reading, and the case is
+    timed.  Returns (the JSON rows, from the fit's shapes; the launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import qlora_matmul as qm
+    from repro_torch.kernels import rmsnorm as rn
+    mods = {"qlora_matmul": qm, "rmsnorm": rn, "flash_attention": fa}
+    launchers = {"qlora_matmul": qm.qlora_matmul_launcher,
+                 "rmsnorm": rn.rmsnorm_launcher,
+                 "flash_attention": fa.flash_attention_launcher}
+    g = torch.Generator(device="cuda").manual_seed(7)
+    cases = [(name, label, make(g))
+             for name, label, make in _ops_cases(get_config(
+                 "fedtime-llama2-7b"))]
+    for mod in mods.values():
+        mod.reset_launches()
+    outs = [_ops_call(name, args) for name, _, args in cases]
+    torch.cuda.synchronize()
+    launches = {name: mod.LAUNCHES[name] for name, mod in mods.items()}
+    for name, n in launches.items():
+        want = sum(c[0] == name for c in cases)
+        _check(n == want, f"ops phase: {name} launched {n} times, not {want}")
+    print(f"[{card}] ops phase: every call through repro_torch.kernels.ops, "
+          f"launches {launches}")
+    rows = {}
+    for (name, label, args), got in zip(cases, outs):
+        want, (atol, rtol), why, planted = _ops_plain(name, args)
+        _check(bool(torch.isfinite(got).all()), f"{name} {label}: non-finite")
+        _check(got.shape == want.shape and got.dtype == args[0].dtype,
+               f"{name} {label}: shape or type")
+        err = float((got.float() - want.float()).abs().max())
+        over = _over(got, want, atol, rtol)
+        _check(over <= 0.0, f"{name} {label}: max_abs_err {err} exceeds the "
+               f"limit (atol {atol}, rtol {rtol}) by {over}")
+        readings = []
+        for fault, bad in planted:
+            p_err = float((got.float() - bad.float()).abs().max())
+            _check(_over(got, bad, atol, rtol) > 0.0,
+                   f"{name} {label}: planted '{fault}' reads {p_err}, "
+                   f"inside the limit")
+            readings.append(f"{fault} reads {p_err:.3g}")
+        print(f"  {name} {label}: max_abs_err {err:.3g} within atol {atol} "
+              f"+ rtol {rtol:.4g} |want| ({why}); {'; '.join(readings)}")
+        bound, by, mb = _ops_bound(name, args, got)
+        heavy = name == "qlora_matmul" and args[0].numel() > 10 ** 6
+        ms = timer.ms(lambda: _ops_call(name, args), 20)
+        launch, _ = launchers[name](*args)
+        kernel_ms = timer.ms(launch, 20)
+        plain_fn = getattr(mods[name], f"{name}_ref")
+        plain = timer.ms(lambda: plain_fn(*args), 3 if heavy else 10)
+        lib = timer.ms(_ops_library(name, args), 20)
+        print(f"[{card}] kernel {name} {label}: wrapper {ms:.4f} ms, kernel "
+              f"alone {kernel_ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}, {mb:.2f} MB), library {lib:.4f} ms")
+        if label.startswith("fit"):               # the rows the JSON keeps
+            rows[name] = dict(max_abs_err=err, ms=ms, kernel_ms=kernel_ms,
+                              plain_ms=plain, bound_ms=bound, bound_by=by,
+                              library_ms=lib, shape=label)
+    return rows, launches
 
 
 # ---------------------------------------------------------------------------
@@ -928,7 +1184,10 @@ def main() -> None:
     timer = Timer()
     rows = phase_kernels(card, timer)
     rows.update(phase_hop_kernels(card, timer))
+    ops_rows, ops_launches = phase_ops_kernels(card, timer)
+    rows.update(ops_rows)
     del timer
+    torch.cuda.empty_cache()
 
     cfg = get_config("qwen3-0.6b")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -938,6 +1197,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     launches.update(phase_fit(card))
+    launches.update(ops_launches)
     torch.cuda.empty_cache()
 
     phase_reference(card)
@@ -952,7 +1212,13 @@ def main() -> None:
            "wire_hop_int8": ("src/repro_torch/csrc/wire_hop.cu",
                              "src/repro/kernels/ring_allreduce.py:118"),
            "wire_hop_bf16": ("src/repro_torch/csrc/wire_hop.cu",
-                             "src/repro/kernels/ring_allreduce.py:150")}
+                             "src/repro/kernels/ring_allreduce.py:150"),
+           "qlora_matmul": ("src/repro_torch/csrc/qlora_matmul.cu",
+                            "src/repro/kernels/qlora_matmul.py:73"),
+           "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                               "src/repro/kernels/flash_attention.py:64"),
+           "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
+                       "src/repro/kernels/rmsnorm.py:25")}
     kernels = [{"name": name, "route": "cuda", "source": src[name][0],
                 "replaces": src[name][1], "launches": launches[name],
                 **rows[name]} for name in src]

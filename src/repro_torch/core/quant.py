@@ -27,7 +27,7 @@ NF4_CODE = np.array([
 _CODES = {}
 
 
-def _code(device) -> torch.Tensor:
+def code_book(device) -> torch.Tensor:
     code = _CODES.get(device)
     if code is None:
         code = _CODES[device] = torch.from_numpy(NF4_CODE).to(device)
@@ -46,7 +46,8 @@ def nf4_quantize(w: torch.Tensor, qblock: int = 64):
     flat = w.float().reshape(*lead, n // qblock, qblock)
     absmax = flat.abs().amax(dim=-1)
     scaled = flat / torch.clamp(absmax[..., None], min=1e-12)
-    idx = torch.argmin((scaled[..., None] - _code(w.device)).abs(), dim=-1)
+    idx = torch.argmin((scaled[..., None] - code_book(w.device)).abs(),
+                       dim=-1)
     idx = idx.to(torch.uint8).reshape(*lead, din, dout)
     packed = (idx[..., 0::2] << 4) | idx[..., 1::2]
     return packed, absmax
@@ -59,5 +60,5 @@ def nf4_dequant(w_nf4: torch.Tensor, absmax: torch.Tensor) -> torch.Tensor:
     nb = absmax.shape[-1]
     qblock = (din * dout) // nb
     idx = torch.stack([w_nf4 >> 4, w_nf4 & 0xF], dim=-1).long()
-    vals = _code(w_nf4.device)[idx].reshape(*lead, nb, qblock)
+    vals = code_book(w_nf4.device)[idx].reshape(*lead, nb, qblock)
     return (vals * absmax[..., None]).reshape(*lead, din, dout)

@@ -325,8 +325,9 @@ def flash_decode_launcher(q, k, v, kv_pos, q_pos, *, k_scale=None,
             raise RuntimeError(f"flash_decode kernel launch failed (code "
                                f"{rc})")
 
-    # the tensors behind the pointers live as long as the launcher
-    launch.tensors = (*tensors, qp, plen)
+    # the tensors behind the pointers, outputs included, live as long as
+    # the launcher
+    launch.tensors = (*tensors, qp, plen, m, l, acc)
     return launch, (m, l, acc)
 
 

@@ -173,8 +173,9 @@ def wire_hop_launcher(acc, codes, scales, res, *, wire: str, qblock: int):
         if rc != 0:
             raise RuntimeError(f"wire_hop kernel launch failed (code {rc})")
 
-    # the tensors behind the pointers live as long as the launcher
-    launch.tensors = tuple(tensors)
+    # the tensors behind the pointers, outputs included, live as long as
+    # the launcher
+    launch.tensors = (*tensors, oacc, ocodes, oscales, ores)
     return launch, (oacc, ocodes, oscales, ores)
 
 

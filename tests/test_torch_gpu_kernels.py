@@ -19,6 +19,19 @@ and empty rows are exact.  The kernel is built for G = 2 and D in {64, 128}
 
 The wire-hop kernel (int8 and bf16 wires, full and quantize-only forms)
 must equal its plain version bit for bit: acc, codes, scales and residual.
+
+The ``kernels.ops`` kernels (rmsnorm, qlora_matmul, flash_attention) are
+held at ragged shapes, the reference benchmark's ``--full`` shapes and the
+shapes fedtime-llama2-7b's local step would give them.  Limits: in f32 the
+reference's own (``tests/test_kernels.py``: 2e-5 for rmsnorm and
+attention, 1e-4 for qlora, as ``assert_allclose``'s rtol and atol), since
+both sides compute in f32 and differ in the order of their sums.  In bf16
+rmsnorm and qlora round once, at the end, on both sides: they may differ by
+one bf16 step (a relative 2**-7) over the f32 limit.  The plain attention
+casts p to bf16 before p . v and the kernel does not, so a bf16 attention
+output is held instead to the plain version run on the same inputs in f32:
+within its own rounding, half a bf16 step (a relative 2**-8), over the f32
+limit.
 """
 
 import numpy as np
@@ -326,3 +339,107 @@ def test_quantize_update_on_card_equals_cpu(cuda):
             for k in ("a", "b"):
                 for leaf, t in dq_c[k].items():
                     assert _same_bits(dq_g[k][leaf].cpu(), t)
+
+
+# ---------------------------------------------------------------------------
+# The kernels.ops kernels: rmsnorm, qlora_matmul, flash_attention
+# ---------------------------------------------------------------------------
+
+def _allclose(got, want, tol, bf16_rel=0.0):
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol + bf16_rel,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("shape", [(4, 37, 512), (504, 4096), (64, 4096),
+                                   (3, 37), (5, 1030), (2, 2000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
+    from repro_torch.kernels import rmsnorm as rn
+    g = torch.Generator(device="cpu").manual_seed(shape[-1])
+    x = torch.randn(shape, generator=g).to(dtype).to(cuda)
+    for scale_dtype in (torch.float32, torch.bfloat16):
+        s = torch.randn(shape[-1], generator=g).to(scale_dtype).to(cuda)
+        got = rn.rmsnorm_cuda(x, s)
+        assert got.dtype == dtype and got.shape == x.shape
+        _allclose(got, rn.rmsnorm_ref(x, s), 2e-5,
+                  2.0 ** -7 if dtype == torch.bfloat16 else 0.0)
+
+
+def _qlora_case(dev, M, K, N, r, qb, dtype, seed=0):
+    from repro_torch.core.quant import nf4_quantize
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    w = torch.randn((K, N), generator=g) * 0.02
+    wq, am = nf4_quantize(w, qb)
+    x = torch.randn((M, K), generator=g).to(dtype)
+    a = torch.randn((K, r), generator=g) * 0.1
+    b = torch.randn((r, N), generator=g) * 0.1
+    return tuple(t.to(dev) for t in (x, wq, am.reshape(K, N // qb), a, b))
+
+
+@pytest.mark.parametrize("M,K,N,r,qb", [
+    (37, 200, 192, 8, 64),        # ragged M, K, N
+    (504, 4096, 4096, 8, 64),     # fedtime-llama2-7b's wq at full width
+    (512, 1024, 1024, 8, 64),     # the reference benchmark's --full
+    (5, 37, 36, 3, 12),           # no vector loads of x or of the codes
+    (70, 96, 128, 64, 32)])       # the largest rank
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qlora_kernel_matches_plain(cuda, M, K, N, r, qb, dtype):
+    from repro_torch.kernels import qlora_matmul as qm
+    args = _qlora_case(cuda, M, K, N, r, qb, dtype)
+    got = qm.qlora_matmul_cuda(*args, 2.0)
+    assert got.dtype == dtype and got.shape == (M, N)
+    _allclose(got, qm.qlora_matmul_ref(*args, 2.0), 1e-4,
+              2.0 ** -7 if dtype == torch.bfloat16 else 0.0)
+
+
+@pytest.mark.parametrize("B,H,S,D", [(8, 32, 63, 128), (4, 8, 1024, 128),
+                                     (2, 3, 100, 64), (1, 2, 1, 64),
+                                     (1, 1, 130, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, B, H, S, D, causal,
+                                              dtype):
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device="cpu").manual_seed(S + D)
+    q, k, v = (torch.randn((B, H, S, D), generator=g).to(dtype).to(cuda)
+               for _ in range(3))
+    got = fa.flash_attention_cuda(q, k, v, causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    want = fa.flash_attention_ref(q.float(), k.float(), v.float(), causal)
+    _allclose(got, want, 2e-5, 2.0 ** -8 if dtype == torch.bfloat16 else 0.0)
+
+
+def test_ops_kernels_refuse_what_they_do_not_take(cuda):
+    from repro_torch.core.quant import nf4_quantize
+    q = torch.zeros((1, 2, 8, 96), device=cuda)
+    with pytest.raises(ValueError, match="D must be"):
+        ops.flash_attention(q, q, q)
+    x = torch.zeros((4, 8), dtype=torch.float16, device=cuda)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        ops.rmsnorm(x, torch.ones(8, device=cuda))
+    args = _qlora_case(cuda, 4, 64, 64, 8, 64, torch.float32)
+    with pytest.raises(ValueError, match="lora_a"):
+        ops.qlora_matmul(*args[:3], torch.zeros((64, 65), device=cuda),
+                         args[4], 1.0)
+    wq, am = nf4_quantize(torch.randn((3, 32)), 48)   # blocks cross rows
+    with pytest.raises(ValueError, match="absmax"):
+        ops.qlora_matmul(torch.ones((4, 3), device=cuda), wq.to(cuda),
+                         am.to(cuda), torch.ones((3, 2), device=cuda),
+                         torch.ones((2, 32), device=cuda), 1.0)
+
+
+def test_ops_launch_counters(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import qlora_matmul as qm
+    from repro_torch.kernels import rmsnorm as rn
+    for mod in (fa, qm, rn):
+        mod.reset_launches()
+    x = torch.randn((4, 64), device=cuda)
+    ops.rmsnorm(x, torch.ones(64, device=cuda))
+    args = _qlora_case(cuda, 4, 64, 64, 8, 64, torch.float32)
+    ops.qlora_matmul(*args, 2.0)
+    qm.qlora_matmul_ref(*args, 2.0)                # plain: not counted
+    q = torch.randn((1, 2, 8, 64), device=cuda)
+    ops.flash_attention(q, q, q, causal=False)
+    assert (rn.LAUNCHES, qm.LAUNCHES, fa.LAUNCHES) == (
+        {"rmsnorm": 1}, {"qlora_matmul": 1}, {"flash_attention": 1})

@@ -38,6 +38,8 @@ SLICE_MODULES = {
     "repro_torch.optim.fedadam", "repro_torch.data.timeseries",
     "repro_torch.data.federated", "repro_torch.fault.guard",
     "repro_torch.models.losses", "repro_torch.tree",
+    "repro_torch.kernels.ops", "repro_torch.kernels.qlora_matmul",
+    "repro_torch.kernels.flash_attention", "repro_torch.kernels.rmsnorm",
 }
 
 

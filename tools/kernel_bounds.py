@@ -1,19 +1,27 @@
-"""Least times on one H100 for the TPU kernels that are still to port, at
-the shapes the federated fit would give them.
+"""Least times on one H100 for the ``kernels.ops`` kernels (qlora_matmul,
+rmsnorm, flash_attention) at the shapes ``chip_smoke.py`` drives them at.
 
     PYTHONPATH=src python tools/kernel_bounds.py
 
-No path of the reference calls ``qlora_matmul``, ``rmsnorm`` or
-``flash_attention``: its ``dense`` dequantizes NF4 and leaves the product to
-XLA, and its norms and attention are plain jnp.  This prints, for one local
-step's forward at fedtime-llama2-7b's widths (batch 4 x 2 channels = 8
-series of 63 patch tokens, bf16), what each kernel would move and compute
-per call and the bound that follows: the larger of bytes over 3.35 TB/s and
+No model path of the reference calls these three: its ``dense``
+dequantizes NF4 and leaves the product to XLA, and its norms and attention
+are plain jnp.  This prints, per call, what each kernel moves and computes
+and the bound that follows: the larger of bytes over 3.35 TB/s and
 operations over the rate for their type (989 TFLOP/s for bf16 products on
 the tensor cores, 67 TFLOP/s for f32 arithmetic outside them), from
 NVIDIA's H100 SXM data sheet.  Each input is counted read once and each
-output written once.  No device is used: these are shape arithmetic, not
-measurements.
+output written once.  Two sets of shapes:
+
+  * one local step's forward at fedtime-llama2-7b's widths (batch 4 x 2
+    channels = 8 series of 63 patch tokens, bf16), with the number of calls
+    a forward would make were the kernels on its path;
+  * the reference benchmark's ``--full`` shapes
+    (``benchmarks/kernels_bench.py``), in f32.
+
+For qlora_matmul it also prints the floor of f32 arithmetic on the CUDA
+cores, which the kernel keeps (the reference's oracle is f32), beside the
+bf16 tensor-core bound.  No device is used: these are shape arithmetic,
+not measurements.
 """
 
 from __future__ import annotations
@@ -23,13 +31,40 @@ BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
 
-def _bound(name, nbytes, flops, calls, rate=BF16_FLOPS):
+def _bound(name, nbytes, flops, calls=None, rate=BF16_FLOPS):
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_o = flops / rate * 1e3
     by, t = ("bytes", t_b) if t_b >= t_o else ("operations", t_o)
+    where = (f"; {calls} calls in a forward were it on the path"
+             if calls else "")
     print(f"{name}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP per call "
-          f"-> bound {t:.4f} ms ({by}); {calls} calls in a forward were it "
-          f"on the path")
+          f"-> bound {t:.4f} ms ({by}){where}")
+
+
+def _qlora(name, M, k, n, r, qb, elem, calls=None):
+    """x (M, k) and y (M, n) of ``elem`` bytes, codes (k, n/2) u8, absmax
+    f32 per qblock, A (k, r) and B (r, n) f32."""
+    nbytes = (M * k * elem + k * n // 2 + k * n // qb * 4
+              + (k * r + r * n) * 4 + M * n * elem)
+    flops = 2 * M * k * n + 2 * M * k * r + 2 * M * r * n
+    _bound(name, nbytes, flops, calls,
+           rate=BF16_FLOPS if elem == 2 else F32_FLOPS)
+    if elem == 2:
+        print(f"  the same in f32 on the CUDA cores (the kernel's "
+              f"arithmetic): {flops / F32_FLOPS * 1e3:.4f} ms")
+
+
+def _rmsnorm(name, rows, d, elem, calls=None):
+    """x and y (rows, d) of ``elem`` bytes, a scale of d values."""
+    _bound(name, 2 * rows * d * elem + d * elem, 4 * rows * d, calls,
+           rate=F32_FLOPS)
+
+
+def _attention(name, B, H, S, D, elem, causal, calls=None):
+    """q, k, v, o (B, H, S, D) of ``elem`` bytes."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    _bound(name, 4 * B * H * S * D * elem, 4 * B * H * D * pairs, calls,
+           rate=BF16_FLOPS if elem == 2 else F32_FLOPS)
 
 
 def main() -> None:
@@ -41,22 +76,21 @@ def main() -> None:
     S = num_patches(ft.lookback, ft.patch_len, ft.patch_stride)
     series = 4 * 2
     M = series * S                                   # rows of every linear
-    r, qb = ft.lora_rank, ft.qlora_block
-    # qlora_matmul at wq: x (M, d) bf16, codes (d, d/2) u8, absmax f32 per
-    # qblock, A (d, r), B (r, d) f32, y (M, d) bf16
-    k = n = d
-    nbytes = (M * k * 2 + k * n // 2 + k * n // qb * 4 + (k * r + r * n) * 4
-              + M * n * 2)
-    flops = 2 * M * k * n + 2 * M * k * r + 2 * M * r * n
-    _bound("qlora_matmul (wq/wk/wv/wo, one layer's one site)", nbytes, flops,
-           4 * L)
-    # rmsnorm: x (M, d) bf16 in and out, an f32 scale
-    _bound("rmsnorm (attn_norm / mlp_norm, one layer's one)",
-           2 * M * d * 2 + d * 4, 4 * M * d, 2 * L + 1, rate=F32_FLOPS)
-    # flash_attention, causal: q, k, v, o (series, H, S, D) bf16
-    qkvo = 4 * series * H * S * D * 2
-    _bound("flash_attention (causal, one layer)", qkvo,
-           2 * 2 * series * H * D * S * (S + 1) // 2, L)
+    print(f"fedtime-llama2-7b local step, bf16 ({series} series x {S} "
+          f"tokens):")
+    _qlora("qlora_matmul (wq/wk/wv/wo, one layer's one site)", M, d, d,
+           ft.lora_rank, ft.qlora_block, 2, 4 * L)
+    _rmsnorm("rmsnorm (attn_norm / mlp_norm, one layer's one)", M, d, 2,
+             2 * L + 1)
+    _attention("flash_attention (causal, one layer)", series, H, S, D, 2,
+               True, L)
+    print("reference benchmark --full shapes, f32:")
+    _qlora("qlora_matmul (512, 1024, 1024, r 8, qblock 64)", 512, 1024, 1024,
+           8, 64, 4)
+    _rmsnorm("rmsnorm (64, 4096)", 64, 4096, 4)
+    for causal in (True, False):
+        _attention(f"flash_attention ({'causal' if causal else 'full'}, 4, "
+                   f"8, 1024, 128)", 4, 8, 1024, 128, 4, causal)
 
 
 if __name__ == "__main__":
