@@ -19,7 +19,9 @@ Phases, each printing its numbers beside the card's name and power limit:
        ragged 1001 rows, equal bit for bit;
      with the wrapper's time, the kernel's alone, the plain version's, the
      least time the card could take (bound) and one library call's time as
-     a yardstick where one exists;
+     a yardstick where one exists; for each flash-decode case its grid
+     (splits, blocks, cluster size) and the device operations one wrapper
+     call makes (``torch.profiler``; a ring call must be exactly one);
   2b. drive ``repro_torch.kernels.ops``' qlora_matmul, rmsnorm and
      flash_attention, which no model path calls (as in the reference), at
      the shapes fedtime-llama2-7b's local step would give them (bf16, 8
@@ -266,15 +268,38 @@ def _sdpa_inputs(args, kw):
 
 
 def _f32_outs(args, kw):
-    """The f32 outputs before the cast, (B, Hk, G, D): the kernel's (its
-    partials combined; a comparison launch, not counted) and the plain
-    version's."""
+    """The f32 outputs before the cast, (B, Hk, G, D): the kernel's (a
+    comparison launch, not counted) and the plain version's.  The ring
+    kernel's are its own merged sums (``return_partials``); the paged
+    kernel's per-split partials are combined as its wrapper does."""
     from repro_torch.kernels import flash_decode as fd
-    launch, (m, l, acc) = fd.flash_decode_launcher(*args, **kw)
-    launch()
-    got = fd._combine(m[..., None], l[..., None], acc, axis=2)
+    if kw.get("block_tables") is None:
+        launch, (m, l, acc) = fd.flash_decode_launcher(
+            *args, return_partials=True, **kw)
+        launch()
+        got = acc / torch.clamp(l, min=1e-30)
+    else:
+        launch, (m, l, acc) = fd.flash_decode_launcher(*args, **kw)
+        launch()
+        got = fd._combine(m[..., None], l[..., None], acc, axis=2)
     m, l, acc = fd.flash_decode_ref(*args, return_partials=True, **kw)
     return got, acc / torch.clamp(l, min=1e-30)
+
+
+def _device_ops_per_call(fn, calls: int = 4) -> float:
+    """Kernels (and copies or fills) one call of ``fn`` puts on the device,
+    counted by ``torch.profiler`` over ``calls`` calls after a warm one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / calls
 
 
 def _hold_to_plain(label: str, args, kw, got=None) -> float:
@@ -356,8 +381,20 @@ def phase_kernels(card: str, timer: Timer) -> dict:
         nbytes = (q.numel() * 2 + slots * row_bytes + meta + B * H * D * 2)
         flops = 4 * (H // Hk) * D * Hk * slots
         bound, by = _bound_ms(nbytes, flops)
-        ms = timer.ms(lambda: fd.flash_decode_cuda(*args, **kw), 50)
         launch, _ = fd.flash_decode_launcher(*args, **kw)
+        per_call = _device_ops_per_call(
+            lambda: fd.flash_decode_cuda(*args, **kw))
+        grid = launch.grid
+        resident = (f" ({grid['resident_clusters']} such clusters fit the "
+                    f"card at once)" if not paged else "")
+        print(f"  {name} {label}: grid {grid['splits']} splits x {Hk} "
+              f"heads x {B} rows = {grid['blocks']} blocks, cluster "
+              f"{grid['cluster']}{resident}; the wrapper puts {per_call:g} "
+              f"kernels (and copies or fills) on the device a call")
+        if not paged:
+            _check(per_call == 1, f"{name} {label}: the ring wrapper ran "
+                   f"{per_call} device operations a call, not 1")
+        ms = timer.ms(lambda: fd.flash_decode_cuda(*args, **kw), 50)
         kernel_ms = timer.ms(launch, 50)
         plain = timer.ms(lambda: fd.flash_decode_ref(*args, **kw), 5)
         sq, sk, sv, smask = _sdpa_inputs(args, kw)

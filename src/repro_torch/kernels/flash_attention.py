@@ -6,7 +6,11 @@ kernel ``repro/kernels/flash_attention.py::flash_attention``;
 of the reference's oracle ``repro/kernels/ref.py::flash_attention_ref``:
 f32 scores scaled by D^-0.5, the causal mask filled with the finite
 ``finfo(f32).min``, an f32 softmax, and ``p`` cast to v's type before the
-product with v.  The kernel, like the TPU kernel, keeps ``p`` in f32.
+product with v.  The kernel keeps ``p`` finer than the oracle: in f32 for
+f32 inputs (register tiles on the CUDA cores, as the TPU kernel), and for
+bf16 inputs, on the tensor cores, as two bf16 values ``p_hi + p_lo`` (about
+16 bits), so a bf16 output stays within half a bf16 step of the plain
+version run in f32.
 
 q, k and v share one shape and one type (f32 or bf16); S may be ragged; the
 kernel takes D in {64, 128} (the reference's tested head dims and the

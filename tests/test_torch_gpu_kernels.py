@@ -15,7 +15,12 @@ what rounding those f32 outputs allows: |got - want| <= 2**-8 (|got| +
 |want|) + 1e-5 (each side rounds by at most half a bf16 step, 2**-8 of its
 value).  Block copies
 and empty rows are exact.  The kernel is built for G = 2 and D in {64, 128}
-(the ported configurations' head geometries) and refuses the rest.
+(the ported configurations' head geometries) and refuses the rest.  The
+ring kernel is held at the card's split policy and at explicit split
+counts, at ring lengths that no split count divides, with idle lanes
+(q_pos -1) and empty rings, through ``return_partials`` (its merged f32
+sums), and must be one kernel launch a call (counted with
+``torch.profiler``).
 
 The wire-hop kernel (int8 and bf16 wires, full and quantize-only forms)
 must equal its plain version bit for bit: acc, codes, scales and residual.
@@ -31,7 +36,9 @@ one bf16 step (a relative 2**-7) over the f32 limit.  The plain attention
 casts p to bf16 before p . v and the kernel does not, so a bf16 attention
 output is held instead to the plain version run on the same inputs in f32:
 within its own rounding, half a bf16 step (a relative 2**-8), over the f32
-limit.
+limit.  The bf16 kernel runs on the tensor cores with p split into two bf16
+values, which keeps it inside that limit
+(``tests/test_torch_kernel_designs.py`` emulates its arithmetic on the CPU).
 """
 
 import numpy as np
@@ -202,6 +209,88 @@ def test_paged_kernel_matches_plain(cuda, dtype):
             torch.from_numpy(q_pos).to(cuda))
     t = torch.from_numpy(tbl).to(cuda)
     _assert_matches_plain(args, dict(block_tables=t, **kw))
+
+
+@pytest.mark.parametrize("n_splits", [0, 1, 3, 8],
+                         ids=["card", "1", "3", "8"])
+@pytest.mark.parametrize("S", [577, 100, 1])
+def test_ring_kernel_splits(cuda, S, n_splits):
+    """The card's split policy (0) and explicit counts, at ring lengths no
+    count divides and at one slot; lane 1 idle (q_pos -1) and row 2's ring
+    empty, both exactly 0; the merged f32 partials through the same
+    kernel."""
+    q, k, v, kv_pos, pos, _ = _ring(cuda, B=4, S=S, Hk=8, G=2, D=128,
+                                    dtype=torch.bfloat16, empty_row=2,
+                                    seed=S)
+    pos[1] = -1
+    args, kw = (q, k, v, kv_pos, pos), dict(n_splits=n_splits)
+    got = _assert_matches_plain(args, kw)
+    assert torch.count_nonzero(got[1]) == 0
+    assert torch.count_nonzero(got[2]) == 0
+    got_p = ops.flash_decode(*args, return_partials=True, **kw)
+    want_p = fd.flash_decode_ref(*args, return_partials=True, **kw)
+    for a, b in zip(got_p, want_p):
+        _close(a, b, 1e-4)
+    assert torch.all(got_p[0][1:3] == -1e30)
+    assert torch.count_nonzero(got_p[1][1:3]) == 0
+    assert torch.count_nonzero(got_p[2][1:3]) == 0
+
+
+@pytest.mark.parametrize("kw", [{}, dict(window=300),
+                                dict(kind="prefix", prefix_len=100),
+                                dict(kind="full"), dict(softcap=5.0)],
+                         ids=["causal", "window", "prefix", "full",
+                              "softcap"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8],
+                         ids=["bf16", "f32", "int8"])
+def test_ring_kernel_kinds_and_types_d64(cuda, dtype, kw):
+    q, k, v, kv_pos, pos, skw = _ring(cuda, B=3, S=640, Hk=2, G=2, D=64,
+                                      dtype=dtype, wrap=True, seed=5)
+    _assert_matches_plain((q, k, v, kv_pos, pos), {**kw, **skw})
+
+
+@pytest.mark.parametrize("q_pos_form", ["int", "0-d"])
+def test_ring_kernel_scalar_positions(cuda, q_pos_form):
+    """q_pos as a Python int or a 0-d tensor (read with stride 0), one (S,)
+    kv_pos row for every request, prefix_len as a (B,) tensor."""
+    B, S, Hk, D = 3, 300, 2, 128
+    g = torch.Generator(device="cpu").manual_seed(9)
+    q = torch.randn((B, 1, 2 * Hk, D), generator=g).to(cuda)
+    k, v = (torch.randn((B, S, Hk, D), generator=g).to(cuda)
+            for _ in range(2))
+    kv_pos = torch.arange(S, dtype=torch.int32, device=cuda)
+    q_pos = 250 if q_pos_form == "int" else torch.tensor(
+        250, dtype=torch.int32, device=cuda)
+    plen = torch.tensor([0, 270, 299], dtype=torch.int32, device=cuda)
+    for kw in ({}, dict(kind="prefix", prefix_len=plen)):
+        _assert_matches_plain((q, k, v, kv_pos, q_pos), kw)
+
+
+def test_ring_wrapper_is_one_kernel_launch(cuda):
+    """A ring call, output or partials, is one kernel and no other device
+    work (no copy, fill or combine)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, kv_pos, pos, _ = _ring(cuda, B=4, S=576, Hk=8, G=2, D=128,
+                                    dtype=torch.bfloat16)
+    calls = (lambda: ops.flash_decode(q, k, v, kv_pos, pos),
+             lambda: ops.flash_decode(q, k, v, kv_pos, 575),
+             lambda: ops.flash_decode(q, k, v, kv_pos, pos,
+                                      return_partials=True))
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    n0 = fd.LAUNCHES["flash_decode"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            for call in calls:
+                call()
+        torch.cuda.synchronize()
+    dev_ops = [(e.key, e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    assert sum(n for _, n in dev_ops) == 12, dev_ops
+    assert fd.LAUNCHES["flash_decode"] - n0 == 12
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8,
@@ -402,6 +491,23 @@ def test_flash_attention_kernel_matches_plain(cuda, B, H, S, D, causal,
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device="cpu").manual_seed(S + D)
     q, k, v = (torch.randn((B, H, S, D), generator=g).to(dtype).to(cuda)
+               for _ in range(3))
+    got = fa.flash_attention_cuda(q, k, v, causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    want = fa.flash_attention_ref(q.float(), k.float(), v.float(), causal)
+    _allclose(got, want, 2e-5, 2.0 ** -8 if dtype == torch.bfloat16 else 0.0)
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 100])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_kernel_tile_edges(cuda, S, D, causal, dtype):
+    """S on both sides of one 64-row / 64-key tile and at one row."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device="cpu").manual_seed(S * D)
+    q, k, v = (torch.randn((2, 3, S, D), generator=g).to(dtype).to(cuda)
                for _ in range(3))
     got = fa.flash_attention_cuda(q, k, v, causal)
     assert got.dtype == dtype and got.shape == q.shape
