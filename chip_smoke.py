@@ -7,13 +7,14 @@ Phases, each printing its numbers beside the card's name and power limit:
   1. build the CUDA kernels from src/repro_torch/csrc (one nvcc per source,
      all at once) and print ptxas's register / spill report;
   2. hold every kernel against its plain PyTorch version:
-     - flash-decode and the block copy at qwen3-0.6b's widths (Hk=8, G=2,
-       D=128): at the main path's own call shapes (the fixed batch's 4 x
+     - flash-decode and the block copy at the main path's own call shapes,
+       for each served config: qwen3-0.6b (Hk=8, G=2, D=128) and
+       fedtime-llama2-7b (Hk=32, G=1, D=128): the fixed batch's 4 x
        576-slot ring; the engine's 12 lanes over its 96-block pool of 16
        slots, with idle lanes, shared blocks and -1 table entries; the CoW
-       block copy on the pool's 28-layer K and kv_pos leaves), and at
-       longer caches (B=4, S in {1024, 4096}, bf16 and int8, ring and
-       paged);
+       block copy on the pool's K and kv_pos leaves; and, at qwen3-0.6b's
+       heads, longer caches (B=4, S in {1024, 4096}, bf16 and int8, ring
+       and paged);
      - the wire hop, int8 and bf16, full and quantize-only, at the fit's
        upload size (8,388,608 adapter elements in rows of 128) and at a
        ragged 1001 rows, equal bit for bit;
@@ -36,11 +37,15 @@ Phases, each printing its numbers beside the card's name and power limit:
      launcher (prefill 4x512, 64 decode steps over the contiguous ring),
   4. then the continuous-batching engine (paged pool, prefix sharing, a
      12-request trace with a shared-prefix cluster), checking that every
-     request finishes, all logits are finite, copy-on-write fired, and that
-     phases 3-4 launched every serving kernel (launch counters set to 0
-     before phase 3, read after phase 4); a few of the main path's own
-     flash-decode calls are copied as they run and held against the plain
-     version afterwards;
+     request finishes, all logits are finite, copy-on-write fired, no block
+     leaked, and that phases 3-4 launched every serving kernel (launch
+     counters set to 0 before phase 3, read after phase 4); a few of the
+     main path's own flash-decode calls are copied as they run and held
+     against the plain version afterwards;
+  4b. phases 3-4 again with fedtime-llama2-7b at full width (32 layers,
+     d_model 4096, 32/32 heads of 128: G = 1, vocab 32,000, bf16), the same
+     geometry and checks, its own launch counts; then its weights and caches
+     are freed;
   5. fit fedtime-llama2-7b at full width (32 layers, d_model 4096, bf16,
      NF4 base, LoRA rank 8; the schedule cut to 8 clients, 2 clusters, 2
      clients a round, 2 local steps, 2 rounds, batch 4) with
@@ -51,8 +56,9 @@ Phases, each printing its numbers beside the card's name and power limit:
      memory printed, and the run's first hop calls held against the plain
      version;
   6. check the model path on the card against the plain path on the CPU at
-     the smoke configs in f32: qwen3-0.6b prefill + teacher-forced decode
-     (ring and paged), and a 2-round fit on the int8 wire.
+     the smoke configs in f32: prefill + teacher-forced decode (ring and
+     paged) of qwen3-0.6b and of fedtime-llama2-7b (G = 1), and a 2-round
+     fit on the int8 wire.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last three lines are the kernels' JSON summary, the card's name and
@@ -64,6 +70,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -105,6 +113,10 @@ FIXED = dict(batch=4, prompt_len=512, gen=64)         # ring of 576 slots
 ENGINE = dict(slots=12, cache_len=128, block_size=16)  # 96-block pool
 ENGINE_POOL_BLOCKS = (ENGINE["slots"] * ENGINE["cache_len"]
                       // ENGINE["block_size"])
+# The configs served on the main path, each at full width: the JSON line's
+# rows are qwen3-0.6b's (G = 2); fedtime-llama2-7b's (G = 1) are nested
+# under its name in each serving kernel's row.
+SERVED = ("qwen3-0.6b", "fedtime-llama2-7b")
 
 
 def _card() -> str:
@@ -112,6 +124,31 @@ def _card() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def _ptxas_report(log: str):
+    """[(kernel, "Used N registers, ...")] from nvcc's ``-Xptxas -v``
+    output, each kernel's name demangled by ``c++filt`` where there is one
+    (else left mangled)."""
+    report = {}
+    entry = "?"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        elif "registers" in line or "spill" in line:
+            report.setdefault(entry, []).append(
+                line.split(":", 1)[-1].strip())
+    pairs = [(e, "; ".join(r)) for e, r in report.items()]
+    names = [e for e, _ in pairs]
+    if shutil.which("c++filt") and names:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            names = [n.replace("(anonymous namespace)::", "")
+                     .removeprefix("void ").split("(")[0]
+                     for n in out.stdout.splitlines()]
+    return [(n, r) for n, (_, r) in zip(names, pairs)]
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -179,8 +216,9 @@ def _quant(x):
 
 def _decode_case(rows, S: int, int8: bool, paged: bool, *, n_blocks=0,
                  Hk=8, G=2, D=128, bs=16, seed=0):
-    """Inputs of one decode call at qwen3-0.6b's widths: one row per entry
-    of ``rows`` (its position; -1 is an idle lane, which must come out 0).
+    """Inputs of one decode call with Hk KV heads of D and G queries each:
+    one row per entry of ``rows`` (its position; -1 is an idle lane, which
+    must come out 0).
     The ring holds positions 0..q_pos of each row.  The paged pool
     (``n_blocks`` blocks of ``bs``) shares its first two blocks between all
     active rows, and leaves the table entries past each row's position,
@@ -344,29 +382,51 @@ def _hold_to_plain(label: str, args, kw, got=None) -> float:
     return err
 
 
+def _served_heads():
+    """{config name: (layers, Hk, G, D)} of the configs the main path
+    serves."""
+    from repro_torch.configs import get_config
+    out = {}
+    for arch in SERVED:
+        cfg = get_config(arch)
+        out[arch] = (cfg.num_layers, cfg.num_kv_heads,
+                     cfg.num_heads // cfg.num_kv_heads, cfg.head_dim)
+    return out
+
+
 def phase_kernels(card: str, timer: Timer) -> dict:
     """Every kernel against its plain version at the main path's own call
-    shapes (the fixed batch's ring and the engine's pool, bf16, the rows the
-    JSON line keeps) and at longer caches (S = 1024, 4096; bf16 and int8)."""
+    shapes (for each served config: the fixed batch's ring and the engine's
+    pool, bf16; the rows the JSON line keeps) and at longer caches (S =
+    1024, 4096; bf16 and int8; qwen3-0.6b's heads).  Returns the JSON rows:
+    qwen3-0.6b's, with fedtime-llama2-7b's nested under its name."""
     from repro_torch.kernels import flash_decode as fd
     F = torch.nn.functional
     P, gen = FIXED["prompt_len"], FIXED["gen"]
     S_eng = ENGINE["cache_len"]
     engine_rows = [S_eng - 1, 100, -1, 64, 17, -1, 90, 40, 3, -1, 111, 56]
-    cases = [("main path: fixed batch ring", [P + gen - 1] * FIXED["batch"],
-              P + gen, False, False, 0),
-             ("main path: engine pool", engine_rows, S_eng, False, True,
-              ENGINE_POOL_BLOCKS)]
+    heads = _served_heads()
+    cases = []
+    for arch, (_, Hk, G, D) in heads.items():
+        hw = dict(Hk=Hk, G=G, D=D)
+        cases += [(arch, f"main path {arch}: fixed batch ring",
+                   [P + gen - 1] * FIXED["batch"], P + gen, False, False, 0,
+                   hw),
+                  (arch, f"main path {arch}: engine pool", engine_rows,
+                   S_eng, False, True, ENGINE_POOL_BLOCKS, hw)]
+    _, Hk, G, D = heads[SERVED[0]]
     for S in (1024, 4096):
         rows4 = [S - 1, S - 100, 3 * S // 4, S // 2 + 5]
         for int8 in (False, True):
             for paged in (False, True):
-                cases.append((f"S={S} {'int8' if int8 else 'bf16'}", rows4,
-                              S, int8, paged, 0))
+                cases.append((None, f"S={S} {'int8' if int8 else 'bf16'}",
+                              rows4, S, int8, paged, 0,
+                              dict(Hk=Hk, G=G, D=D)))
     rows = {}
-    for label, q_rows, S, int8, paged, n_blocks in cases:
+    for arch, label, q_rows, S, int8, paged, n_blocks, hw in cases:
         name = "flash_decode_paged" if paged else "flash_decode"
-        args, kw = _decode_case(q_rows, S, int8, paged, n_blocks=n_blocks)
+        args, kw = _decode_case(q_rows, S, int8, paged, n_blocks=n_blocks,
+                                **hw)
         err = _hold_to_plain(f"{name} {label}", args, kw)
         q, k, v = args[:3]
         B, _, H, D = q.shape
@@ -387,13 +447,23 @@ def phase_kernels(card: str, timer: Timer) -> dict:
         grid = launch.grid
         resident = (f" ({grid['resident_clusters']} such clusters fit the "
                     f"card at once)" if not paged else "")
-        print(f"  {name} {label}: grid {grid['splits']} splits x {Hk} "
-              f"heads x {B} rows = {grid['blocks']} blocks, cluster "
-              f"{grid['cluster']}{resident}; the wrapper puts {per_call:g} "
-              f"kernels (and copies or fills) on the device a call")
+        print(f"  {name} {label}: G = {H // Hk}, D = {D}, grid "
+              f"{grid['splits']} splits x {Hk} heads x {B} rows = "
+              f"{grid['blocks']} blocks, cluster {grid['cluster']}"
+              f"{resident}; the wrapper puts {per_call:g} kernels (and "
+              f"copies or fills) on the device a call")
         if not paged:
             _check(per_call == 1, f"{name} {label}: the ring wrapper ran "
                    f"{per_call} device operations a call, not 1")
+            resident = fd._ring_max_clusters(q.device, fd._KV_TYPES[k.dtype],
+                                             H // Hk, D)
+            _check(grid["resident_clusters"] == resident[grid["splits"] - 1],
+                   f"{name} {label}: splits not sized by this kernel's "
+                   f"occupancy")
+            if arch is not None:
+                print(f"  the occupancy query of this call's kernel "
+                      f"({str(k.dtype)[6:]} cache, G = {H // Hk}, D = {D}): "
+                      f"clusters of 1..8 blocks resident at once {resident}")
         ms = timer.ms(lambda: fd.flash_decode_cuda(*args, **kw), 50)
         kernel_ms = timer.ms(launch, 50)
         plain = timer.ms(lambda: fd.flash_decode_ref(*args, **kw), 5)
@@ -404,37 +474,56 @@ def phase_kernels(card: str, timer: Timer) -> dict:
               f"{ms:.4f} ms, kernel alone {kernel_ms:.4f} ms, plain "
               f"{plain:.4f} ms, bound {bound:.4f} ms ({by}, "
               f"{nbytes / 1e6:.2f} MB), sdpa {lib:.4f} ms")
-        if label.startswith("main path"):        # the rows the JSON keeps
-            rows[name] = dict(max_abs_err=err, ms=ms, kernel_ms=kernel_ms,
-                              plain_ms=plain, bound_ms=bound, bound_by=by,
-                              library_ms=lib, shape=label)
+        if arch is not None:                      # the rows the JSON keeps
+            row = dict(max_abs_err=err, ms=ms, kernel_ms=kernel_ms,
+                       plain_ms=plain, bound_ms=bound, bound_by=by,
+                       library_ms=lib, shape=f"{label}, G = {H // Hk}",
+                       grid=grid)
+            _keep_row(rows, name, arch, row)
     g = torch.Generator(device="cuda").manual_seed(1)
     n_blocks = ENGINE_POOL_BLOCKS                  # the engine's pool leaves
-    for leaf_name, shape, dtype in (
-            ("k", (28, n_blocks, 16, 8, 128), torch.bfloat16),
-            ("kv_pos", (28, n_blocks, 16), torch.int32)):
-        base = torch.randint(-1000, 1000, shape, generator=g, device="cuda")
-        leaf = base.to(dtype)
-        want = leaf.clone()
-        fd.paged_block_copy_ref(want, 5, 40)
-        fd.paged_block_copy_cuda(leaf, 5, 40)
-        torch.cuda.synchronize()
-        _check(torch.equal(leaf, want), f"block copy {leaf_name} not exact")
-        nbytes = 2 * shape[0] * leaf[0, 0].numel() * leaf.element_size()
-        bound, by = _bound_ms(nbytes, 0.0)
-        ms = timer.ms(lambda: fd.paged_block_copy_cuda(leaf, 5, 40), 50)
-        plain = timer.ms(lambda: fd.paged_block_copy_ref(leaf, 5, 40), 50)
-        lib = timer.ms(lambda: leaf[:, 40].copy_(leaf[:, 5]), 50)
-        print(f"[{card}] kernel paged_block_copy {leaf_name} "
-              f"{tuple(shape)} {str(dtype)[6:]}: max_abs_err 0 (exact), "
-              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} "
-              f"ms ({by}, {nbytes / 1e6:.2f} MB), copy_ {lib:.4f} ms")
-        if leaf_name == "k":               # the wrapper runs only the kernel
-            rows["paged_block_copy"] = dict(
-                max_abs_err=0.0, ms=ms, kernel_ms=ms, plain_ms=plain,
-                bound_ms=bound, bound_by=by, library_ms=lib,
-                shape=f"engine pool leaf {tuple(shape)}")
+    for arch, (L, Hk, _, D) in heads.items():
+        for leaf_name, shape, dtype in (
+                ("k", (L, n_blocks, 16, Hk, D), torch.bfloat16),
+                ("kv_pos", (L, n_blocks, 16), torch.int32)):
+            base = torch.randint(-1000, 1000, shape, generator=g,
+                                 device="cuda", dtype=torch.int32)
+            leaf = base.to(dtype)
+            del base
+            want = leaf.clone()
+            fd.paged_block_copy_ref(want, 5, 40)
+            fd.paged_block_copy_cuda(leaf, 5, 40)
+            torch.cuda.synchronize()
+            _check(torch.equal(leaf, want), f"block copy {arch} {leaf_name} "
+                   f"not exact")
+            del want
+            nbytes = 2 * shape[0] * leaf[0, 0].numel() * leaf.element_size()
+            bound, by = _bound_ms(nbytes, 0.0)
+            ms = timer.ms(lambda: fd.paged_block_copy_cuda(leaf, 5, 40), 50)
+            plain = timer.ms(lambda: fd.paged_block_copy_ref(leaf, 5, 40),
+                             50)
+            lib = timer.ms(lambda: leaf[:, 40].copy_(leaf[:, 5]), 50)
+            print(f"[{card}] kernel paged_block_copy {arch} {leaf_name} "
+                  f"{tuple(shape)} {str(dtype)[6:]}: max_abs_err 0 (exact), "
+                  f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+                  f"{bound:.4f} ms ({by}, {nbytes / 1e6:.2f} MB), copy_ "
+                  f"{lib:.4f} ms")
+            if leaf_name == "k":           # the wrapper runs only the kernel
+                _keep_row(rows, "paged_block_copy", arch, dict(
+                    max_abs_err=0.0, ms=ms, kernel_ms=ms, plain_ms=plain,
+                    bound_ms=bound, bound_by=by, library_ms=lib,
+                    shape=f"{arch} engine pool leaf {tuple(shape)}"))
+            del leaf
     return rows
+
+
+def _keep_row(rows: dict, name: str, arch: str, row: dict) -> None:
+    """The JSON row of ``name``: the first served config's at the top,
+    the others' nested under their names."""
+    if arch == SERVED[0]:
+        rows[name] = {**row, **rows.get(name, {})}
+    else:
+        rows.setdefault(name, {})[arch] = row
 
 
 def _hop_case(rows: int, wire: str, full: bool, seed: int = 0):
@@ -839,17 +928,44 @@ class _CallRecorder:
         return out
 
 
-def phase_main_path(card: str, cfg, params) -> dict:
+def phase_main_path(card: str, arch: str) -> dict:
+    """Serve ``arch`` at full width with random bf16 weights drawn on the
+    card (phases 3-4, or 4b): the fixed batch over the ring, then the
+    engine over the paged pool.  The launch counts are set to 0 just before
+    and read just after; a few of the run's own flash-decode calls are held
+    against the plain version; the weights and caches are freed on
+    return."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models.registry import get_model
+    cfg = get_config(arch)
+    G = cfg.num_heads // cfg.num_kv_heads
+    print(f"[{card}] serve {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.head_dim} (G = {G}), vocab {cfg.vocab_size}, "
+          f"{cfg.param_dtype}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = get_model(cfg).init(cfg, gen, device="cuda")
     with _CallRecorder(fd) as recorder:
         launches = _run_main_path(card, cfg, params)
-    print(f"[{card}] the main path's own flash-decode calls, held against "
-          f"the plain version on copies of their inputs:")
+    del params
+    print(f"[{card}] serve {cfg.name}: {time.perf_counter() - t0:.1f} s "
+          f"with the weights' init, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    print(f"[{card}] {cfg.name}: the main path's own flash-decode calls "
+          f"(G = {G}), held against the plain version on copies of their "
+          f"inputs:")
     for label, args, kw, out in recorder.calls:
+        _check(args[0].shape[2] == G * args[1].shape[2],
+               f"{label}: a call of another head geometry")
         _hold_to_plain(f"{label}, q {tuple(args[0].shape)}, k "
                        f"{tuple(args[1].shape)}", args, kw, got=out)
     _check({l.split()[0] for l, *_ in recorder.calls} == {"ring", "paged"},
            "no main-path call of each layout was recorded")
+    del recorder
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -867,7 +983,7 @@ def _run_main_path(card: str, cfg, params) -> dict:
     fixed_launches = dict(fd.LAUNCHES)
     _check(fixed_launches["flash_decode"] == 64 * cfg.num_layers,
            f"fixed batch: {fixed_launches} contiguous launches")
-    print(f"[{card}] fixed batch qwen3-0.6b full width: prefill 4x512 "
+    print(f"[{card}] fixed batch {cfg.name} full width: prefill 4x512 "
           f"{res['prefill_tok_per_s']:.0f} tok/s, decode first step "
           f"{res['first_step_s']:.3f} s, steady "
           f"{res['decode_tok_per_s']:.1f} tok/s (63 steps x 4), "
@@ -904,7 +1020,7 @@ def _run_main_path(card: str, cfg, params) -> dict:
            "engine: pool geometry differs from the one phase 2 checks")
     for name in ("flash_decode", "flash_decode_paged", "paged_block_copy"):
         _check(launches[name] > 0, f"main path never launched {name}")
-    print(f"[{card}] engine qwen3-0.6b full width, paged + prefix sharing: "
+    print(f"[{card}] engine {cfg.name} full width, paged + prefix sharing: "
           f"{summ['requests']} requests, {summ['decode_tokens']} decode "
           f"tokens in {summ['decode_steps']} steps, "
           f"{summ['steady_tok_per_s']:.1f} tok/s steady, itl p50 "
@@ -913,7 +1029,8 @@ def _run_main_path(card: str, cfg, params) -> dict:
           f"{summ['share_hits']} ({summ['full_prompt_hits']} full), cow "
           f"{summ['cow_copies']}, {len(finite)} logits tensors finite, "
           f"wall {wall:.1f} s")
-    print(f"[{card}] main-path launches (fixed batch + engine): {launches}")
+    print(f"[{card}] {cfg.name} main-path launches (fixed batch + engine): "
+          f"{launches}")
     return launches
 
 
@@ -1134,12 +1251,14 @@ def _to(tree, dev):
             for k, v in tree.items()}
 
 
-def phase_reference(card: str) -> None:
-    """Smoke config in f32: the card (kernels) against the CPU (plain
-    versions), same weights, teacher-forced tokens; ring and paged."""
+def phase_reference(card: str, arch: str) -> None:
+    """``arch``'s smoke config in f32 (qwen3-0.6b: G = 2, D 64;
+    fedtime-llama2-7b: G = 1, D 32): the card (kernels) against the CPU
+    (plain versions), same weights, teacher-forced tokens; ring and
+    paged."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.registry import get_model
-    cfg = get_smoke_config("qwen3-0.6b")
+    cfg = get_smoke_config(arch)
     api = get_model(cfg)
     params = api.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     rng = np.random.default_rng(0)
@@ -1187,9 +1306,10 @@ def phase_reference(card: str) -> None:
         err = float((a - b).abs().max())
         _check(err <= TOL_F32_MODEL, f"reference {layout}: card vs CPU "
                f"logits max err {err} > {TOL_F32_MODEL}")
-        print(f"[{card}] reference smoke f32 {layout}: card vs CPU logits "
-              f"max_abs_err {err:.3g} (tol {TOL_F32_MODEL}), 9 steps x 3 "
-              f"rows")
+        print(f"[{card}] reference {cfg.name} f32 {layout} (G = "
+              f"{cfg.num_heads // cfg.num_kv_heads}, D {cfg.head_dim}): card "
+              f"vs CPU logits max_abs_err {err:.3g} (tol {TOL_F32_MODEL}), "
+              f"9 steps x 3 rows")
 
 
 def main() -> None:
@@ -1198,9 +1318,7 @@ def main() -> None:
                          "the card only")
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "src"))
-    from repro_torch.configs import get_config
     from repro_torch.kernels import build
-    from repro_torch.models.registry import get_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1214,9 +1332,8 @@ def main() -> None:
     print(f"[{card}] build: {build_s:.1f} s for {sorted(logs) or 'nothing'} "
           f"(one nvcc per source, in parallel)")
     for name, log in sorted(logs.items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        for entry, report in _ptxas_report(log):
+            print(f"  ptxas {name} {entry}: {report}")
 
     timer = Timer()
     rows = phase_kernels(card, timer)
@@ -1226,18 +1343,18 @@ def main() -> None:
     del timer
     torch.cuda.empty_cache()
 
-    cfg = get_config("qwen3-0.6b")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = get_model(cfg).init(cfg, gen, device="cuda")
-    launches = phase_main_path(card, cfg, params)
-    del params
-    torch.cuda.empty_cache()
+    served = {arch: phase_main_path(card, arch) for arch in SERVED}
+    launches = dict(served[SERVED[0]])
+    for name in ("flash_decode", "flash_decode_paged", "paged_block_copy"):
+        for arch in SERVED[1:]:
+            rows[name][arch]["launches"] = served[arch][name]
 
     launches.update(phase_fit(card))
     launches.update(ops_launches)
     torch.cuda.empty_cache()
 
-    phase_reference(card)
+    for arch in SERVED:
+        phase_reference(card, arch)
     _fit_reference(card)
 
     src = {"flash_decode": ("src/repro_torch/csrc/flash_decode.cu",

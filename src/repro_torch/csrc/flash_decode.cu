@@ -55,14 +55,27 @@
 //   * int8 caches are dequantized at load time from the per-slot, per-head
 //     bf16 absmax scales; scores are f32 throughout; softcap is kept.
 //
+// Head geometries: both kernels are instantiated for the (G, D) pairs of
+// the ported configurations only (with_heads below): G = 2 with D 64
+// (qwen3-0.6b's smoke config) or 128 (qwen3-0.6b), and G = 1 (multi-head
+// attention) with D 32 (fedtime-llama2-7b's smoke config) or 128
+// (fedtime-llama2-7b), each for the three cache types: 12 kernels each.  A
+// ring slot is owned by a lane group of D * elem / 16 lanes, which at D 32
+// is 4 lanes for bf16, 8 for f32 and 2 for int8; the dot products are
+// summed over the group by xor shuffles of LPS / 2 .. 1 and the groups of a
+// warp merged by shuffles of LPS .. 16, which holds for any LPS that
+// divides 32.
+//
 // Plain C interface, loaded with ctypes.  Every entry point returns
 // cudaGetLastError() (or the launch's own error) after its launch, or -1
-// for a shape or type the kernel does not take.
+// for a shape, head geometry or type the kernels are not built for.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -636,7 +649,7 @@ ring_decode_kernel(const void* __restrict__ q_raw, int q_f32,
   cluster.sync();
 }
 
-template <typename KT, int D>
+template <typename KT, int D, int G>
 int launch_ring(const void* q, int q_f32, const void* k, const void* v,
                 const void* k_scale, const void* v_scale, const int* kv_pos,
                 long long kvp_stride, const int* q_pos, int q_pos_stride,
@@ -657,7 +670,7 @@ int launch_ring(const void* q, int q_f32, const void* k, const void* v,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t rc = cudaLaunchKernelEx(
-      &cfg, ring_decode_kernel<KT, D, 2>, q, q_f32,
+      &cfg, ring_decode_kernel<KT, D, G>, q, q_f32,
       static_cast<const KT*>(k), static_cast<const KT*>(v),
       static_cast<const __nv_bfloat16*>(k_scale),
       static_cast<const __nv_bfloat16*>(v_scale), kv_pos, kvp_stride, q_pos,
@@ -668,7 +681,7 @@ int launch_ring(const void* q, int q_f32, const void* k, const void* v,
 }
 
 // Clusters of n_splits ring blocks the device can hold at once.
-template <typename KT, int D>
+template <typename KT, int D, int G>
 int ring_max_clusters(int n_splits) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_splits, 1, 1);
@@ -681,19 +694,44 @@ int ring_max_clusters(int n_splits) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   int n = 0;
-  if (cudaOccupancyMaxActiveClusters(&n, ring_decode_kernel<KT, D, 2>,
+  if (cudaOccupancyMaxActiveClusters(&n, ring_decode_kernel<KT, D, G>,
                                      &cfg) != cudaSuccess)
     return -1;
   return n;
 }
 
+template <typename T>
+struct Tag {
+  using type = T;
+};
+template <int V>
+using IntC = std::integral_constant<int, V>;
+
+// fn(Tag<KT>) for the cache type's element type; -1 for another type.
+template <typename Fn>
+int with_kv_type(int kv_type, Fn&& fn) {
+  switch (kv_type) {
+    case kBf16: return fn(Tag<__nv_bfloat16>{});
+    case kF32: return fn(Tag<float>{});
+    case kInt8: return fn(Tag<int8_t>{});
+    default: return -1;
+  }
+}
+
+// fn(IntC<D>, IntC<G>) for an instantiated head geometry; -1 for another.
+template <typename Fn>
+int with_heads(int G, int D, Fn&& fn) {
+  if (G == 2 && D == 64) return fn(IntC<64>{}, IntC<2>{});
+  if (G == 2 && D == 128) return fn(IntC<128>{}, IntC<2>{});
+  if (G == 1 && D == 32) return fn(IntC<32>{}, IntC<1>{});
+  if (G == 1 && D == 128) return fn(IntC<128>{}, IntC<1>{});
+  return -1;
+}
+
 }  // namespace
 
 // The paged pool: per-split f32 partials out_m, out_l (B, Hk, n_splits, G)
-// and out_acc (B, Hk, n_splits, G, D).  Instantiated only for the head
-// geometries of the ported configurations: G = 2 (qwen3-0.6b and its smoke
-// config), D = 128 (full width) or 64 (smoke), for each cache type -- 6
-// kernels.  A configuration with another G or D adds its case here.
+// and out_acc (B, Hk, n_splits, G, D); (G, D) one of with_heads' pairs.
 extern "C" int fd_flash_decode_paged(
     const void* q, int q_f32, const void* k, const void* v,
     const void* k_scale, const void* v_scale, const int* kv_pos,
@@ -706,25 +744,16 @@ extern "C" int fd_flash_decode_paged(
   if (kv_type != kInt8 && (k_scale != nullptr || v_scale != nullptr))
     return -1;
   if (tbl == nullptr) return -1;
-  if (G != 2 || (D != 64 && D != 128)) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FD_LAUNCH(KT, DD)                                                    \
-  return launch<KT, DD, 2>(q, q_f32, k, v, k_scale, v_scale, kv_pos, tbl,    \
-                           q_pos, prefix_len, out_m, out_l, out_acc, B, Hk, \
-                           bs, T, n_splits, split_len, kind, window,        \
-                           softcap, scale, st)
-#define FD_HEAD_DIM(KT)               \
-  if (D == 128) { FD_LAUNCH(KT, 128); } \
-  FD_LAUNCH(KT, 64)
-  switch (kv_type) {
-    case kBf16: { FD_HEAD_DIM(__nv_bfloat16); }
-    case kF32: { FD_HEAD_DIM(float); }
-    case kInt8: { FD_HEAD_DIM(int8_t); }
-    default:
-      return -1;
-  }
-#undef FD_HEAD_DIM
-#undef FD_LAUNCH
+  return with_kv_type(kv_type, [&](auto kt) {
+    using KT = typename decltype(kt)::type;
+    return with_heads(G, D, [&](auto d, auto g) {
+      return launch<KT, decltype(d)::value, decltype(g)::value>(
+          q, q_f32, k, v, k_scale, v_scale, kv_pos, tbl, q_pos, prefix_len,
+          out_m, out_l, out_acc, B, Hk, bs, T, n_splits, split_len, kind,
+          window, softcap, scale, st);
+    });
+  });
 }
 
 // The contiguous ring: q (B, 1, H, D) bf16 / f32; k, v (B, S, Hk, D) of
@@ -733,7 +762,7 @@ extern "C" int fd_flash_decode_paged(
 // pointer is given, else the value.  Writes out (B, 1, H, D) in q's type,
 // or with out == nullptr the merged f32 partials out_m, out_l (B, Hk, G)
 // and out_acc (B, Hk, G, D).  n_splits in [1, min(8, S)] (one cluster per
-// (row, head)); G = 2, D in {64, 128}: 6 kernels.
+// (row, head)); (G, D) one of with_heads' pairs.
 extern "C" int fd_flash_decode_ring(
     const void* q, int q_f32, const void* k, const void* v,
     const void* k_scale, const void* v_scale, const int* kv_pos,
@@ -750,44 +779,31 @@ extern "C" int fd_flash_decode_ring(
   if (out_acc != nullptr && (out_m == nullptr || out_l == nullptr)) return -1;
   if (B < 1 || B > 65535 || Hk < 1 || Hk > 65535 || S < 1) return -1;
   if (n_splits < 1 || n_splits > kMaxCluster || n_splits > S) return -1;
-  if (G != 2 || (D != 64 && D != 128)) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FR_LAUNCH(KT, DD)                                                    \
-  return launch_ring<KT, DD>(q, q_f32, k, v, k_scale, v_scale, kv_pos,       \
-                             kvp_stride, q_pos, q_pos_stride, q_pos_val,    \
-                             prefix_len, plen_stride, plen_val, out, out_m, \
-                             out_l, out_acc, B, Hk, S, n_splits, kind,      \
-                             window, softcap, scale, st)
-#define FR_HEAD_DIM(KT)               \
-  if (D == 128) { FR_LAUNCH(KT, 128); } \
-  FR_LAUNCH(KT, 64)
-  switch (kv_type) {
-    case kBf16: { FR_HEAD_DIM(__nv_bfloat16); }
-    case kF32: { FR_HEAD_DIM(float); }
-    case kInt8: { FR_HEAD_DIM(int8_t); }
-    default:
-      return -1;
-  }
-#undef FR_HEAD_DIM
-#undef FR_LAUNCH
+  return with_kv_type(kv_type, [&](auto kt) {
+    using KT = typename decltype(kt)::type;
+    return with_heads(G, D, [&](auto d, auto g) {
+      return launch_ring<KT, decltype(d)::value, decltype(g)::value>(
+          q, q_f32, k, v, k_scale, v_scale, kv_pos, kvp_stride, q_pos,
+          q_pos_stride, q_pos_val, prefix_len, plen_stride, plen_val, out,
+          out_m, out_l, out_acc, B, Hk, S, n_splits, kind, window, softcap,
+          scale, st);
+    });
+  });
 }
 
 // How many clusters of n_splits ring blocks (one (row, head) each) the
-// current device holds at once, for the kernel of this cache type and D;
-// -1 on an error.  Clusters must fit inside one GPC, so a kernel that fits
-// few blocks an SM fits fewer large clusters than its blocks suggest.
-extern "C" int fd_ring_max_clusters(int kv_type, int D, int n_splits) {
+// current device holds at once, for the kernel of this cache type and head
+// geometry (G, D) -- the one a call with them launches; -1 on an error.
+// Clusters must fit inside one GPC, so a kernel that fits few blocks an SM
+// fits fewer large clusters than its blocks suggest.
+extern "C" int fd_ring_max_clusters(int kv_type, int G, int D, int n_splits) {
   if (n_splits < 1 || n_splits > kMaxCluster) return -1;
-  if (D != 64 && D != 128) return -1;
-#define FM_HEAD_DIM(KT)                                    \
-  return D == 128 ? ring_max_clusters<KT, 128>(n_splits)   \
-                  : ring_max_clusters<KT, 64>(n_splits)
-  switch (kv_type) {
-    case kBf16: FM_HEAD_DIM(__nv_bfloat16);
-    case kF32: FM_HEAD_DIM(float);
-    case kInt8: FM_HEAD_DIM(int8_t);
-    default:
-      return -1;
-  }
-#undef FM_HEAD_DIM
+  return with_kv_type(kv_type, [&](auto kt) {
+    using KT = typename decltype(kt)::type;
+    return with_heads(G, D, [&](auto d, auto g) {
+      return ring_max_clusters<KT, decltype(d)::value, decltype(g)::value>(
+          n_splits);
+    });
+  });
 }

@@ -51,6 +51,11 @@ from repro_torch.kernels.build import library
 _NEG = -1e30
 
 _KINDS = {"causal": 0, "prefix": 1, "full": 2}
+# The (G, D) head geometries both kernels are built for: those of the ported
+# configurations (csrc/flash_decode.cu, with_heads): qwen3-0.6b's smoke
+# config and full width (G 2, D 64 / 128), fedtime-llama2-7b's (G 1, D 32 /
+# 128).
+HEAD_GEOMETRIES = ((2, 64), (2, 128), (1, 32), (1, 128))
 _KV_TYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 
 LAUNCHES: Dict[str, int] = {"flash_decode": 0, "flash_decode_paged": 0,
@@ -273,20 +278,21 @@ def _sm_count(device) -> int:
     return n
 
 
-def _ring_max_clusters(device, kv_type: int, D: int):
+def _ring_max_clusters(device, kv_type: int, G: int, D: int):
     """``c[n - 1]``: how many clusters of n ring blocks (n = 1..8) the
-    device holds at once for the kernel of this cache type and D
+    device holds at once for the kernel of this cache type and head
+    geometry (G, D), the one a call with them launches
     (``cudaOccupancyMaxActiveClusters``), read once per device."""
     idx = _device_index(device)
-    key = (idx, kv_type, D)
+    key = (idx, kv_type, G, D)
     c = _MAX_CLUSTERS.get(key)
     if c is None:
         fn = library("flash_decode").fd_ring_max_clusters
         if fn.argtypes is None:
-            fn.argtypes = [_I, _I, _I]
+            fn.argtypes = [_I, _I, _I, _I]
             fn.restype = _I
         with torch.cuda.device(idx):
-            c = tuple(fn(kv_type, D, n)
+            c = tuple(fn(kv_type, G, D, n)
                       for n in range(1, MAX_RING_SPLITS + 1))
         if min(c) < 0:
             raise RuntimeError(f"flash_decode ring kernel: the cluster "
@@ -304,7 +310,8 @@ def _ring_splits(B: int, Hk: int, S: int, sm_count: int,
     block each, all the splits of a pair one cluster.  By default enough
     splits for about two blocks an SM, each of at least 32 slots, at most 8
     (the portable cluster): 8 at the fixed batch's B=4, Hk=8, S=576 on 132
-    SMs (256 blocks of 72 slots).  Given ``max_clusters`` (the device's
+    SMs (qwen3-0.6b: 256 blocks of 72 slots), 3 at Hk=32 (fedtime-llama2-7b:
+    384 blocks of 192 slots).  Given ``max_clusters`` (the device's
     ``_ring_max_clusters``), fewer where the card could not hold every
     pair's cluster at once: a cluster lives inside one GPC, so a kernel
     that fits two blocks an SM may not fit 32 clusters of 8.  A requested
@@ -358,9 +365,10 @@ def _common_checks(q, k, v, k_scale, v_scale, kind):
     _require(k.ndim == 4 and v.shape == k.shape and k.shape[3] == D,
              "k, v must be (.., .., Hk, D) with q's D")
     Hk = k.shape[2]
-    # the head geometries of the ported configurations (csrc/flash_decode.cu)
-    _require(H == 2 * Hk, "G = H/Hk must be 2")
-    _require(D in (64, 128), "D must be 64 or 128")
+    _require(H % Hk == 0 and (H // Hk, D) in HEAD_GEOMETRIES,
+             f"(G, D) = (H/Hk, D) must be one of "
+             f"{', '.join(map(str, HEAD_GEOMETRIES))} (the kernels' "
+             f"instances); got H/Hk = {H}/{Hk}, D = {D}")
     if quant:
         _require(k_scale.dtype == torch.bfloat16
                  and v_scale.dtype == torch.bfloat16
@@ -398,7 +406,7 @@ def _ring_launcher(q, k, v, kv_pos, q_pos, *, k_scale, v_scale, kind,
     pl, pl_stride, pl_val = _scalar_or_rows(prefix_len, B, dev,
                                             "prefix_len")
     kv_type = _KV_TYPES[k.dtype]
-    resident = _ring_max_clusters(dev, kv_type, D)
+    resident = _ring_max_clusters(dev, kv_type, G, D)
     n, _ = _ring_splits(B, Hk, S, _sm_count(dev), n_splits, resident)
     if return_partials:
         m = torch.empty((B, Hk, G, 1), dtype=torch.float32, device=dev)

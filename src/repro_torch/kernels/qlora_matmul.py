@@ -4,7 +4,12 @@
 ``repro/kernels/qlora_matmul.py::qlora_matmul``; ``qlora_matmul_ref`` is
 its plain PyTorch version, with the arithmetic of the reference's oracle
 ``repro/kernels/ref.py::qlora_matmul_ref``: NF4 dequantized to f32, every
-product in f32, the result cast to x's type.
+product in f32, the result cast to x's type.  A call launches one kernel,
+chosen by x's type: for bf16 x ``qlora_mma_kernel`` on the tensor cores
+(the dequantized weight as two bf16 values ``w_hi + w_lo``, A as three,
+f32 sums), for f32 x ``qlora_kernel`` on the CUDA cores.  Both keep the
+reference's limit (``tests/test_torch_kernel_designs.py`` emulates the
+bf16 kernel's arithmetic on the CPU).
 
 Layouts (the reference's kernel contract): x (M, K) f32 or bf16; w_nf4 u8
 (K, N/2), two codes a byte, the high nibble the even column; absmax f32

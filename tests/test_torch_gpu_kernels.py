@@ -14,8 +14,9 @@ inputs and differ only in the order of their sums; a bf16 output within
 what rounding those f32 outputs allows: |got - want| <= 2**-8 (|got| +
 |want|) + 1e-5 (each side rounds by at most half a bf16 step, 2**-8 of its
 value).  Block copies
-and empty rows are exact.  The kernel is built for G = 2 and D in {64, 128}
-(the ported configurations' head geometries) and refuses the rest.  The
+and empty rows are exact.  Both flash-decode kernels are built for the
+ported configurations' head geometries, (G, D) in {(2, 64), (2, 128), (1,
+32), (1, 128)}, and refuse the rest.  The
 ring kernel is held at the card's split policy and at explicit split
 counts, at ring lengths that no split count divides, with idle lanes
 (q_pos -1) and empty rings, through ``return_partials`` (its merged f32
@@ -124,23 +125,36 @@ def _assert_matches_plain(args, kw):
     return got
 
 
+HEADS = [(2, 64), (2, 128), (1, 32), (1, 128)]     # (G, D) built
+HEAD_IDS = [f"G{g}-D{d}" for g, d in HEADS]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8],
                          ids=["bf16", "f32", "int8"])
-@pytest.mark.parametrize("D", [64, 128])
-def test_contiguous_kernel_matches_plain(cuda, dtype, D):
-    q, k, v, kv_pos, pos, kw = _ring(cuda, B=3, S=1000, Hk=2, G=2, D=D,
+@pytest.mark.parametrize("G,D", HEADS, ids=HEAD_IDS)
+def test_contiguous_kernel_matches_plain(cuda, dtype, G, D):
+    q, k, v, kv_pos, pos, kw = _ring(cuda, B=3, S=1000, Hk=2, G=G, D=D,
                                      dtype=dtype, empty_row=1, seed=D)
     got = _assert_matches_plain((q, k, v, kv_pos, pos), kw)
     assert torch.count_nonzero(got[1]) == 0          # empty row: exactly 0
 
 
-@pytest.mark.parametrize("G,D", [(1, 128), (4, 128), (2, 96)])
+@pytest.mark.parametrize("G,D", [(4, 128), (2, 96), (1, 64), (2, 32)])
 def test_kernel_refuses_other_head_geometries(cuda, G, D):
+    """Ring and paged alike refuse a geometry they are not built for, and
+    count no launch."""
     q, k, v, kv_pos, pos, _ = _ring(cuda, B=1, S=256, Hk=2, G=G, D=D,
                                     dtype=torch.bfloat16)
     n = dict(fd.LAUNCHES)
     with pytest.raises(ValueError, match="must be"):
         ops.flash_decode(q, k, v, kv_pos, pos)
+    pool_pos = torch.arange(256, dtype=torch.int32, device=cuda).reshape(
+        16, 16)
+    tbl = torch.arange(16, dtype=torch.int32, device=cuda)[None]
+    with pytest.raises(ValueError, match="must be"):
+        ops.flash_decode(q, k[0].reshape(16, 16, 2, D),
+                         v[0].reshape(16, 16, 2, D), pool_pos, pos,
+                         block_tables=tbl)
     assert fd.LAUNCHES == n
 
 
@@ -148,14 +162,18 @@ def test_kernel_refuses_other_head_geometries(cuda, G, D):
                                                         prefix_len=100),
                                 dict(kind="full"), dict(softcap=5.0)],
                          ids=["window", "prefix", "full", "softcap"])
-def test_contiguous_kernel_masks(cuda, kw):
-    q, k, v, kv_pos, pos, _ = _ring(cuda, B=2, S=640, Hk=2, G=2, D=128,
+@pytest.mark.parametrize("G,D", [(2, 128), (1, 128), (1, 32)],
+                         ids=["G2-D128", "G1-D128", "G1-D32"])
+def test_contiguous_kernel_masks(cuda, kw, G, D):
+    q, k, v, kv_pos, pos, _ = _ring(cuda, B=2, S=640, Hk=2, G=G, D=D,
                                     dtype=torch.float32, wrap=True, seed=3)
     _assert_matches_plain((q, k, v, kv_pos, pos), kw)
 
 
-def test_return_partials(cuda):
-    q, k, v, kv_pos, pos, _ = _ring(cuda, B=2, S=4096, Hk=2, G=2, D=128,
+@pytest.mark.parametrize("G,D", [(2, 128), (1, 128), (1, 32)],
+                         ids=["G2-D128", "G1-D128", "G1-D32"])
+def test_return_partials(cuda, G, D):
+    q, k, v, kv_pos, pos, _ = _ring(cuda, B=2, S=4096, Hk=2, G=G, D=D,
                                     dtype=torch.float32, empty_row=0, seed=4)
     got = ops.flash_decode(q, k, v, kv_pos, pos, return_partials=True)
     want = fd.flash_decode_ref(q, k, v, kv_pos, pos, return_partials=True)
@@ -166,9 +184,10 @@ def test_return_partials(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8],
                          ids=["bf16", "f32", "int8"])
-def test_paged_kernel_matches_plain(cuda, dtype):
+@pytest.mark.parametrize("G,D", HEADS, ids=HEAD_IDS)
+def test_paged_kernel_matches_plain(cuda, dtype, G, D):
     """Shared prefix blocks in several tables, -1 entries, a stale block."""
-    B, bs, T, Hk, G, D = 4, 16, 20, 8, 2, 128
+    B, bs, T, Hk = 4, 16, 20, 8
     nb = 64
     g = torch.Generator(device="cpu").manual_seed(7)
     q = torch.randn((B, 1, Hk * G, D), generator=g)
@@ -214,12 +233,14 @@ def test_paged_kernel_matches_plain(cuda, dtype):
 @pytest.mark.parametrize("n_splits", [0, 1, 3, 8],
                          ids=["card", "1", "3", "8"])
 @pytest.mark.parametrize("S", [577, 100, 1])
-def test_ring_kernel_splits(cuda, S, n_splits):
+@pytest.mark.parametrize("Hk,G,D", [(8, 2, 128), (32, 1, 128), (4, 1, 32)],
+                         ids=["qwen3", "fedtime", "fedtime-smoke"])
+def test_ring_kernel_splits(cuda, S, n_splits, Hk, G, D):
     """The card's split policy (0) and explicit counts, at ring lengths no
-    count divides and at one slot; lane 1 idle (q_pos -1) and row 2's ring
-    empty, both exactly 0; the merged f32 partials through the same
-    kernel."""
-    q, k, v, kv_pos, pos, _ = _ring(cuda, B=4, S=S, Hk=8, G=2, D=128,
+    count divides and at one slot, at the served configs' heads; lane 1
+    idle (q_pos -1) and row 2's ring empty, both exactly 0; the merged f32
+    partials through the same kernel."""
+    q, k, v, kv_pos, pos, _ = _ring(cuda, B=4, S=S, Hk=Hk, G=G, D=D,
                                     dtype=torch.bfloat16, empty_row=2,
                                     seed=S)
     pos[1] = -1
@@ -266,12 +287,14 @@ def test_ring_kernel_scalar_positions(cuda, q_pos_form):
         _assert_matches_plain((q, k, v, kv_pos, q_pos), kw)
 
 
-def test_ring_wrapper_is_one_kernel_launch(cuda):
+@pytest.mark.parametrize("Hk,G", [(8, 2), (32, 1)], ids=["G2", "G1"])
+def test_ring_wrapper_is_one_kernel_launch(cuda, Hk, G):
     """A ring call, output or partials, is one kernel and no other device
-    work (no copy, fill or combine)."""
+    work (no copy, fill or combine), at the fixed batch of each served
+    config."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    q, k, v, kv_pos, pos, _ = _ring(cuda, B=4, S=576, Hk=8, G=2, D=128,
+    q, k, v, kv_pos, pos, _ = _ring(cuda, B=4, S=576, Hk=Hk, G=G, D=128,
                                     dtype=torch.bfloat16)
     calls = (lambda: ops.flash_decode(q, k, v, kv_pos, pos),
              lambda: ops.flash_decode(q, k, v, kv_pos, 575),
@@ -319,12 +342,14 @@ def test_launch_counters(cuda):
                            "paged_block_copy": 1}
 
 
-def test_smoke_model_on_card_matches_cpu(cuda):
-    """The smoke config in f32: prefill + 4 decode steps on the card (the
-    kernels) against the CPU (the plain versions), same weights."""
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "fedtime-llama2-7b"])
+def test_smoke_model_on_card_matches_cpu(cuda, arch):
+    """The smoke config in f32 (qwen3-0.6b: G = 2, D 64; fedtime-llama2-7b:
+    G = 1, D 32): prefill + 4 decode steps on the card (the kernels) against
+    the CPU (the plain versions), same weights."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.registry import get_model
-    cfg = get_smoke_config("qwen3-0.6b")
+    cfg = get_smoke_config(arch)
     api = get_model(cfg)
     params = api.init(cfg, torch.Generator(device="cpu").manual_seed(0),
                       device="cpu")

@@ -1,5 +1,7 @@
-"""The port's dense model against the JAX package, on the qwen3-0.6b smoke
-config in f32 with the reference's weights carried over by the bridge.
+"""The port's dense model against the JAX package, on the smoke configs of
+both served architectures in f32 with the reference's weights carried over
+by the bridge: qwen3-0.6b (GQA, G = 2, D 64) and fedtime-llama2-7b (MHA,
+G = 1, D 32), each a case of every model test.
 
 Compared within atol 1e-4: prefill logits and the prefilled ring, and 8
 teacher-forced decode steps for each cache layout (scalar position,
@@ -21,6 +23,7 @@ from repro_torch.models.registry import get_model
 
 ATOL = 1e-4
 S, CACHE_LEN, STEPS = 10, 24, 8
+ARCHS = ["qwen3-0.6b", "fedtime-llama2-7b"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -33,10 +36,10 @@ def _torch_one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope="module")
-def models():
-    jcfg = jax_smoke_config("qwen3-0.6b")
-    cfg = get_smoke_config("qwen3-0.6b")
+@pytest.fixture(scope="module", params=ARCHS)
+def models(request):
+    jcfg = jax_smoke_config(request.param)
+    cfg = get_smoke_config(request.param)
     japi = jax_get_model(jcfg)
     jparams = japi.init(jcfg, jax.random.PRNGKey(0))
     tree = jax.tree.map(np.asarray, jparams)
@@ -199,6 +202,6 @@ def test_bridge_round_trip(dtype):
 
 def test_bridge_rejects_another_model(models):
     tree = jax.tree.map(np.asarray, models[2])
-    other = get_smoke_config("qwen3-0.6b").replace(num_layers=3)
+    other = models[3].replace(num_layers=3)
     with pytest.raises(ValueError, match="layers"):
         bridge.params_from_jax(tree, other, device="cpu")

@@ -1,6 +1,8 @@
 """The port's serving engine and sampling against the JAX package and
-against its own invariants, on the qwen3-0.6b smoke config in f32 (weights
-carried over from the reference by the bridge).
+against its own invariants, on the smoke configs of both served
+architectures in f32 (weights carried over from the reference by the
+bridge): qwen3-0.6b (GQA, G = 2, D 64) and fedtime-llama2-7b (MHA, G = 1,
+D 32), each a case of every engine test.
 
   * on the reference launcher's smoke trace the port engine's greedy tokens
     equal the JAX engine's;
@@ -35,6 +37,7 @@ from repro_torch.serve.sampling import (masked_logits, row_generator,
                                         sample_vec)
 
 CACHE_LEN = 48
+ARCHS = ["qwen3-0.6b", "fedtime-llama2-7b"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -47,10 +50,10 @@ def _torch_one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope="module")
-def dense():
-    jcfg = jax_smoke_config("qwen3-0.6b")
-    cfg = get_smoke_config("qwen3-0.6b")
+@pytest.fixture(scope="module", params=ARCHS)
+def dense(request):
+    jcfg = jax_smoke_config(request.param)
+    cfg = get_smoke_config(request.param)
     jparams = jax_get_model(jcfg).init(jcfg, jax.random.PRNGKey(0))
     params = bridge.params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
                                     device="cpu")

@@ -1,10 +1,11 @@
 """Where a decode step's time goes, on one NVIDIA GPU.
 
-    PYTHONPATH=src python tools/profile_decode.py [--steps 8] [--layout ring]
+    PYTHONPATH=src python tools/profile_decode.py [--arch qwen3-0.6b] \
+        [--steps 8] [--layout ring]
 
-qwen3-0.6b at full width with random weights: prefill 4 x 512, three warm
-decode steps, then ``--steps`` decode steps under ``torch.profiler``
-(CPU and CUDA activities).  Prints the card's name and power limit, the
+``--arch`` (qwen3-0.6b or fedtime-llama2-7b) at full width with random
+weights: prefill 4 x 512, three warm decode steps, then ``--steps`` decode
+steps under ``torch.profiler`` (CPU and CUDA activities).  Prints the card's name and power limit, the
 wall time of a step (host clock, ending in a synchronize), the summed
 device time of the kernels it ran, the device's busy share (device time /
 wall), the kernel launches per step, and the top operators by device time.
@@ -33,6 +34,8 @@ def _card() -> str:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
+    from repro_torch.configs import ALL_ARCHS
+    ap.add_argument("--arch", choices=ALL_ARCHS, default="qwen3-0.6b")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--layout", choices=("ring", "paged"), default="ring")
     ap.add_argument("--top", type=int, default=15)
@@ -44,7 +47,7 @@ def main() -> None:
     from repro_torch.models.registry import get_model
 
     card = _card()
-    cfg = get_config("qwen3-0.6b")
+    cfg = get_config(args.arch)
     api = get_model(cfg)
     dev = torch.device("cuda")
     params = api.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
@@ -100,7 +103,7 @@ def main() -> None:
     launches = sum(e.count for e in events
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                 "cudaLaunchKernelExC")) / args.steps
-    print(f"[{card}] qwen3-0.6b decode B={B}, ring {ring} ({args.layout}), "
+    print(f"[{card}] {cfg.name} decode B={B}, ring {ring} ({args.layout}), "
           f"{args.steps} steps: wall {wall_plain * 1e3:.2f} ms/step "
           f"(profiler off; {wall * 1e3:.2f} with it), device "
           f"{dev_us / 1e3:.3f} ms/step, busy share "
