@@ -22,7 +22,8 @@ Phases, each printing its numbers beside the card's name and power limit:
      least time the card could take (bound) and one library call's time as
      a yardstick where one exists; for each flash-decode case its grid
      (splits, blocks, cluster size) and the device operations one wrapper
-     call makes (``torch.profiler``; a ring call must be exactly one);
+     call makes (``torch.profiler``; a call, ring or paged, must be
+     exactly one);
   2b. drive ``repro_torch.kernels.ops``' qlora_matmul, rmsnorm and
      flash_attention, which no model path calls (as in the reference), at
      the shapes fedtime-llama2-7b's local step would give them (bf16, 8
@@ -82,6 +83,10 @@ import torch
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12                # f32 outside the tensor cores
 BF16_FLOPS = 989e12              # bf16 products on the tensor cores
+# f32 matrix products as 3xTF32 on the tensor cores, which keeps the f32
+# limit: three TF32 products (494.7 TFLOP/s) for each f32 one.  The least
+# time for f32 attention and qlora_matmul is taken at this rate.
+F32_MATMUL_FLOPS = 494.7e12 / 3
 # Flash-decode, kernel vs plain version on the same inputs: the f32 output
 # before its cast (acc / l) differs only by the order of the sums; each
 # reading is printed beside that of a planted fault (one KV tile of one row
@@ -307,19 +312,13 @@ def _sdpa_inputs(args, kw):
 
 def _f32_outs(args, kw):
     """The f32 outputs before the cast, (B, Hk, G, D): the kernel's (a
-    comparison launch, not counted) and the plain version's.  The ring
-    kernel's are its own merged sums (``return_partials``); the paged
-    kernel's per-split partials are combined as its wrapper does."""
+    comparison launch, not counted: its own merged sums through
+    ``return_partials``) and the plain version's."""
     from repro_torch.kernels import flash_decode as fd
-    if kw.get("block_tables") is None:
-        launch, (m, l, acc) = fd.flash_decode_launcher(
-            *args, return_partials=True, **kw)
-        launch()
-        got = acc / torch.clamp(l, min=1e-30)
-    else:
-        launch, (m, l, acc) = fd.flash_decode_launcher(*args, **kw)
-        launch()
-        got = fd._combine(m[..., None], l[..., None], acc, axis=2)
+    launch, (m, l, acc) = fd.flash_decode_launcher(
+        *args, return_partials=True, **kw)
+    launch()
+    got = acc / torch.clamp(l, min=1e-30)
     m, l, acc = fd.flash_decode_ref(*args, return_partials=True, **kw)
     return got, acc / torch.clamp(l, min=1e-30)
 
@@ -445,25 +444,24 @@ def phase_kernels(card: str, timer: Timer) -> dict:
         per_call = _device_ops_per_call(
             lambda: fd.flash_decode_cuda(*args, **kw))
         grid = launch.grid
-        resident = (f" ({grid['resident_clusters']} such clusters fit the "
-                    f"card at once)" if not paged else "")
+        layout = "paged" if paged else "ring"
         print(f"  {name} {label}: G = {H // Hk}, D = {D}, grid "
               f"{grid['splits']} splits x {Hk} heads x {B} rows = "
-              f"{grid['blocks']} blocks, cluster {grid['cluster']}"
-              f"{resident}; the wrapper puts {per_call:g} kernels (and "
-              f"copies or fills) on the device a call")
-        if not paged:
-            _check(per_call == 1, f"{name} {label}: the ring wrapper ran "
-                   f"{per_call} device operations a call, not 1")
-            resident = fd._ring_max_clusters(q.device, fd._KV_TYPES[k.dtype],
-                                             H // Hk, D)
-            _check(grid["resident_clusters"] == resident[grid["splits"] - 1],
-                   f"{name} {label}: splits not sized by this kernel's "
-                   f"occupancy")
-            if arch is not None:
-                print(f"  the occupancy query of this call's kernel "
-                      f"({str(k.dtype)[6:]} cache, G = {H // Hk}, D = {D}): "
-                      f"clusters of 1..8 blocks resident at once {resident}")
+              f"{grid['blocks']} blocks, cluster {grid['cluster']} "
+              f"({grid['resident_clusters']} such clusters fit the card at "
+              f"once); the wrapper puts {per_call:g} kernels (and copies or "
+              f"fills) on the device a call")
+        _check(per_call == 1, f"{name} {label}: the {layout} wrapper ran "
+               f"{per_call} device operations a call, not 1")
+        resident = fd._max_clusters(layout, q.device, fd._KV_TYPES[k.dtype],
+                                    H // Hk, D)
+        _check(grid["resident_clusters"] == resident[grid["splits"] - 1],
+               f"{name} {label}: splits not sized by this kernel's "
+               f"occupancy")
+        if arch is not None:
+            print(f"  the occupancy query of this call's {layout} kernel "
+                  f"({str(k.dtype)[6:]} cache, G = {H // Hk}, D = {D}): "
+                  f"clusters of 1..8 blocks resident at once {resident}")
         ms = timer.ms(lambda: fd.flash_decode_cuda(*args, **kw), 50)
         kernel_ms = timer.ms(launch, 50)
         plain = timer.ms(lambda: fd.flash_decode_ref(*args, **kw), 5)
@@ -766,8 +764,12 @@ def _over(got, want, atol, rtol) -> float:
 def _ops_bound(name, args, out):
     """(bound ms, bound by, MB moved) of one call: each input read once and
     the output written once; operations at the rate for the inputs' type
-    (bf16 products on the tensor cores, f32 on the CUDA cores)."""
-    rate = BF16_FLOPS if args[0].dtype == torch.bfloat16 else F32_FLOPS
+    (bf16 products on the tensor cores; f32 matrix products as 3xTF32 on
+    them; rmsnorm's f32 arithmetic on the CUDA cores)."""
+    if args[0].dtype == torch.bfloat16:
+        rate = BF16_FLOPS
+    else:
+        rate = F32_FLOPS if name == "rmsnorm" else F32_MATMUL_FLOPS
     tensors = [t for t in args if isinstance(t, torch.Tensor)]
     nbytes = (sum(t.numel() * t.element_size() for t in tensors)
               + out.numel() * out.element_size())

@@ -11,12 +11,14 @@
 // Bound on the H100: bytes at the federated fit's shape (8 series x 32
 // heads, S 63, D 128, bf16: 16.5 MB, 4.9 us at 3.35 TB/s, against 0.26
 // GFLOP), operations at long S (the reference benchmark's 4 x 8 x 1024 x 128
-// f32 does 8.6 GFLOP causal, 0.13 ms at the f32 rate of 67 TFLOP/s).  The
-// first port of this kernel converted every K / V tile to f32 in shared
-// memory and had four lanes share a query row, so each 16-byte shared-memory
-// load fed 4 FMAs: shared-memory wavefronts, not arithmetic, set its pace,
-// and its 137 registers a thread left one block an SM (two waves at the
-// fit's shape).  Two kernels replace it:
+// does 8.6 GFLOP causal: in bf16 8.7 us at 989 TFLOP/s; in f32, with each
+// product taken as three TF32 products on the tensor cores, 25.8 GFLOP,
+// 0.052 ms at TF32's 494.7 TFLOP/s).  The first port of this kernel
+// converted every K / V tile to f32 in shared memory and had four lanes
+// share a query row, so each 16-byte shared-memory load fed 4 FMAs:
+// shared-memory wavefronts, not arithmetic, set its pace, and its 137
+// registers a thread left one block an SM (two waves at the fit's shape).
+// Two kernels replace it, one for each type:
 //
 // bf16 (fa_mma_kernel): the tensor cores.  A block of 4 warps owns 64 query
 // rows of one (b, h), 16 a warp, and walks key tiles of 64.  K / V tiles stay
@@ -34,13 +36,27 @@
 // ~234 registers a thread give two blocks an SM: the fit's 256 blocks run
 // in one wave.
 //
-// f32 (fa_f32_kernel): register tiles on the CUDA cores (the f32 FMAs are
-// kept, so the f32 limit holds).  A block of 128 threads owns 64 query rows
-// and walks key tiles of 64.  Q^T and K^T are staged in shared memory
-// (transposed once, on the way in), so a thread's 8 x 4 score tile takes
-// two 16-byte loads of q and one of k per d for 32 FMAs; the scores go
-// through shared memory (P^T, in K^T's place) to a thread's 8-row x 8-column
-// tile of P . V, which takes four 16-byte loads per key for 64 FMAs.
+// f32 (fa_tf32_kernel): the tensor cores in 3xTF32.  The CUDA cores' f32
+// FMAs (67 TFLOP/s; the register-tiled kernel before this one reached
+// 19.5) are slower than three TF32 products at 494.7.  Each f32 operand x
+// is split as x_hi = x rounded to TF32 (10 mantissa bits, nearest, ties
+// away: cvt.rna's result, computed with integer ops on the bit pattern,
+// since cvt runs at a quarter of their rate) and x_lo = x - x_hi truncated
+// to TF32, and a . b is taken as a_lo b_hi + a_hi b_lo + a_hi b_hi on
+// mma.sync.m16n8k8 (tf32 in, f32 accumulate): the products are exact and
+// the dropped a_lo b_lo is 2**-22 of the product, so the result keeps the
+// f32 limit; one TF32 product alone misses it
+// (tests/test_torch_kernel_designs.py emulates both).  As in the bf16
+// kernel a block of 4 warps owns 64 query rows, 16 a warp, and K and V
+// tiles are double-buffered with cp.async; here a tile is 32 keys, copied
+// raw (16 KB each at D 128, XOR-swizzled 16-byte chunks).  Q is split once,
+// as it leaves shared memory, into 128 registers of TF32 halves; the K and
+// V values are split by each warp as it loads its fragments (float4 loads:
+// the fragments' k and output columns are permuted so that a lane's
+// operands are contiguous), and p as it leaves the score tile, whose C
+// fragment is P's A fragment.  The online softmax is f32.  A key tile
+// wholly above a warp's rows is skipped by that warp.  At D 128, 96 KB of
+// shared memory and ~250 registers a thread give two blocks an SM.
 //
 // Both: the finite -FLT_MAX fill; key tiles wholly above the causal
 // diagonal are skipped (the TPU kernel visits them masked; their
@@ -83,7 +99,7 @@ int ensure_smem(Kernel kernel, int bytes, bool (&ready)[64]) {
 // bf16: mma.sync on the tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaThreads = 128;    // 4 warps x 16 query rows
+constexpr int kMmaThreads = 128;    // 4 warps x 16 query rows (both types)
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -337,192 +353,280 @@ fa_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// f32: register tiles on the CUDA cores
+// f32: 3xTF32 mma.sync on the tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int kRows = 8;                      // query rows a thread
-constexpr int kF32Threads = BQ / kRows * 16;  // row groups x 16 col groups
-constexpr int kLd = BQ + 4;         // padded row of Q^T, K^T and P^T
+constexpr int kTf32Keys = 32;       // keys a tile
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// x as hi + lo, both TF32 (10 mantissa bits): hi = x rounded to nearest
+// with ties away from zero (cvt.rna.tf32.f32's result, on the bit pattern:
+// half of the 13 dropped bits added, then cleared), lo = x - hi (exact in
+// f32) truncated to TF32.  hi + lo is within 2**-21 of x, relative.  Integer
+// and f32 adds run at 64 and 128 lanes a clock an SM, cvt at 16.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
 }
 
-// Rows r0 .. r0 + 63 of a (S, D) head, transposed into t[D][kLd]; rows past
-// S are zeros.  A warp takes 32 rows of one 16-byte column chunk, so its
-// shared-memory stores are 32 consecutive floats.
+// c += a . b: m16n8k8, tf32 in, f32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a . b in 3xTF32: a_lo b_hi + a_hi b_lo + a_hi b_hi (a_lo b_lo, 2**-22
+// of the product, is dropped), the small terms first.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const float (&b)[2]) {
+  uint32_t bh[2], bl[2];
+  split_tf32(b[0], bh[0], bl[0]);
+  split_tf32(b[1], bh[1], bl[1]);
+  mma_tf32(c, al, bh[0], bh[1]);
+  mma_tf32(c, ah, bl[0], bl[1]);
+  mma_tf32(c, ah, bh[0], bh[1]);
+}
+
+// Float offset of 16-byte chunk `chunk` of row `row` in a [rows][D] f32
+// tile, the chunks XOR-swizzled by the row: bit 2 by its parity, bits 0-1 by
+// row / 2.  The Q and K fragments' float4 loads (rows gr + 8 i, chunks 4c +
+// tig) and the V fragments' (rows 2 tig and 2 tig + 1, chunks gr * D / 32 +
+// cc) then read no bank twice in a quarter-warp at D 128 (V at D 64: twice).
 template <int D>
-__device__ __forceinline__ void load_transposed(float* t, const float* g,
-                                                int r0, int S) {
-  for (int e = threadIdx.x; e < BQ * (D / 4); e += kF32Threads) {
-    const int r = e % BQ, ch = e / BQ;
-    const float4 x = r0 + r < S
-                         ? __ldg(reinterpret_cast<const float4*>(
-                               g + static_cast<long long>(r0 + r) * D +
-                               ch * 4))
-                         : make_float4(0.f, 0.f, 0.f, 0.f);
-    t[(ch * 4 + 0) * kLd + r] = x.x;
-    t[(ch * 4 + 1) * kLd + r] = x.y;
-    t[(ch * 4 + 2) * kLd + r] = x.z;
-    t[(ch * 4 + 3) * kLd + r] = x.w;
+__device__ __forceinline__ int swz_f32(int row, int chunk) {
+  return row * D + ((chunk ^ (((row & 1) << 2) | ((row >> 1) & 3))) << 2);
+}
+
+// Rows r0 .. r0 + ROWS - 1 of a (S, D) f32 head into a swizzled tile; rows
+// past S are zeros.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile_f32(float* tile, const float* g,
+                                              int r0, int S) {
+  constexpr int CPR = D / 4;          // 16-byte chunks a row
+  for (int e = threadIdx.x; e < ROWS * CPR; e += kMmaThreads) {
+    const int r = e / CPR, ch = e % CPR;
+    const bool valid = r0 + r < S;
+    const float* src =
+        valid ? g + static_cast<long long>(r0 + r) * D + ch * 4 : g;
+    cp_async16(tile + swz_f32<D>(r, ch), src, valid);
   }
 }
 
+// 4 warps of 16 query rows a block, as in the bf16 kernel.  The fragments'
+// k index is permuted so that a lane's operands lie side by side: in k-step
+// h of a 16-wide d chunk c, a lane's A columns tig and tig + 4 are d = 16 c
+// + 4 tig + 2 h and + 1 (one float4 of Q or K serves both k-steps), and in
+// P . V a lane's A columns tig and tig + 4 are keys 2 tig and 2 tig + 1,
+// which is where the score tile's C fragment holds them (no shuffles).  The
+// output columns are permuted too: n-tile j's column n is d = n * D / 8 +
+// j, so a lane's V operands are D / 8 consecutive floats of one row and its
+// outputs D / 8 consecutive floats of each of its rows.
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(kF32Threads)
-fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int S,
-              float scale) {
-  constexpr int RC = D / 64;          // float4 column chunks a thread owns
-  constexpr int R4 = kRows / 4;       // float4s of a thread's rows
+__global__ void __launch_bounds__(kMmaThreads)
+fa_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o, int S,
+               float scale) {
+  constexpr int KC = D / 16;          // 16-wide d chunks: two k-steps each
+  constexpr int NT = kTf32Keys / 8;   // key n-tiles of a score tile
+  constexpr int DT = D / 8;           // output n-tiles
+  constexpr int VC = D / 32;          // float4s of a V row a lane reads
+  constexpr int TILE = kTf32Keys * D;
   extern __shared__ __align__(16) float smem_f[];
-  float* qt = smem_f;                 // Q^T [D][kLd]
-  float* kt = qt + D * kLd;           // K^T [D][kLd], then P^T [BKV][kLd]
-  float* vt = kt + D * kLd;           // V [BKV][D]
+  float* qs = smem_f;                 // [BQ][D]
+  float* ks = qs + BQ * D;            // [2][32][D]
+  float* vs = ks + 2 * TILE;          // [2][32][D]
 
   const int tile = gridDim.x - 1 - blockIdx.x;      // longest first
   const long long head = static_cast<long long>(blockIdx.y) * S * D;
   const int q0 = tile * BQ;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int r0 = ty * kRows;          // the thread's query rows
-  const int c0 = tx * 4;              // its 4 keys; its columns c0 + 64 j
-
-  load_transposed<D>(qt, q + head, q0, S);
-
-  float acc[kRows][RC][4];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < RC; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  float m[kRows], l[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kFill;
-    l[i] = 0.f;
-  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tig = lane & 3;         // fragment row / column
+  const int row_a = q0 + warp * 16 + gr;            // the lane's two rows
+  const int row_b = row_a + 8;
+  const int warp_last = q0 + warp * 16 + 15;        // the warp's last row
 
   const int kv_end = CAUSAL ? min(S, q0 + BQ) : S;
-  for (int k0 = 0; k0 < kv_end; k0 += BKV) {
-    __syncthreads();                  // the last tile's readers are done
-    load_transposed<D>(kt, k + head, k0, S);
-    for (int e = threadIdx.x; e < BKV * (D / 4); e += kF32Threads) {
-      const int j = e / (D / 4), d = (e % (D / 4)) * 4;
-      const float4 x = k0 + j < S
-                           ? __ldg(reinterpret_cast<const float4*>(
-                                 v + head + static_cast<long long>(k0 + j) *
-                                                D + d))
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(vt + j * D + d) = x;
+  const int n_tiles = (kv_end + kTf32Keys - 1) / kTf32Keys;
+
+  // cp.async groups in order: {Q, K0}, {V0}, then {K t+1}, {V t+1} for each
+  // tile t, so that Q . K^T runs while V is on its way.
+  load_tile_f32<D, BQ>(qs, q + head, q0, S);
+  load_tile_f32<D, kTf32Keys>(ks, k + head, 0, S);
+  cp_async_commit();
+  load_tile_f32<D, kTf32Keys>(vs, v + head, 0, S);
+  cp_async_commit();
+
+  // The lane's Q, split once into TF32 halves as it leaves shared memory:
+  // the A fragments of k-steps 2 c and 2 c + 1 (rows row_a, row_b; d = 16 c
+  // + 4 tig + 2 h and + 1).
+  uint32_t qh[KC][2][4], ql[KC][2][4];
+  cp_async_wait<1>();                 // Q and K0 are in
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < KC; ++c) {
+    const float4 qa = *reinterpret_cast<const float4*>(
+        qs + swz_f32<D>(warp * 16 + gr, 4 * c + tig));
+    const float4 qb = *reinterpret_cast<const float4*>(
+        qs + swz_f32<D>(warp * 16 + gr + 8, 4 * c + tig));
+    const float qv[2][4] = {{qa.x, qa.y, qa.z, qa.w},
+                            {qb.x, qb.y, qb.z, qb.w}};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      split_tf32(qv[0][2 * h], qh[c][h][0], ql[c][h][0]);
+      split_tf32(qv[1][2 * h], qh[c][h][1], ql[c][h][1]);
+      split_tf32(qv[0][2 * h + 1], qh[c][h][2], ql[c][h][2]);
+      split_tf32(qv[1][2 * h + 1], qh[c][h][3], ql[c][h][3]);
+    }
+  }
+
+  float oacc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) oacc[j][i] = 0.f;
+  float m[2] = {kFill, kFill}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    const bool next = t + 1 < n_tiles;
+    if (next) {
+      load_tile_f32<D, kTf32Keys>(ks + (st ^ 1) * TILE, k + head,
+                                  (t + 1) * kTf32Keys, S);
+      cp_async_commit();
+      load_tile_f32<D, kTf32Keys>(vs + (st ^ 1) * TILE, v + head,
+                                  (t + 1) * kTf32Keys, S);
+      cp_async_commit();
+      cp_async_wait<3>();               // K t is in
+    } else {
+      cp_async_wait<1>();
     }
     __syncthreads();
+    const float* kt = ks + st * TILE;
+    const float* vt = vs + st * TILE;
+    const int k0 = t * kTf32Keys;
+    // a key tile wholly above the warp's rows adds nothing: skipped
+    const bool active = !CAUSAL || k0 <= warp_last;
 
-    float s[kRows][4];
+    // S = Q . K^T for the warp's 16 rows x 32 keys, then the online softmax
+    // (rows row_a: i 0-1, row_b: i 2-3).
+    float sacc[NT][4];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[kRows];
+      for (int i = 0; i < 4; ++i) sacc[j][i] = 0.f;
+    if (active) {
 #pragma unroll
-      for (int h = 0; h < R4; ++h) {
-        const float4 x = ld4(qt + d * kLd + r0 + 4 * h);
-        qv[4 * h] = x.x;
-        qv[4 * h + 1] = x.y;
-        qv[4 * h + 2] = x.z;
-        qv[4 * h + 3] = x.w;
+      for (int c = 0; c < KC; ++c) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const float4 kk = *reinterpret_cast<const float4*>(
+              kt + swz_f32<D>(nt * 8 + gr, 4 * c + tig));
+          const float b0[2] = {kk.x, kk.y}, b1[2] = {kk.z, kk.w};
+          mma_3xtf32(sacc[nt], qh[c][0], ql[c][0], b0);
+          mma_3xtf32(sacc[nt], qh[c][1], ql[c][1], b1);
+        }
       }
-      const float4 kk = ld4(kt + d * kLd + c0);
-      const float kv[4] = {kk.x, kk.y, kk.z, kk.w};
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
 
-    // Scale, mask, online softmax; a row's 64 keys lie on the 16 lanes of
-    // one half-warp (tx), so its max is four shuffles.
+      float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qi = q0 + r0 + i;
-      float mx = m[i];
+      for (int j = 0; j < NT; ++j) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + c0 + j;
-        const bool keep = kj < S && (!CAUSAL || kj <= qi);
-        s[i][j] = keep ? s[i][j] * scale : kFill;
-        mx = fmaxf(mx, s[i][j]);
+        for (int i = 0; i < 4; ++i) {
+          const int key = k0 + j * 8 + 2 * tig + (i & 1);
+          const int row = i < 2 ? row_a : row_b;
+          const bool keep = key < S && (!CAUSAL || key <= row);
+          const float x = keep ? sacc[j][i] * scale : kFill;
+          sacc[j][i] = x;
+          mx[i >> 1] = fmaxf(mx[i >> 1], x);
+        }
+      }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kAll, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kAll, mx[r], 2));
+        corr[r] = expf(m[r] - mx[r]);
+        m[r] = mx[r];
+        l[r] *= corr[r];
       }
 #pragma unroll
-      for (int off = 1; off < 16; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(kAll, mx, off));
-      const float corr = expf(m[i] - mx);
-      m[i] = mx;
-      l[i] *= corr;
-#pragma unroll
-      for (int j = 0; j < RC; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] *= corr;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - mx);
-        l[i] += s[i][j];
-      }
-    }
-    __syncthreads();                  // K^T is read; P^T takes its place
-    float* pt = kt;                   // P^T [BKV][kLd]
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int h = 0; h < R4; ++h)
-        *reinterpret_cast<float4*>(pt + (c0 + j) * kLd + r0 + 4 * h) =
-            make_float4(s[4 * h][j], s[4 * h + 1][j], s[4 * h + 2][j],
-                        s[4 * h + 3][j]);
-    __syncthreads();
-
-    const int n_keys = min(BKV, kv_end - k0);
-#pragma unroll 2
-    for (int j = 0; j < n_keys; ++j) {
-      float pv[kRows];
-#pragma unroll
-      for (int h = 0; h < R4; ++h) {
-        const float4 x = ld4(pt + j * kLd + r0 + 4 * h);
-        pv[4 * h] = x.x;
-        pv[4 * h + 1] = x.y;
-        pv[4 * h + 2] = x.z;
-        pv[4 * h + 3] = x.w;
+      for (int j = 0; j < DT; ++j) {
+        oacc[j][0] *= corr[0];
+        oacc[j][1] *= corr[0];
+        oacc[j][2] *= corr[1];
+        oacc[j][3] *= corr[1];
       }
 #pragma unroll
-      for (int cc = 0; cc < RC; ++cc) {
-        const float4 vv = ld4(vt + j * D + cc * 64 + c0);
+      for (int j = 0; j < NT; ++j) {
 #pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          acc[i][cc][0] = fmaf(pv[i], vv.x, acc[i][cc][0]);
-          acc[i][cc][1] = fmaf(pv[i], vv.y, acc[i][cc][1]);
-          acc[i][cc][2] = fmaf(pv[i], vv.z, acc[i][cc][2]);
-          acc[i][cc][3] = fmaf(pv[i], vv.w, acc[i][cc][3]);
+        for (int i = 0; i < 4; ++i) {
+          const float p = expf(sacc[j][i] - m[i >> 1]);
+          sacc[j][i] = p;
+          l[i >> 1] += p;
         }
       }
     }
+
+    if (next)                           // V t is in
+      cp_async_wait<2>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+
+    // O += P . V, P's A fragment straight from the score tile's C fragment.
+    if (active) {
+#pragma unroll
+      for (int kk = 0; kk < NT; ++kk) {
+        uint32_t ph[4], pl[4];
+        split_tf32(sacc[kk][0], ph[0], pl[0]);
+        split_tf32(sacc[kk][2], ph[1], pl[1]);
+        split_tf32(sacc[kk][1], ph[2], pl[2]);
+        split_tf32(sacc[kk][3], ph[3], pl[3]);
+        const int key = kk * 8 + 2 * tig;
+#pragma unroll
+        for (int cc = 0; cc < VC; ++cc) {
+          const float4 v0 = *reinterpret_cast<const float4*>(
+              vt + swz_f32<D>(key, gr * VC + cc));
+          const float4 v1 = *reinterpret_cast<const float4*>(
+              vt + swz_f32<D>(key + 1, gr * VC + cc));
+          const float b[4][2] = {{v0.x, v1.x}, {v0.y, v1.y}, {v0.z, v1.z},
+                                 {v0.w, v1.w}};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            mma_3xtf32(oacc[4 * cc + e], ph, pl, b[e]);
+        }
+      }
+    }
+    __syncthreads();                  // this stage is refilled next
   }
 
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    float li = l[i];
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kAll, l[r], 1);
+    l[r] += __shfl_xor_sync(kAll, l[r], 2);
+    l[r] = 1.0f / fmaxf(l[r], 1e-30f);
+  }
+  // the lane's columns n = 2 tig and 2 tig + 1 of n-tile j are d = n * DT + j
 #pragma unroll
-    for (int off = 1; off < 16; off <<= 1)
-      li += __shfl_xor_sync(kAll, li, off);
-    const int qi = q0 + r0 + i;
-    if (qi >= S) continue;
-    const float inv = 1.0f / fmaxf(li, 1e-30f);
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? row_b : row_a;
+    if (row >= S) continue;
+    float* dst = o + head + static_cast<long long>(row) * D;
 #pragma unroll
-    for (int cc = 0; cc < RC; ++cc)
-      *reinterpret_cast<float4*>(o + head + static_cast<long long>(qi) * D +
-                                 cc * 64 + c0) =
-          make_float4(acc[i][cc][0] * inv, acc[i][cc][1] * inv,
-                      acc[i][cc][2] * inv, acc[i][cc][3] * inv);
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int j = 0; j < DT; j += 4)
+        *reinterpret_cast<float4*>(dst + (2 * tig + n) * DT + j) =
+            make_float4(oacc[j][2 * r + n] * l[r],
+                        oacc[j + 1][2 * r + n] * l[r],
+                        oacc[j + 2][2 * r + n] * l[r],
+                        oacc[j + 3][2 * r + n] * l[r]);
   }
 }
 
@@ -547,15 +651,15 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int BH,
 }
 
 template <int D, bool CAUSAL>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int BH,
-               int S, float scale, cudaStream_t st) {
+int launch_tf32(const void* q, const void* k, const void* v, void* o, int BH,
+                int S, float scale, cudaStream_t st) {
   constexpr int kSmem =
-      (2 * D * kLd + BKV * D) * static_cast<int>(sizeof(float));
+      (BQ + 4 * kTf32Keys) * D * static_cast<int>(sizeof(float));
   static bool ready[64] = {};
-  const int rc = ensure_smem(fa_f32_kernel<D, CAUSAL>, kSmem, ready);
+  const int rc = ensure_smem(fa_tf32_kernel<D, CAUSAL>, kSmem, ready);
   if (rc != 0) return rc;
   const dim3 grid((S + BQ - 1) / BQ, BH);
-  fa_f32_kernel<D, CAUSAL><<<grid, kF32Threads, kSmem, st>>>(
+  fa_tf32_kernel<D, CAUSAL><<<grid, kMmaThreads, kSmem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, scale);
   return 0;
@@ -568,8 +672,8 @@ int launch_d(int bf16, int causal, const void* q, const void* k,
   if (bf16)
     return causal ? launch_mma<D, true>(q, k, v, o, BH, S, scale, st)
                   : launch_mma<D, false>(q, k, v, o, BH, S, scale, st);
-  return causal ? launch_f32<D, true>(q, k, v, o, BH, S, scale, st)
-                : launch_f32<D, false>(q, k, v, o, BH, S, scale, st);
+  return causal ? launch_tf32<D, true>(q, k, v, o, BH, S, scale, st)
+                : launch_tf32<D, false>(q, k, v, o, BH, S, scale, st);
 }
 
 }  // namespace

@@ -1,24 +1,29 @@
 // Flash-decode for Hopper (sm_90a): one decode token per request against a
-// contiguous ring cache (ring_decode_kernel) or a paged block pool
-// (flash_decode_kernel).
+// contiguous ring cache or a paged block pool, one kernel for both
+// (decode_kernel, templated on the layout).
 //
 // Replaces the TPU kernels repro/kernels/flash_decode.py::flash_decode
 // (contiguous ring) and ::_flash_decode_paged (paged pool), body ::_kernel.
 //
-// Both are bound by bytes on the H100: every valid slot's K and V row is
-// read once (2 * Hk * D * elem bytes per slot), against 4 * G * D flops per
-// slot and head, far below the card's ~295 flops per byte.  What limits a
-// decode call at the main path's sizes is how many of those bytes are in
-// flight: the fixed batch's ring (B=4, Hk=8, 576 slots, bf16) is 9.4 MB,
-// 2.8 us at 3.35 TB/s, spread over only B * Hk = 32 (row, head) pairs.
+// Bound by bytes on the H100: every valid slot's K and V row is read once
+// (2 * Hk * D * elem bytes per slot), against 4 * G * D flops per slot and
+// head, far below the card's ~295 flops per byte.  What limits a decode call
+// at the main path's sizes is how many of those bytes are in flight and how
+// many memory trips stand between the launch and the first row: the fixed
+// batch's ring (B=4, Hk=8, 576 slots, bf16) is 9.4 MB, 2.8 us at 3.35
+// TB/s, spread over only B * Hk = 32 (row, head) pairs; the engine's pool
+// (12 lanes of 8 table entries of 16 slots) reads 1.8 MB at G = 2.
 //
-// Ring kernel.  The design answers that bound in three ways:
-//   * splits chosen for the card: the wrapper (_ring_splits in
-//     kernels/flash_decode.py) cuts each (row, head)'s slots into up to 8
-//     contiguous splits so that about two blocks of a few dozen slots or
-//     more run on each of the 132 SMs (256 blocks of 72 slots at the fixed
-//     batch), and fewer where the card could not hold every (row, head)'s
-//     cluster at once (fd_ring_max_clusters);
+// The design answers that bound in four ways:
+//   * splits chosen for the card: the wrapper (_ring_splits / _paged_splits
+//     in kernels/flash_decode.py) cuts each (row, head)'s slots into up to 8
+//     splits so that about two blocks run on each of the 132 SMs (256
+//     blocks of 72 slots at the fixed batch), and fewer where the card could
+//     not hold every (row, head)'s cluster at once (fd_ring_max_clusters,
+//     fd_paged_max_clusters).  A ring split is a contiguous run of slots,
+//     floor(i * S / n) .. floor((i + 1) * S / n); a paged split is a run of
+//     whole table entries, floor(i * T / n) .. floor((i + 1) * T / n), so
+//     an uneven last split is allowed in both;
 //   * loads in flight: a lane group of D * elem / 16 lanes (16 for a bf16
 //     row of 128) owns a slot, each lane one 16-byte vector of its K and V
 //     rows, so a warp takes several slots per load; each warp keeps two
@@ -28,6 +33,12 @@
 //     which decide what is loaded, are read one pass earlier still); a dot
 //     product is summed over the group's lanes only (4 shuffles for bf16
 //     D 128);
+//   * the paged pool's table staged once: a block first copies its split's
+//     table entries into shared memory with one coalesced load (kStage
+//     entries at a time), so resolving a slot to its physical row is a
+//     shared-memory read, and the pass-ahead position reads and the
+//     double-buffered row loads run as on the ring.  An entry of -1 gives
+//     its slots position -1: neither kv_pos nor the rows are read;
 //   * the combine folded into the launch: the splits of one (row, head) are
 //     one thread-block cluster (launched with cudaLaunchKernelEx).  Each
 //     block merges its warps' online-softmax states through shared memory;
@@ -36,32 +47,28 @@
 //     output in q's type, or the merged f32 partials.  One launch a call,
 //     no other device work, the same result run to run.
 // q_pos and prefix_len are read in place (a stride of 0 for a scalar) or
-// passed as values; a 1-D kv_pos is read with a row stride of 0.
+// passed as values; a 1-D ring kv_pos is read with a row stride of 0.
 //
-// Paged kernel (unchanged from the first port; its redesign is later
-// work).  One 256-thread block per (split, kv_head, batch row); the split
-// covers a contiguous range of logical slots, resolved through the block
-// table; 8 warps walk it 4 slots per warp per iteration, each with its own
-// online-softmax state for the G = H / Hk queries of its KV head, merged
-// through shared memory into one (m, l, acc) partial per split.  The
-// cross-split combine stays in the PyTorch wrapper.
-//
-// Semantics kept from the reference, in both kernels:
+// Semantics kept from the reference:
 //   * the mask comes from the slot positions kv_pos exactly as _slot_mask
 //     does (causal / prefix / full, window, kv_pos < 0 == empty); a row
 //     whose slot the mask drops is never loaded;
 //   * the finite fill -1e30: a row with no valid slot ends with m = -1e30,
-//     l = 0, acc = 0, which the combine turns into an exact 0, never NaN;
+//     l = 0, acc = 0, which the merge turns into an exact 0, never NaN; a
+//     split with no granted table entry is such a state and merges to
+//     nothing;
+//   * a paged table entry past the pool reads the pool's last block, as the
+//     plain version's clamp does;
 //   * int8 caches are dequantized at load time from the per-slot, per-head
 //     bf16 absmax scales; scores are f32 throughout; softcap is kept.
 //
-// Head geometries: both kernels are instantiated for the (G, D) pairs of
-// the ported configurations only (with_heads below): G = 2 with D 64
+// Head geometries: the kernel is instantiated for the (G, D) pairs of the
+// ported configurations only (with_heads below): G = 2 with D 64
 // (qwen3-0.6b's smoke config) or 128 (qwen3-0.6b), and G = 1 (multi-head
 // attention) with D 32 (fedtime-llama2-7b's smoke config) or 128
-// (fedtime-llama2-7b), each for the three cache types: 12 kernels each.  A
-// ring slot is owned by a lane group of D * elem / 16 lanes, which at D 32
-// is 4 lanes for bf16, 8 for f32 and 2 for int8; the dot products are
+// (fedtime-llama2-7b), each for the three cache types and both layouts: 24
+// kernels.  A slot is owned by a lane group of D * elem / 16 lanes, which at
+// D 32 is 4 lanes for bf16, 8 for f32 and 2 for int8; the dot products are
 // summed over the group by xor shuffles of LPS / 2 .. 1 and the groups of a
 // warp merged by shuffles of LPS .. 16, which holds for any LPS that
 // divides 32.
@@ -81,39 +88,16 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kUnroll = 4;          // slots in flight per warp
 constexpr float kNeg = -1e30f;      // finite mask fill (see header)
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kUnroll = 4;          // slots a lane group holds per buffer
+constexpr int kMaxCluster = 8;      // the portable cluster size
+constexpr int kStage = 64;          // paged table entries staged at a time
+constexpr unsigned kFull32 = 0xffffffffu;
 
 enum Kind { kCausal = 0, kPrefix = 1, kFull = 2 };
 enum KvType { kBf16 = 0, kF32 = 1, kInt8 = 2 };
-
-template <typename T, int N>
-struct alignas(sizeof(T) * N) Vec {
-  T v[N];
-};
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
-
-// N consecutive elements at p (aligned to N elements) as floats.
-template <typename T, int N>
-__device__ __forceinline__ void load_row(const T* __restrict__ p,
-                                         float (&out)[N]) {
-  const Vec<T, N> x = *reinterpret_cast<const Vec<T, N>*>(p);
-#pragma unroll
-  for (int i = 0; i < N; ++i) out[i] = to_f(x.v[i]);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 // _slot_mask of the reference for one slot.
 __device__ __forceinline__ bool slot_keep(int kp, int qp, int plen, int kind,
@@ -129,188 +113,6 @@ __device__ __forceinline__ bool slot_keep(int kp, int qp, int plen, int kind,
   if (window > 0 && kind != kFull) m = m && (qp - kp < window);
   return m && kp >= 0;
 }
-
-template <typename KT, int D, int G>
-__global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const void* __restrict__ q_raw, int q_f32,
-                    const KT* __restrict__ k, const KT* __restrict__ v,
-                    const __nv_bfloat16* __restrict__ k_scale,
-                    const __nv_bfloat16* __restrict__ v_scale,
-                    const int* __restrict__ kv_pos,
-                    const int* __restrict__ tbl,
-                    const int* __restrict__ q_pos,
-                    const int* __restrict__ prefix_len,
-                    float* __restrict__ out_m, float* __restrict__ out_l,
-                    float* __restrict__ out_acc, int Hk, int bs, int T,
-                    int n_splits, int split_len, int kind, int window,
-                    float softcap, float scale) {
-  constexpr int EPL = D / 32;       // elements of a row per lane
-  const int split = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const bool quant = k_scale != nullptr;
-
-  // The G queries of KV head h: heads h*G .. h*G+G-1 of row b.
-  float qr[G][EPL];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const size_t off = (static_cast<size_t>(b) * Hk * G + h * G + g) * D +
-                       lane * EPL;
-    if (q_f32) {
-      load_row<float, EPL>(static_cast<const float*>(q_raw) + off, qr[g]);
-    } else {
-      load_row<__nv_bfloat16, EPL>(
-          static_cast<const __nv_bfloat16*>(q_raw) + off, qr[g]);
-    }
-  }
-  const int qp = q_pos[b];
-  const int plen = prefix_len[b];
-  const int begin = split * split_len;
-  const int end = min(begin + split_len, T * bs);
-
-  float m[G], l[G], acc[G][EPL];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = kNeg;
-    l[g] = 0.f;
-#pragma unroll
-    for (int i = 0; i < EPL; ++i) acc[g][i] = 0.f;
-  }
-
-  for (int base = begin + warp * kUnroll; base < end;
-       base += kWarps * kUnroll) {
-    // Resolve the warp's slots to physical rows; every lane computes the
-    // same answer, so the branches below are warp-uniform.
-    size_t row[kUnroll];
-    bool ok[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = base + u;
-      ok[u] = false;
-      row[u] = 0;
-      if (t < end) {
-        const int e = tbl[static_cast<size_t>(b) * T + t / bs];
-        if (e >= 0) {             // ungranted entries are dropped wholesale
-          row[u] = static_cast<size_t>(e) * bs + t % bs;
-          ok[u] = slot_keep(kv_pos[row[u]], qp, plen, kind, window);
-        }
-      }
-    }
-    float kr[kUnroll][EPL], vr[kUnroll][EPL], ks[kUnroll], vs[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      ks[u] = 1.f;
-      vs[u] = 1.f;
-      if (ok[u]) {
-        const size_t hr = row[u] * Hk + h;
-        load_row<KT, EPL>(k + hr * D + lane * EPL, kr[u]);
-        load_row<KT, EPL>(v + hr * D + lane * EPL, vr[u]);
-        if (quant) {
-          ks[u] = __bfloat162float(k_scale[hr]);
-          vs[u] = __bfloat162float(v_scale[hr]);
-        }
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float s[kUnroll];
-      float mx = m[g];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        s[u] = kNeg;
-        if (ok[u]) {
-          float d = 0.f;
-#pragma unroll
-          for (int i = 0; i < EPL; ++i) d += qr[g][i] * kr[u][i];
-          float x = warp_sum(d) * ks[u] * scale;
-          if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-          s[u] = x;
-          mx = fmaxf(mx, x);
-        }
-      }
-      const float corr = expf(m[g] - mx);
-      l[g] *= corr;
-#pragma unroll
-      for (int i = 0; i < EPL; ++i) acc[g][i] *= corr;
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (ok[u]) {                // masked p is exactly 0: skipped
-          const float p = expf(s[u] - mx);
-          l[g] += p;
-          const float pv = p * vs[u];
-#pragma unroll
-          for (int i = 0; i < EPL; ++i) acc[g][i] += pv * vr[u][i];
-        }
-      }
-      m[g] = mx;
-    }
-  }
-
-  // Merge the warps' states: out = sum_w exp(m_w - M) * (l_w, acc_w).
-  __shared__ float sm_m[kWarps][G];
-  __shared__ float sm_l[kWarps][G];
-  __shared__ float sm_acc[kWarps][G][D];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int i = 0; i < EPL; ++i) sm_acc[warp][g][lane * EPL + i] = acc[g][i];
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < G * D; idx += kThreads) {
-    const int g = idx / D;
-    const int d = idx % D;
-    float M = kNeg;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sm_m[w][g]);
-    float L = 0.f, A = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float c = expf(sm_m[w][g] - M);
-      L += sm_l[w][g] * c;
-      A += sm_acc[w][g][d] * c;
-    }
-    const size_t o = ((static_cast<size_t>(b) * Hk + h) * n_splits + split) *
-                         G + g;
-    out_acc[o * D + d] = A;
-    if (d == 0) {
-      out_m[o] = M;
-      out_l[o] = L;
-    }
-  }
-}
-
-template <typename KT, int D, int G>
-int launch(const void* q, int q_f32, const void* k, const void* v,
-           const void* k_scale, const void* v_scale, const int* kv_pos,
-           const int* tbl, const int* q_pos, const int* prefix_len,
-           float* out_m, float* out_l, float* out_acc, int B, int Hk, int bs,
-           int T, int n_splits, int split_len, int kind, int window,
-           float softcap, float scale, cudaStream_t stream) {
-  const dim3 grid(n_splits, Hk, B);
-  flash_decode_kernel<KT, D, G><<<grid, kThreads, 0, stream>>>(
-      q, q_f32, static_cast<const KT*>(k), static_cast<const KT*>(v),
-      static_cast<const __nv_bfloat16*>(k_scale),
-      static_cast<const __nv_bfloat16*>(v_scale), kv_pos, tbl, q_pos,
-      prefix_len, out_m, out_l, out_acc, Hk, bs, T, n_splits, split_len,
-      kind, window, softcap, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// Ring kernel
-// ---------------------------------------------------------------------------
-
-constexpr int kRingWarps = 4;
-constexpr int kRingThreads = kRingWarps * 32;
-constexpr int kRingUnroll = 4;      // slots a lane group holds per buffer
-constexpr int kMaxCluster = 8;      // the portable cluster size
-constexpr unsigned kFull32 = 0xffffffffu;
 
 // The 16 / sizeof(KT) elements of a 16-byte vector as floats (exact).
 __device__ __forceinline__ void unpack(const uint4& x, float (&f)[8]) {
@@ -363,36 +165,64 @@ __device__ __forceinline__ float bf16_bits(unsigned short b) {
   return __uint_as_float(static_cast<uint32_t>(b) << 16);
 }
 
-template <typename KT, int D, int G>
-__global__ void __launch_bounds__(kRingThreads)
-ring_decode_kernel(const void* __restrict__ q_raw, int q_f32,
-                   const KT* __restrict__ k, const KT* __restrict__ v,
-                   const __nv_bfloat16* __restrict__ k_scale,
-                   const __nv_bfloat16* __restrict__ v_scale,
-                   const int* __restrict__ kv_pos, long long kvp_stride,
-                   const int* __restrict__ q_pos, int q_pos_stride,
-                   int q_pos_val, const int* __restrict__ prefix_len,
-                   int plen_stride, int plen_val, void* __restrict__ out,
-                   float* __restrict__ out_m, float* __restrict__ out_l,
-                   float* __restrict__ out_acc, int Hk, int S, int kind,
-                   int window, float softcap, float scale) {
+// softcap * tanh(x / softcap), out of line: inlined, tanhf's code in every
+// unrolled slot of the pass loop made each call slower (about 0.5 us at the
+// engine's pool, on the card), softcap or not.
+__device__ __noinline__ float soft_cap(float x, float softcap) {
+  return softcap * tanhf(x / softcap);
+}
+
+// Everything a call passes to the kernel.
+struct DecodeArgs {
+  const void* q;
+  int q_f32;
+  const void* k;
+  const void* v;
+  const __nv_bfloat16* k_scale;     // int8 caches only
+  const __nv_bfloat16* v_scale;
+  const int* kv_pos;                // ring (B, S) / (S,); pool (nb, bs)
+  long long kvp_stride;             // ring: kv_pos's row stride (0: one row)
+  const int* tbl;                   // pool: (B, T) table; ring: nullptr
+  int T, bs, nb;                    // pool: entries a row, block size, blocks
+  unsigned bs_mul;                  // t / bs == umulhi(t, bs_mul) >> bs_shr
+  int bs_shr;                       //   for 0 <= t < 2**31 (bs_mul 0: bs 1)
+  const int* q_pos;                 // read at q_pos[b * stride], else value
+  int q_pos_stride, q_pos_val;
+  const int* prefix_len;
+  int plen_stride, plen_val;
+  void* out;                        // (B, 1, H, D) in q's type, or nullptr
+  float* out_m;                     // and the merged partials instead
+  float* out_l;
+  float* out_acc;
+  int Hk, S;                        // S: the ring's slots (a pool's T * bs)
+  int kind, window;
+  float softcap, scale;
+};
+
+template <typename KT, int D, int G, bool PAGED>
+__global__ void __launch_bounds__(kThreads)
+decode_kernel(const __grid_constant__ DecodeArgs a) {
   constexpr int VE = 16 / static_cast<int>(sizeof(KT));  // elems a vector
   constexpr int LPS = D / VE;                             // lanes a slot
   constexpr int SPW = 32 / LPS;                           // slots a load
-  constexpr int U = kRingUnroll;
-  constexpr int kPass = kRingWarps * SPW * U;             // slots a pass
+  constexpr int U = kUnroll;
+  constexpr int kPass = kWarps * SPW * U;                 // slots a pass
   static_assert(LPS >= 1 && LPS <= 32 && 32 % LPS == 0, "lane groups");
 
+  const KT* __restrict__ k = static_cast<const KT*>(a.k);
+  const KT* __restrict__ v = static_cast<const KT*>(a.v);
+  const int* __restrict__ kv_pos = a.kv_pos;
   cg::cluster_group cluster = cg::this_cluster();
   const int n_splits = static_cast<int>(cluster.num_blocks());
   const int split = static_cast<int>(cluster.block_rank());
   const int h = blockIdx.y;
   const int b = blockIdx.z;
+  const int Hk = a.Hk;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int grp = lane / LPS;         // the lane group: one slot at a time
   const int c = lane % LPS;           // the lane's vector of the row
-  const bool quant = k_scale != nullptr;
+  const bool quant = a.k_scale != nullptr;
   const int H = Hk * G;
 
   // The lane's VE elements of the G queries of KV head h.
@@ -402,23 +232,17 @@ ring_decode_kernel(const void* __restrict__ q_raw, int q_f32,
     const size_t off = (static_cast<size_t>(b) * H + h * G + g) * D + c * VE;
 #pragma unroll
     for (int i = 0; i < VE; ++i)
-      qr[g][i] = q_f32 ? static_cast<const float*>(q_raw)[off + i]
-                       : __bfloat162float(static_cast<const __nv_bfloat16*>(
-                             q_raw)[off + i]);
+      qr[g][i] = a.q_f32 ? static_cast<const float*>(a.q)[off + i]
+                         : __bfloat162float(static_cast<const __nv_bfloat16*>(
+                               a.q)[off + i]);
   }
-  const int qp = q_pos ? q_pos[static_cast<long long>(b) * q_pos_stride]
-                       : q_pos_val;
-  const int plen = prefix_len
-                       ? prefix_len[static_cast<long long>(b) * plen_stride]
-                       : plen_val;
-  // balanced splits: every split of a ring of S >= n_splits slots is
-  // non-empty
-  const int begin = static_cast<int>(static_cast<long long>(split) * S /
-                                     n_splits);
-  const int end = static_cast<int>(static_cast<long long>(split + 1) * S /
-                                   n_splits);
-  const int* kvp = kv_pos + b * kvp_stride;
-  const size_t row0 = static_cast<size_t>(b) * S;
+  const int qp = a.q_pos ? a.q_pos[static_cast<long long>(b) * a.q_pos_stride]
+                         : a.q_pos_val;
+  const int plen =
+      a.prefix_len ? a.prefix_len[static_cast<long long>(b) * a.plen_stride]
+                   : a.plen_val;
+  const int kind = a.kind, window = a.window;
+  const float scale = a.scale, softcap = a.softcap;
 
   float m[G], l[G], acc[G][VE];
 #pragma unroll
@@ -429,35 +253,67 @@ ring_decode_kernel(const void* __restrict__ q_raw, int q_f32,
     for (int i = 0; i < VE; ++i) acc[g][i] = 0.f;
   }
 
-  // The slot positions of pass `pass` (-1 past the split's end).
-  auto load_pos = [&](int (&kp)[U], int pass) {
-    const int base = begin + pass * kPass + warp * (SPW * U) + grp;
+  // The pool's table entries of the current stage: entry e0 + i at [i].
+  __shared__ int sm_tbl[PAGED ? kStage : 1];
+  int e0 = 0;
+  const int bs = a.bs;
+  const int* kvp = kv_pos + (PAGED ? 0 : b * a.kvp_stride);
+  const size_t row0 = PAGED ? 0 : static_cast<size_t>(b) * a.S;
+
+  // The slot positions of pass `pass` of [lo, hi) (-1 past its end or
+  // where a pool's table entry is ungranted), and for a pool each slot's
+  // physical row, kept for issue.  The block index t / bs is a multiply
+  // and a shift by the wrapper's magic: a division by a runtime value is
+  // ~20 instructions (it made a long pool's call 11-17% slower on the card).
+  auto load_pos = [&](int (&kp)[U], int (&rw)[U], int lo, int hi,
+                      int pass) {
+    const int base = lo + pass * kPass + warp * (SPW * U) + grp;
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int t = base + u * SPW;
-      kp[u] = t < end ? __ldg(kvp + t) : -1;
+      kp[u] = -1;
+      rw[u] = 0;
+      if (t < hi) {
+        if constexpr (PAGED) {
+          const int blk =
+              a.bs_mul ? static_cast<int>(
+                             __umulhi(static_cast<unsigned>(t), a.bs_mul) >>
+                             a.bs_shr)
+                       : t;
+          const int e = sm_tbl[blk - e0];
+          if (e >= 0) {
+            rw[u] = e * bs + (t - blk * bs);
+            kp[u] = __ldg(kv_pos + rw[u]);
+          }
+        } else {
+          kp[u] = __ldg(kvp + t);
+        }
+      }
     }
   };
 
   // Start the loads of pass `pass` from its positions: the K / V rows (and
   // scales) of the slots the mask keeps; a dropped slot reads zeros.
-  auto issue = [&](RingBuf<U>& f, const int (&kp)[U], int pass) {
-    const int base = begin + pass * kPass + warp * (SPW * U) + grp;
+  auto issue = [&](RingBuf<U>& f, const int (&kp)[U], const int (&rw)[U],
+                   int lo, int pass) {
+    const int base = lo + pass * kPass + warp * (SPW * U) + grp;
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const size_t hr = (row0 + base + u * SPW) * Hk + h;
       f.ok[u] = slot_keep(kp[u], qp, plen, kind, window);
       f.k[u] = make_uint4(0u, 0u, 0u, 0u);
       f.v[u] = f.k[u];
       f.ks[u] = 0x3f80;               // bf16 1.0
       f.vs[u] = 0x3f80;
-      if (f.ok[u]) {
+      if (f.ok[u]) {                  // kept: granted and inside [lo, hi)
+        const size_t row = PAGED ? static_cast<size_t>(rw[u])
+                                 : row0 + base + u * SPW;
+        const size_t hr = row * Hk + h;
         f.k[u] = load16(k + hr * D + c * VE);
         f.v[u] = load16(v + hr * D + c * VE);
         if (quant) {
-          f.ks[u] = __ldg(reinterpret_cast<const unsigned short*>(k_scale) +
+          f.ks[u] = __ldg(reinterpret_cast<const unsigned short*>(a.k_scale) +
                           hr);
-          f.vs[u] = __ldg(reinterpret_cast<const unsigned short*>(v_scale) +
+          f.vs[u] = __ldg(reinterpret_cast<const unsigned short*>(a.v_scale) +
                           hr);
         }
       }
@@ -494,7 +350,7 @@ ring_decode_kernel(const void* __restrict__ q_raw, int q_f32,
       for (int u = 0; u < U; ++u) {
         if (f.ok[u]) {
           float x = s[u][g] * bf16_bits(f.ks[u]) * scale;
-          if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+          if (softcap > 0.f) x = soft_cap(x, softcap);
           s[u][g] = x;
           mx = fmaxf(mx, x);
         }
@@ -524,23 +380,49 @@ ring_decode_kernel(const void* __restrict__ q_raw, int q_f32,
     }
   };
 
-  // Two register buffers: the next pass's rows are in flight while the
-  // current pass is consumed, and the positions of the pass after it, so
-  // that no load of a pass waits on another load of the same pass.
-  const int n_pass = (end - begin + kPass - 1) / kPass;
-  RingBuf<U> fa, fb;
-  int pa[U], pb[U];
-  load_pos(pa, 0);
-  load_pos(pb, 1);
-  if (n_pass > 0) issue(fa, pa, 0);
-  for (int pass = 0; pass < n_pass; pass += 2) {
-    if (pass + 1 < n_pass) issue(fb, pb, pass + 1);
-    load_pos(pa, pass + 2);
-    consume(fa);
-    if (pass + 1 >= n_pass) break;
-    if (pass + 2 < n_pass) issue(fa, pa, pass + 2);
-    load_pos(pb, pass + 3);
-    consume(fb);
+  // The slots [lo, hi) through two register buffers: the next pass's rows
+  // are in flight while the current pass is consumed, and the positions of
+  // the pass after it, so that no load of a pass waits on another load of
+  // the same pass.
+  auto walk = [&](int lo, int hi) {
+    const int n_pass = (hi - lo + kPass - 1) / kPass;
+    RingBuf<U> fa, fb;
+    int pa[U], pb[U], ra[U], rb[U];
+    load_pos(pa, ra, lo, hi, 0);
+    load_pos(pb, rb, lo, hi, 1);
+    if (n_pass > 0) issue(fa, pa, ra, lo, 0);
+    for (int pass = 0; pass < n_pass; pass += 2) {
+      if (pass + 1 < n_pass) issue(fb, pb, rb, lo, pass + 1);
+      load_pos(pa, ra, lo, hi, pass + 2);
+      consume(fa);
+      if (pass + 1 >= n_pass) break;
+      if (pass + 2 < n_pass) issue(fa, pa, ra, lo, pass + 2);
+      load_pos(pb, rb, lo, hi, pass + 3);
+      consume(fb);
+    }
+  };
+
+  if constexpr (PAGED) {
+    // whole table entries: every split of a row of T >= n_splits entries
+    // holds at least one
+    const int e_begin = static_cast<int>(static_cast<long long>(split) * a.T /
+                                         n_splits);
+    const int e_end = static_cast<int>(
+        static_cast<long long>(split + 1) * a.T / n_splits);
+    const int* row_tbl = a.tbl + static_cast<long long>(b) * a.T;
+    for (e0 = e_begin; e0 < e_end; e0 += kStage) {
+      const int n_e = min(kStage, e_end - e0);
+      __syncthreads();                // the last stage's readers are done
+      for (int i = threadIdx.x; i < n_e; i += kThreads)
+        sm_tbl[i] = min(__ldg(row_tbl + e0 + i), a.nb - 1);
+      __syncthreads();
+      walk(e0 * bs, (e0 + n_e) * bs);
+    }
+  } else {
+    // balanced splits: every split of a ring of S >= n_splits slots is
+    // non-empty
+    walk(static_cast<int>(static_cast<long long>(split) * a.S / n_splits),
+         static_cast<int>(static_cast<long long>(split + 1) * a.S / n_splits));
   }
 
   // Merge the lane groups of each warp (lanes c, c + LPS, ...).
@@ -556,19 +438,19 @@ ring_decode_kernel(const void* __restrict__ q_raw, int q_f32,
     for (int o = LPS; o < 32; o <<= 1) L += __shfl_xor_sync(kFull32, L, o);
 #pragma unroll
     for (int i = 0; i < VE; ++i) {
-      float a = acc[g][i] * cr;
+      float x = acc[g][i] * cr;
 #pragma unroll
-      for (int o = LPS; o < 32; o <<= 1) a += __shfl_xor_sync(kFull32, a, o);
-      acc[g][i] = a;
+      for (int o = LPS; o < 32; o <<= 1) x += __shfl_xor_sync(kFull32, x, o);
+      acc[g][i] = x;
     }
     m[g] = M;
     l[g] = L;
   }
 
   // Merge the warps into the block's partial, in warp order.
-  __shared__ float sm_m[kRingWarps][G];
-  __shared__ float sm_l[kRingWarps][G];
-  __shared__ float sm_acc[kRingWarps][G][D];
+  __shared__ float sm_m[kWarps][G];
+  __shared__ float sm_l[kWarps][G];
+  __shared__ float sm_acc[kWarps][G][D];
   __shared__ float part_m[G];
   __shared__ float part_l[G];
   __shared__ float part_acc[G][D];
@@ -584,15 +466,15 @@ ring_decode_kernel(const void* __restrict__ q_raw, int q_f32,
     }
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < G * D; idx += kRingThreads) {
+  for (int idx = threadIdx.x; idx < G * D; idx += kThreads) {
     const int g = idx / D;
     const int d = idx % D;
     float M = kNeg;
 #pragma unroll
-    for (int w = 0; w < kRingWarps; ++w) M = fmaxf(M, sm_m[w][g]);
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sm_m[w][g]);
     float L = 0.f, A = 0.f;
 #pragma unroll
-    for (int w = 0; w < kRingWarps; ++w) {
+    for (int w = 0; w < kWarps; ++w) {
       const float cr = expf(sm_m[w][g] - M);
       L += sm_l[w][g] * cr;
       A += sm_acc[w][g][d] * cr;
@@ -609,7 +491,7 @@ ring_decode_kernel(const void* __restrict__ q_raw, int q_f32,
   // shared memory alive until block 0 has read it.
   cluster.sync();
   if (split == 0) {
-    for (int idx = threadIdx.x; idx < G * D; idx += kRingThreads) {
+    for (int idx = threadIdx.x; idx < G * D; idx += kThreads) {
       const int g = idx / D;
       const int d = idx % D;
       float mr[kMaxCluster];
@@ -630,18 +512,18 @@ ring_decode_kernel(const void* __restrict__ q_raw, int q_f32,
       }
       // (B, 1, H, D) and (B, Hk, G, D) share one index
       const size_t o = (static_cast<size_t>(b) * Hk + h) * G + g;
-      if (out_acc != nullptr) {
-        out_acc[o * D + d] = A;
+      if (a.out_acc != nullptr) {
+        a.out_acc[o * D + d] = A;
         if (d == 0) {
-          out_m[o] = M;
-          out_l[o] = L;
+          a.out_m[o] = M;
+          a.out_l[o] = L;
         }
       } else {
         const float y = A / fmaxf(L, 1e-30f);
-        if (q_f32)
-          static_cast<float*>(out)[o * D + d] = y;
+        if (a.q_f32)
+          static_cast<float*>(a.out)[o * D + d] = y;
         else
-          static_cast<__nv_bfloat16*>(out)[o * D + d] =
+          static_cast<__nv_bfloat16*>(a.out)[o * D + d] =
               __float2bfloat16_rn(y);
       }
     }
@@ -649,52 +531,40 @@ ring_decode_kernel(const void* __restrict__ q_raw, int q_f32,
   cluster.sync();
 }
 
-template <typename KT, int D, int G>
-int launch_ring(const void* q, int q_f32, const void* k, const void* v,
-                const void* k_scale, const void* v_scale, const int* kv_pos,
-                long long kvp_stride, const int* q_pos, int q_pos_stride,
-                int q_pos_val, const int* prefix_len, int plen_stride,
-                int plen_val, void* out, float* out_m, float* out_l,
-                float* out_acc, int B, int Hk, int S, int n_splits, int kind,
-                int window, float softcap, float scale, cudaStream_t stream) {
+// One cluster of n_splits blocks per (row, head): grid (n_splits, Hk, B).
+cudaLaunchConfig_t cluster_config(int n_splits, int Hk, int B,
+                                  cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_splits, Hk, B);
-  cfg.blockDim = dim3(kRingThreads, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = 0;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = n_splits;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t rc = cudaLaunchKernelEx(
-      &cfg, ring_decode_kernel<KT, D, G>, q, q_f32,
-      static_cast<const KT*>(k), static_cast<const KT*>(v),
-      static_cast<const __nv_bfloat16*>(k_scale),
-      static_cast<const __nv_bfloat16*>(v_scale), kv_pos, kvp_stride, q_pos,
-      q_pos_stride, q_pos_val, prefix_len, plen_stride, plen_val, out, out_m,
-      out_l, out_acc, Hk, S, kind, window, softcap, scale);
+  return cfg;
+}
+
+template <typename KT, int D, int G, bool PAGED>
+int launch(const DecodeArgs& a, int B, int n_splits, cudaStream_t stream) {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config(n_splits, a.Hk, B, attr);
+  cfg.stream = stream;
+  const cudaError_t rc =
+      cudaLaunchKernelEx(&cfg, decode_kernel<KT, D, G, PAGED>, a);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Clusters of n_splits ring blocks the device can hold at once.
-template <typename KT, int D, int G>
-int ring_max_clusters(int n_splits) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_splits, 1, 1);
-  cfg.blockDim = dim3(kRingThreads, 1, 1);
+// Clusters of n_splits blocks the device can hold at once.
+template <typename KT, int D, int G, bool PAGED>
+int max_clusters(int n_splits) {
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = n_splits;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  const cudaLaunchConfig_t cfg = cluster_config(n_splits, 1, 1, attr);
   int n = 0;
-  if (cudaOccupancyMaxActiveClusters(&n, ring_decode_kernel<KT, D, G>,
+  if (cudaOccupancyMaxActiveClusters(&n, decode_kernel<KT, D, G, PAGED>,
                                      &cfg) != cudaSuccess)
     return -1;
   return n;
@@ -728,33 +598,42 @@ int with_heads(int G, int D, Fn&& fn) {
   return -1;
 }
 
-}  // namespace
-
-// The paged pool: per-split f32 partials out_m, out_l (B, Hk, n_splits, G)
-// and out_acc (B, Hk, n_splits, G, D); (G, D) one of with_heads' pairs.
-extern "C" int fd_flash_decode_paged(
-    const void* q, int q_f32, const void* k, const void* v,
-    const void* k_scale, const void* v_scale, const int* kv_pos,
-    const int* tbl, const int* q_pos, const int* prefix_len, float* out_m,
-    float* out_l, float* out_acc, int B, int Hk, int G, int D, int bs, int T,
-    int n_splits, int split_len, int kind, int window, float softcap,
-    float scale, int kv_type, void* stream) {
-  if (kv_type == kInt8 && (k_scale == nullptr || v_scale == nullptr))
+// The checks both layouts share, then the launch of the instance.
+template <bool PAGED>
+int dispatch(const DecodeArgs& a, int B, int G, int D, int n_splits,
+             int kv_type, void* stream) {
+  if (kv_type == kInt8 && (a.k_scale == nullptr || a.v_scale == nullptr))
     return -1;
-  if (kv_type != kInt8 && (k_scale != nullptr || v_scale != nullptr))
+  if (kv_type != kInt8 && (a.k_scale != nullptr || a.v_scale != nullptr))
     return -1;
-  if (tbl == nullptr) return -1;
+  if ((a.out == nullptr) == (a.out_acc == nullptr)) return -1;
+  if (a.out_acc != nullptr && (a.out_m == nullptr || a.out_l == nullptr))
+    return -1;
+  if (B < 1 || B > 65535 || a.Hk < 1 || a.Hk > 65535 || a.S < 1) return -1;
+  if (n_splits < 1 || n_splits > kMaxCluster) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return with_kv_type(kv_type, [&](auto kt) {
     using KT = typename decltype(kt)::type;
     return with_heads(G, D, [&](auto d, auto g) {
-      return launch<KT, decltype(d)::value, decltype(g)::value>(
-          q, q_f32, k, v, k_scale, v_scale, kv_pos, tbl, q_pos, prefix_len,
-          out_m, out_l, out_acc, B, Hk, bs, T, n_splits, split_len, kind,
-          window, softcap, scale, st);
+      return launch<KT, decltype(d)::value, decltype(g)::value, PAGED>(
+          a, B, n_splits, st);
     });
   });
 }
+
+template <bool PAGED>
+int dispatch_max_clusters(int kv_type, int G, int D, int n_splits) {
+  if (n_splits < 1 || n_splits > kMaxCluster) return -1;
+  return with_kv_type(kv_type, [&](auto kt) {
+    using KT = typename decltype(kt)::type;
+    return with_heads(G, D, [&](auto d, auto g) {
+      return max_clusters<KT, decltype(d)::value, decltype(g)::value, PAGED>(
+          n_splits);
+    });
+  });
+}
+
+}  // namespace
 
 // The contiguous ring: q (B, 1, H, D) bf16 / f32; k, v (B, S, Hk, D) of
 // kv_type; kv_pos int32 with row stride kvp_stride (0: one (S,) row for
@@ -771,39 +650,55 @@ extern "C" int fd_flash_decode_ring(
     float* out_m, float* out_l, float* out_acc, int B, int Hk, int G, int D,
     int S, int n_splits, int kind, int window, float softcap, float scale,
     int kv_type, void* stream) {
-  if (kv_type == kInt8 && (k_scale == nullptr || v_scale == nullptr))
-    return -1;
-  if (kv_type != kInt8 && (k_scale != nullptr || v_scale != nullptr))
-    return -1;
-  if ((out == nullptr) == (out_acc == nullptr)) return -1;
-  if (out_acc != nullptr && (out_m == nullptr || out_l == nullptr)) return -1;
-  if (B < 1 || B > 65535 || Hk < 1 || Hk > 65535 || S < 1) return -1;
-  if (n_splits < 1 || n_splits > kMaxCluster || n_splits > S) return -1;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return with_kv_type(kv_type, [&](auto kt) {
-    using KT = typename decltype(kt)::type;
-    return with_heads(G, D, [&](auto d, auto g) {
-      return launch_ring<KT, decltype(d)::value, decltype(g)::value>(
-          q, q_f32, k, v, k_scale, v_scale, kv_pos, kvp_stride, q_pos,
-          q_pos_stride, q_pos_val, prefix_len, plen_stride, plen_val, out,
-          out_m, out_l, out_acc, B, Hk, S, n_splits, kind, window, softcap,
-          scale, st);
-    });
-  });
+  if (n_splits > S) return -1;
+  const DecodeArgs a = {q, q_f32, k, v,
+                        static_cast<const __nv_bfloat16*>(k_scale),
+                        static_cast<const __nv_bfloat16*>(v_scale), kv_pos,
+                        kvp_stride, nullptr, 0, 0, 0, 0u, 0, q_pos,
+                        q_pos_stride, q_pos_val, prefix_len, plen_stride,
+                        plen_val, out, out_m, out_l, out_acc, Hk, S, kind,
+                        window, softcap, scale};
+  return dispatch<false>(a, B, G, D, n_splits, kv_type, stream);
 }
 
-// How many clusters of n_splits ring blocks (one (row, head) each) the
-// current device holds at once, for the kernel of this cache type and head
-// geometry (G, D) -- the one a call with them launches; -1 on an error.
-// Clusters must fit inside one GPC, so a kernel that fits few blocks an SM
-// fits fewer large clusters than its blocks suggest.
+// The paged pool: k, v (nb, bs, Hk, D) of kv_type; kv_pos (nb, bs) int32;
+// tbl (B, T) int32 physical block ids (-1: ungranted); bs_mul, bs_shr the
+// magic of a division by bs (kernels/flash_decode.py::_fast_divisor);
+// everything else as for the ring.  n_splits in [1, min(8, T)], each split
+// whole table entries.
+extern "C" int fd_flash_decode_paged(
+    const void* q, int q_f32, const void* k, const void* v,
+    const void* k_scale, const void* v_scale, const int* kv_pos,
+    const int* tbl, int T, int bs, int nb, unsigned bs_mul, int bs_shr,
+    const int* q_pos,
+    int q_pos_stride, int q_pos_val, const int* prefix_len, int plen_stride,
+    int plen_val, void* out, float* out_m, float* out_l, float* out_acc,
+    int B, int Hk, int G, int D, int n_splits, int kind, int window,
+    float softcap, float scale, int kv_type, void* stream) {
+  if (tbl == nullptr || T < 1 || bs < 1 || nb < 1 || n_splits > T) return -1;
+  if (static_cast<long long>(T) * bs > 0x7fffffffLL ||
+      static_cast<long long>(nb) * bs > 0x7fffffffLL)
+    return -1;
+  const DecodeArgs a = {q, q_f32, k, v,
+                        static_cast<const __nv_bfloat16*>(k_scale),
+                        static_cast<const __nv_bfloat16*>(v_scale), kv_pos,
+                        0, tbl, T, bs, nb, bs_mul, bs_shr, q_pos,
+                        q_pos_stride, q_pos_val, prefix_len, plen_stride,
+                        plen_val, out, out_m, out_l, out_acc, Hk, T * bs,
+                        kind, window, softcap, scale};
+  return dispatch<true>(a, B, G, D, n_splits, kv_type, stream);
+}
+
+// How many clusters of n_splits blocks (one (row, head) each) the current
+// device holds at once, for the ring or paged kernel of this cache type and
+// head geometry (G, D) -- the one a call with them launches; -1 on an
+// error.  Clusters must fit inside one GPC, so a kernel that fits few blocks
+// an SM fits fewer large clusters than its blocks suggest.
 extern "C" int fd_ring_max_clusters(int kv_type, int G, int D, int n_splits) {
-  if (n_splits < 1 || n_splits > kMaxCluster) return -1;
-  return with_kv_type(kv_type, [&](auto kt) {
-    using KT = typename decltype(kt)::type;
-    return with_heads(G, D, [&](auto d, auto g) {
-      return ring_max_clusters<KT, decltype(d)::value, decltype(g)::value>(
-          n_splits);
-    });
-  });
+  return dispatch_max_clusters<false>(kv_type, G, D, n_splits);
+}
+
+extern "C" int fd_paged_max_clusters(int kv_type, int G, int D,
+                                     int n_splits) {
+  return dispatch_max_clusters<true>(kv_type, G, D, n_splits);
 }

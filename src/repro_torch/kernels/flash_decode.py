@@ -1,6 +1,6 @@
 """Flash-decode over ring or paged KV caches, and the paged pool's block copy.
 
-Three CUDA kernels (``csrc/flash_decode.cu``, ``csrc/block_copy.cu``) with
+Two CUDA kernels (``csrc/flash_decode.cu``, ``csrc/block_copy.cu``) with
 their plain PyTorch versions beside them:
 
   * ``flash_decode_cuda`` without ``block_tables`` replaces the TPU kernel
@@ -18,22 +18,20 @@ block copy is bound by launch latency (1.8 MB per K or V leaf at
 qwen3-0.6b with 16-slot blocks).  The kernels' sources say how their
 design answers that.
 
-The ring kernel picks its splits for the card (``_ring_splits``: from the
-SM count and the work, at most 8, one thread-block cluster per (row, KV
-head)) and merges them inside its one launch, so a ring call is one kernel
-and no other device work.  The paged kernel keeps the reference's split
-policy (``_auto_block_kv``, ``_pick_splits``), and its per-split (m, l,
-acc) partials are combined here in plain PyTorch, as the reference
-combines them outside Pallas.  Both kernels mask a ragged cache length
-themselves instead of padding the cache.
+One flash-decode kernel serves both layouts.  It picks its splits for the
+card (``_ring_splits``, ``_paged_splits``: from the SM count and the work,
+at most 8, one thread-block cluster per (row, KV head), no more clusters
+than the card holds at once) and merges them inside its one launch, so a
+call is one kernel and no other device work, and can be captured in a CUDA
+graph.  It reads ``q_pos`` and ``prefix_len`` in place and masks a ragged
+cache itself instead of padding it.
 
 ``LAUNCHES`` counts each kernel's launches: a wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main path
 went through the kernels.  ``flash_decode_launcher`` is the flash-decode
-wrapper without its count (and, for the paged pool, without the combine),
-to time the bare kernel.  The plain versions are what
-``repro_torch.kernels.ops`` runs for tensors on the CPU, and what the card
-checks the kernels against.
+wrapper without its count, to time the bare kernel.  The plain versions are
+what ``repro_torch.kernels.ops`` runs for tensors on the CPU, and what the
+card checks the kernels against.
 """
 
 from __future__ import annotations
@@ -68,7 +66,7 @@ def reset_launches() -> None:
 
 
 # ---------------------------------------------------------------------------
-# Block policy and shared helpers (the reference's, unchanged)
+# Shared helpers (the reference's, unchanged)
 # ---------------------------------------------------------------------------
 
 def _slot_mask(kp, qp, plen, *, kind: str, window: int):
@@ -88,26 +86,10 @@ def _slot_mask(kp, qp, plen, *, kind: str, window: int):
     return m & valid
 
 
-def _pick_splits(n_blocks: int, requested: int) -> int:
-    """Largest split count <= requested that divides the block count."""
-    n = requested or (8 if n_blocks >= 32 else 4 if n_blocks >= 8 else 1)
-    n = max(1, min(n, n_blocks))
-    while n_blocks % n:
-        n -= 1
-    return n
-
-
-def _auto_block_kv(S: int) -> int:
-    """KV tile from the cache length: ~16 tiles, between 128 and 1024
-    slots."""
-    per = -(-S // 16)
-    per = -(-per // 128) * 128
-    return int(max(128, min(1024, per)))
-
-
 def _combine(m, l, acc, axis: int):
     """Merge independent online-softmax partials along ``axis``:
-    out = sum_i exp(m_i - m*) acc_i / sum_i exp(m_i - m*) l_i."""
+    out = sum_i exp(m_i - m*) acc_i / sum_i exp(m_i - m*) l_i: what the
+    kernel's cluster merge computes in split order."""
     m_g = m.amax(dim=axis, keepdim=True)
     w = torch.exp(m - m_g)
     l_tot = (l * w).sum(dim=axis)
@@ -214,23 +196,27 @@ def paged_block_copy_ref(leaf, src: int, dst: int):
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 
 
-def _paged_lib():
-    fn = library("flash_decode").fd_flash_decode_paged
+_ARGTYPES = {
+    "fd_flash_decode_ring": ([_P, _I, _P, _P, _P, _P, _P, _LL]
+                             + [_P, _I, _I] * 2 + [_P] * 4 + [_I] * 8
+                             + [_F, _F, _I, _P]),
+    "fd_flash_decode_paged": ([_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               ctypes.c_uint, _I]
+                              + [_P, _I, _I] * 2 + [_P] * 4 + [_I] * 7
+                              + [_F, _F, _I, _P]),
+    "fd_ring_max_clusters": [_I] * 4,
+    "fd_paged_max_clusters": [_I] * 4,
+}
+
+
+def _fn(name: str):
+    """The C entry ``name`` of ``csrc/flash_decode.cu``, typed."""
+    fn = getattr(library("flash_decode"), name)
     if fn.argtypes is None:
-        fn.argtypes = ([_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]
-                       + [_I] * 10 + [ctypes.c_float, ctypes.c_float, _I, _P])
-        fn.restype = _I
-    return fn
-
-
-def _ring_lib():
-    fn = library("flash_decode").fd_flash_decode_ring
-    if fn.argtypes is None:
-        fn.argtypes = ([_P, _I, _P, _P, _P, _P, _P, _LL, _P, _I, _I, _P, _I,
-                        _I, _P, _P, _P, _P] + [_I] * 8
-                       + [ctypes.c_float, ctypes.c_float, _I, _P])
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = _I
     return fn
 
@@ -254,10 +240,10 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 # ---------------------------------------------------------------------------
-# The ring's split policy (the card's, not the reference's)
+# The split policy (the card's, not the reference's)
 # ---------------------------------------------------------------------------
 
-MAX_RING_SPLITS = 8          # one portable thread-block cluster
+MAX_SPLITS = 8               # one portable thread-block cluster
 _MIN_SPLIT_SLOTS = 32        # a split streams at least this many slots
 _SM_COUNT: Dict[int, int] = {}
 _MAX_CLUSTERS: Dict[tuple, tuple] = {}
@@ -278,32 +264,49 @@ def _sm_count(device) -> int:
     return n
 
 
-def _ring_max_clusters(device, kv_type: int, G: int, D: int):
-    """``c[n - 1]``: how many clusters of n ring blocks (n = 1..8) the
-    device holds at once for the kernel of this cache type and head
-    geometry (G, D), the one a call with them launches
+def _max_clusters(layout: str, device, kv_type: int, G: int, D: int):
+    """``c[n - 1]``: how many clusters of n blocks (n = 1..8) the device
+    holds at once for the kernel of this layout ("ring" or "paged"), cache
+    type and head geometry (G, D), the one a call with them launches
     (``cudaOccupancyMaxActiveClusters``), read once per device."""
     idx = _device_index(device)
-    key = (idx, kv_type, G, D)
+    key = (layout, idx, kv_type, G, D)
     c = _MAX_CLUSTERS.get(key)
     if c is None:
-        fn = library("flash_decode").fd_ring_max_clusters
-        if fn.argtypes is None:
-            fn.argtypes = [_I, _I, _I, _I]
-            fn.restype = _I
+        name = f"fd_{layout}_max_clusters"
+        fn = _fn(name)
         with torch.cuda.device(idx):
-            c = tuple(fn(kv_type, G, D, n)
-                      for n in range(1, MAX_RING_SPLITS + 1))
+            c = tuple(fn(kv_type, G, D, n) for n in range(1, MAX_SPLITS + 1))
         if min(c) < 0:
-            raise RuntimeError(f"flash_decode ring kernel: the cluster "
+            raise RuntimeError(f"flash_decode {layout} kernel: the cluster "
                                f"occupancy query failed ({c})")
         _MAX_CLUSTERS[key] = c
     return c
 
 
+def _card_splits(pairs: int, most: int, sm_count: int, requested: int,
+                 max_clusters, layout: str) -> int:
+    """The split count both layouts share: a request (at most 8) honoured
+    up to ``most``; by default enough splits for about two blocks an SM,
+    at most ``most`` and 8, and fewer where the card could not hold every
+    (row, head)'s cluster at once."""
+    if requested < 0 or requested > MAX_SPLITS:
+        raise ValueError(f"flash_decode kernel: n_splits must be in "
+                         f"[0, {MAX_SPLITS}] for the {layout}, not "
+                         f"{requested}")
+    if requested:
+        return min(requested, most)
+    pairs = max(1, pairs)
+    per_pair = -(-2 * sm_count // pairs)
+    n = max(1, min(MAX_SPLITS, per_pair, most))
+    while max_clusters is not None and n > 1 and max_clusters[n - 1] < pairs:
+        n -= 1
+    return n
+
+
 def _ring_splits(B: int, Hk: int, S: int, sm_count: int,
                  requested: int = 0, max_clusters=None):
-    """``(n_splits, split_len)`` of the ring kernel for a (B, S, Hk, D) ring.
+    """``(n_splits, split_len)`` of the kernel for a (B, S, Hk, D) ring.
 
     The B * Hk (row, head) pairs are each cut into ``n_splits`` contiguous
     splits of ``floor(i * S / n)`` .. ``floor((i + 1) * S / n)`` slots, one
@@ -312,32 +315,53 @@ def _ring_splits(B: int, Hk: int, S: int, sm_count: int,
     (the portable cluster): 8 at the fixed batch's B=4, Hk=8, S=576 on 132
     SMs (qwen3-0.6b: 256 blocks of 72 slots), 3 at Hk=32 (fedtime-llama2-7b:
     384 blocks of 192 slots).  Given ``max_clusters`` (the device's
-    ``_ring_max_clusters``), fewer where the card could not hold every
-    pair's cluster at once: a cluster lives inside one GPC, so a kernel
-    that fits two blocks an SM may not fit 32 clusters of 8.  A requested
-    count is honoured up to S (no split is empty) and must be at most 8.
+    ``_max_clusters``), fewer where the card could not hold every pair's
+    cluster at once: a cluster lives inside one GPC, so a kernel that fits
+    two blocks an SM may not fit 32 clusters of 8.  A requested count is
+    honoured up to S (no split is empty) and must be at most 8.
     ``split_len`` is the longest split."""
-    if requested < 0 or requested > MAX_RING_SPLITS:
-        raise ValueError(f"flash_decode kernel: n_splits must be in "
-                         f"[0, {MAX_RING_SPLITS}] for the ring, not "
-                         f"{requested}")
-    if requested:
-        n = min(requested, S)
-    else:
-        pairs = max(1, B * Hk)
-        per_pair = -(-2 * sm_count // pairs)
-        n = max(1, min(MAX_RING_SPLITS, per_pair, S // _MIN_SPLIT_SLOTS))
-        while max_clusters is not None and n > 1 and \
-                max_clusters[n - 1] < pairs:
-            n -= 1
+    most = S if requested else S // _MIN_SPLIT_SLOTS
+    n = _card_splits(B * Hk, most, sm_count, requested, max_clusters, "ring")
     return n, -(-S // n)
 
 
+def _paged_splits(B: int, Hk: int, T: int, bs: int, sm_count: int,
+                  requested: int = 0, max_clusters=None):
+    """``(n_splits, split_entries)`` of the kernel for a (B, T) block table
+    over a pool of ``bs``-slot blocks.
+
+    Each (row, head) pair's T table entries are cut into ``n_splits`` runs
+    of whole entries, ``floor(i * T / n)`` .. ``floor((i + 1) * T / n)``, one
+    block each, all the splits of a pair one cluster; the last split may be
+    uneven.  The count follows ``_ring_splits``' rule over the T * bs
+    logical slots (about two blocks an SM, splits of at least 32 slots, at
+    most 8, no more than the card holds at once given ``max_clusters``), and
+    never exceeds T: 3 at the engine's pool of qwen3-0.6b (B=12 lanes, Hk=8,
+    T=8 entries of 16 slots: 288 blocks), 1 at fedtime-llama2-7b's (Hk=32:
+    384 blocks).  A requested count is honoured up to T and must be at most
+    8.  ``split_entries`` is the longest split."""
+    most = T if requested else min(T, T * bs // _MIN_SPLIT_SLOTS)
+    n = _card_splits(B * Hk, most, sm_count, requested, max_clusters,
+                     "paged pool")
+    return n, -(-T // n)
+
+
+def _fast_divisor(d: int):
+    """``(mul, shr)`` with ``n // d == (n * mul >> 32) >> shr`` for every
+    ``0 <= n < 2**31`` (``mul`` 0 for d = 1: the quotient is n): the paged
+    kernel's block index of a slot, a multiply and a shift in place of a
+    division by the runtime block size."""
+    if d == 1:
+        return 0, 0
+    p = 31 + (d - 1).bit_length()             # 31 + ceil(log2 d)
+    return -(-(1 << p) // d), p - 32
+
+
 def _scalar_or_rows(x, batch: int, dev, name: str):
-    """(pointer, stride, value) of q_pos / prefix_len for the ring kernel:
-    None or a Python int goes in as a value; an int32 tensor of one value
-    or of (B,) is read in place with stride 0 or 1 (other integer types
-    are converted first)."""
+    """(pointer, stride, value) of q_pos / prefix_len for the kernel: None
+    or a Python int goes in as a value; an int32 tensor of one value or of
+    (B,) is read in place with stride 0 or 1 (other integer types are
+    converted first)."""
     if x is None or isinstance(x, int):
         return None, 0, int(x or 0)
     t = torch.as_tensor(x)
@@ -386,28 +410,61 @@ def _check_tensors(tensors, dev):
             _require(t.data_ptr() % 16 == 0, "tensors must be 16B aligned")
 
 
-def _ring_launcher(q, k, v, kv_pos, q_pos, *, k_scale, v_scale, kind,
-                   window, prefix_len, softcap, n_splits, return_partials):
+def flash_decode_launcher(q, k, v, kv_pos, q_pos, *, k_scale=None,
+                          v_scale=None, kind: str = "causal", window: int = 0,
+                          prefix_len=None, softcap: float = 0.0,
+                          block_kv: int = 0, n_splits: int = 0,
+                          block_tables=None, return_partials: bool = False):
+    """Check the arguments and allocate the kernel's outputs.
+
+    Returns ``(launch, outputs)``: ``launch()`` runs the kernel on the
+    current stream, raises when the launch fails, and counts nothing; it is
+    the whole of ``flash_decode_cuda`` but its count.  ``outputs`` is the
+    (B, 1, H, D) output in q's type, or with ``return_partials`` the merged
+    f32 ``(m, l, acc)`` of ``flash_decode_ref``'s shapes.  ``launch.grid``
+    says its splits, blocks, cluster size and how many such clusters the
+    card holds at once.  ``block_kv`` is the reference's tile and does not
+    apply; ``n_splits`` (at most 8) fixes the split count instead of the
+    card's choice (``_ring_splits``, ``_paged_splits``).
+
+    Raises on a device, type, shape or layout the kernel does not take."""
+    del block_kv
     dev = q.device
     B, H, D, Hk = _common_checks(q, k, v, k_scale, v_scale, kind)
     G = H // Hk
-    _require(k.shape[0] == B, "ring batch must match q")
-    S = k.shape[1]
-    _require(S >= 1, "the ring must hold a slot")
     _require(kv_pos.dtype == torch.int32, "kv_pos must be int32")
-    if kv_pos.ndim == 1:
-        _require(kv_pos.shape == (S,), "kv_pos must be (B, S) or (S,)")
-        kvp_stride = 0
-    else:
-        _require(kv_pos.shape == (B, S), "kv_pos must be (B, S) or (S,)")
-        kvp_stride = S
-    _check_tensors((q, k, v, kv_pos, k_scale, v_scale), dev)
-    qp, qp_stride, qp_val = _scalar_or_rows(q_pos, B, dev, "q_pos")
-    pl, pl_stride, pl_val = _scalar_or_rows(prefix_len, B, dev,
-                                            "prefix_len")
     kv_type = _KV_TYPES[k.dtype]
-    resident = _ring_max_clusters(dev, kv_type, G, D)
-    n, _ = _ring_splits(B, Hk, S, _sm_count(dev), n_splits, resident)
+    paged = block_tables is not None
+    tbl = block_tables
+    if paged:
+        layout = "paged"
+        nb, bs = k.shape[:2]
+        _require(tbl.dtype == torch.int32 and tbl.ndim == 2
+                 and tbl.shape[0] == B and tbl.shape[1] >= 1,
+                 "block_tables must be (B, T) int32")
+        T = tbl.shape[1]
+        _require(kv_pos.shape == (nb, bs), "kv_pos must be (n_blocks, bs)")
+        _require(T * bs < 2 ** 31 and nb * bs < 2 ** 31,
+                 "the table and the pool must hold under 2**31 slots")
+        resident = _max_clusters(layout, dev, kv_type, G, D)
+        n, _ = _paged_splits(B, Hk, T, bs, _sm_count(dev), n_splits,
+                             resident)
+    else:
+        layout = "ring"
+        _require(k.shape[0] == B, "ring batch must match q")
+        S = k.shape[1]
+        _require(S >= 1, "the ring must hold a slot")
+        if kv_pos.ndim == 1:
+            _require(kv_pos.shape == (S,), "kv_pos must be (B, S) or (S,)")
+            kvp_stride = 0
+        else:
+            _require(kv_pos.shape == (B, S), "kv_pos must be (B, S) or (S,)")
+            kvp_stride = S
+        resident = _max_clusters(layout, dev, kv_type, G, D)
+        n, _ = _ring_splits(B, Hk, S, _sm_count(dev), n_splits, resident)
+    _check_tensors((q, k, v, kv_pos, tbl, k_scale, v_scale), dev)
+    qp = _scalar_or_rows(q_pos, B, dev, "q_pos")
+    pl = _scalar_or_rows(prefix_len, B, dev, "prefix_len")
     if return_partials:
         m = torch.empty((B, Hk, G, 1), dtype=torch.float32, device=dev)
         l = torch.empty_like(m)
@@ -417,127 +474,47 @@ def _ring_launcher(q, k, v, kv_pos, q_pos, *, k_scale, v_scale, kind,
         out = torch.empty_like(q)
         m = l = acc = None
         outs = out
-    fn = _ring_lib()
-    args = (q.data_ptr(), int(q.dtype == torch.float32), k.data_ptr(),
-            v.data_ptr(), _ptr(k_scale), _ptr(v_scale), kv_pos.data_ptr(),
-            kvp_stride, _ptr(qp), qp_stride, qp_val, _ptr(pl), pl_stride,
-            pl_val, _ptr(out), _ptr(m), _ptr(l), _ptr(acc), B, Hk, G, D, S,
-            n, _KINDS[kind], int(window), float(softcap), float(D ** -0.5),
+    head = (q.data_ptr(), int(q.dtype == torch.float32), k.data_ptr(),
+            v.data_ptr(), _ptr(k_scale), _ptr(v_scale), kv_pos.data_ptr())
+    where = (_ptr(qp[0]), qp[1], qp[2], _ptr(pl[0]), pl[1], pl[2], _ptr(out),
+             _ptr(m), _ptr(l), _ptr(acc), B, Hk, G, D)
+    tail = (n, _KINDS[kind], int(window), float(softcap), float(D ** -0.5),
             kv_type)
+    if paged:
+        name = "fd_flash_decode_paged"
+        args = (head + (tbl.data_ptr(), T, bs, nb, *_fast_divisor(bs))
+                + where + tail)
+    else:
+        name = "fd_flash_decode_ring"
+        args = head + (kvp_stride,) + where + (S,) + tail
+    fn = _fn(name)
 
     def launch():
         rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"flash_decode ring kernel launch failed "
+            raise RuntimeError(f"flash_decode {layout} kernel launch failed "
                                f"(code {rc})")
 
     # the tensors behind the pointers, outputs included, live as long as
     # the launcher
-    launch.tensors = (q, k, v, kv_pos, k_scale, v_scale, qp, pl, out, m, l,
-                      acc)
+    launch.tensors = (q, k, v, kv_pos, tbl, k_scale, v_scale, qp[0], pl[0],
+                      out, m, l, acc)
     launch.grid = {"splits": n, "blocks": n * Hk * B, "cluster": n,
                    "resident_clusters": resident[n - 1]}
     return launch, outs
 
 
-def _paged_launcher(q, k, v, kv_pos, q_pos, *, k_scale, v_scale, kind,
-                    window, prefix_len, softcap, n_splits, block_tables):
-    dev = q.device
-    B, H, D, Hk = _common_checks(q, k, v, k_scale, v_scale, kind)
-    G = H // Hk
-    nb, bs = k.shape[:2]
-    tbl = block_tables
-    _require(tbl.dtype == torch.int32 and tbl.ndim == 2
-             and tbl.shape[0] == B, "block_tables must be (B, T) int32")
-    T = tbl.shape[1]
-    _require(kv_pos.shape == (nb, bs), "kv_pos must be (n_blocks, bs)")
-    n_splits = _pick_splits(T, n_splits)
-    split_len = (T // n_splits) * bs
-    _require(kv_pos.dtype == torch.int32, "kv_pos must be int32")
-    kv_pos = kv_pos.contiguous()
-    tensors = [q, k, v, kv_pos, tbl, k_scale, v_scale]
-    _check_tensors(tensors, dev)
-    qp = _rows(q_pos, B, dev)
-    plen = _rows(prefix_len, B, dev)
-    m = torch.empty((B, Hk, n_splits, G), dtype=torch.float32, device=dev)
-    l = torch.empty_like(m)
-    acc = torch.empty((B, Hk, n_splits, G, D), dtype=torch.float32,
-                      device=dev)
-    fn = _paged_lib()
-    args = (q.data_ptr(), int(q.dtype == torch.float32), k.data_ptr(),
-            v.data_ptr(), _ptr(k_scale), _ptr(v_scale), kv_pos.data_ptr(),
-            tbl.data_ptr(), qp.data_ptr(), plen.data_ptr(), m.data_ptr(),
-            l.data_ptr(), acc.data_ptr(), B, Hk, G, D, bs, T, n_splits,
-            split_len, _KINDS[kind], int(window), float(softcap),
-            float(D ** -0.5), _KV_TYPES[k.dtype])
-
-    def launch():
-        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"flash_decode kernel launch failed (code "
-                               f"{rc})")
-
-    launch.tensors = (*tensors, qp, plen, m, l, acc)
-    launch.grid = {"splits": n_splits, "blocks": n_splits * Hk * B,
-                   "cluster": 1}
-    return launch, (m, l, acc)
-
-
-def flash_decode_launcher(q, k, v, kv_pos, q_pos, *, k_scale=None,
-                          v_scale=None, kind: str = "causal", window: int = 0,
-                          prefix_len=None, softcap: float = 0.0,
-                          block_kv: int = 0, n_splits: int = 0,
-                          block_tables=None, return_partials: bool = False):
-    """Check the arguments and allocate the kernel's outputs.
-
-    Returns ``(launch, outputs)``: ``launch()`` runs the kernel on the
-    current stream, raises when the launch fails, and counts nothing;
-    ``launch.grid`` says its splits, blocks and cluster size.
-
-    * The ring (no ``block_tables``): ``outputs`` is the (B, 1, H, D)
-      output in q's type, or with ``return_partials`` the merged f32
-      ``(m, l, acc)`` of ``flash_decode_ref``'s shapes; ``launch`` is the
-      whole of ``flash_decode_cuda`` but its count.  ``block_kv`` is the
-      reference's tile and does not apply; ``n_splits`` (at most 8) fixes
-      the split count instead of ``_ring_splits``' choice.
-    * The paged pool: ``outputs`` is the per-split f32 partials ``m``,
-      ``l`` of shape (B, Hk, n_splits, G) and ``acc`` (B, Hk, n_splits, G,
-      D), which ``flash_decode_cuda`` combines in PyTorch.
-
-    Raises on a device, type, shape or layout the kernel does not take."""
-    del block_kv
-    kw = dict(k_scale=k_scale, v_scale=v_scale, kind=kind, window=window,
-              prefix_len=prefix_len, softcap=softcap, n_splits=n_splits)
-    if block_tables is None:
-        return _ring_launcher(q, k, v, kv_pos, q_pos,
-                              return_partials=return_partials, **kw)
-    return _paged_launcher(q, k, v, kv_pos, q_pos, block_tables=block_tables,
-                           **kw)
-
-
-def flash_decode_cuda(q, k, v, kv_pos, q_pos, *, return_partials=False,
-                      **kw):
+def flash_decode_cuda(q, k, v, kv_pos, q_pos, **kw):
     """The CUDA flash-decode kernel; same arguments and result as
     ``flash_decode_ref``.  Takes CUDA tensors only; raises on a device,
-    type, shape or layout the kernel does not take.  A ring call is one
-    kernel launch and no other device work."""
-    if kw.get("block_tables") is None:
-        launch, out = flash_decode_launcher(
-            q, k, v, kv_pos, q_pos, return_partials=return_partials, **kw)
-        launch()
-        LAUNCHES["flash_decode"] += 1
-        return out
-    launch, (m, l, acc) = flash_decode_launcher(q, k, v, kv_pos, q_pos, **kw)
+    type, shape or layout the kernel does not take.  A call, ring or paged,
+    is one kernel launch and no other device work."""
+    launch, out = flash_decode_launcher(q, k, v, kv_pos, q_pos, **kw)
     launch()
-    LAUNCHES["flash_decode_paged"] += 1
-    B, _, H, D = q.shape
-    m, l = m[..., None], l[..., None]
-    if return_partials:
-        m_loc = m.amax(dim=2)
-        w = torch.exp(m - m_loc[:, :, None])
-        return m_loc, (l * w).sum(dim=2), (acc * w).sum(dim=2)
-    out = _combine(m, l, acc, axis=2)                # (B, Hk, G, D)
-    return out.reshape(B, 1, H, D).to(q.dtype)
+    name = "flash_decode" if kw.get("block_tables") is None else \
+        "flash_decode_paged"
+    LAUNCHES[name] += 1
+    return out
 
 
 def paged_block_copy_cuda(leaf, src: int, dst: int):

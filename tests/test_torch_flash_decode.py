@@ -249,12 +249,19 @@ def test_block_copy_bit_exact(dtype):
 
 
 def test_policy_matches_reference():
+    """The paged kernel cuts a row's table into runs of whole entries, as
+    the reference's Pallas kernel does: wherever the reference's split
+    count (``_pick_splits``, a divisor of T) is one a cluster holds, the
+    port given that count cuts the table at the reference's bounds."""
     from repro.kernels import flash_decode as jfd
-    for S in (1, 100, 576, 1024, 4096, 5000, 40000):
-        assert tfd._auto_block_kv(S) == jfd._auto_block_kv(S)
-    for n in range(1, 70):
+    for T in range(1, 70):
         for req in (0, 1, 3, 8):
-            assert tfd._pick_splits(n, req) == jfd._pick_splits(n, req)
+            jn = jfd._pick_splits(T, req)
+            want = [(i * (T // jn), (i + 1) * (T // jn)) for i in range(jn)]
+            n, longest = tfd._paged_splits(4, 8, T, 16, 132, jn)
+            assert n == jn
+            got = [(i * T // n, (i + 1) * T // n) for i in range(n)]
+            assert got == want and longest == T // jn
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():

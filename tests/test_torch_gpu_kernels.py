@@ -16,12 +16,13 @@ what rounding those f32 outputs allows: |got - want| <= 2**-8 (|got| +
 value).  Block copies
 and empty rows are exact.  Both flash-decode kernels are built for the
 ported configurations' head geometries, (G, D) in {(2, 64), (2, 128), (1,
-32), (1, 128)}, and refuse the rest.  The
-ring kernel is held at the card's split policy and at explicit split
-counts, at ring lengths that no split count divides, with idle lanes
-(q_pos -1) and empty rings, through ``return_partials`` (its merged f32
-sums), and must be one kernel launch a call (counted with
-``torch.profiler``).
+32), (1, 128)}, and refuse the rest.  Ring
+and paged are held at the card's split policy and at explicit split
+counts, at lengths (slots or table entries) that no split count divides,
+with idle lanes (q_pos -1) and empty rings or tables, through
+``return_partials`` (their merged f32 sums), and each must be one kernel
+launch a call (counted with ``torch.profiler``); a paged call captured in
+a CUDA graph replays to the eager result.
 
 The wire-hop kernel (int8 and bf16 wires, full and quantize-only forms)
 must equal its plain version bit for bit: acc, codes, scales and residual.
@@ -38,8 +39,9 @@ casts p to bf16 before p . v and the kernel does not, so a bf16 attention
 output is held instead to the plain version run on the same inputs in f32:
 within its own rounding, half a bf16 step (a relative 2**-8), over the f32
 limit.  The bf16 kernel runs on the tensor cores with p split into two bf16
-values, which keeps it inside that limit
-(``tests/test_torch_kernel_designs.py`` emulates its arithmetic on the CPU).
+values, and the f32 kernel as three TF32 products for each f32 one, which
+keeps each inside its limit (``tests/test_torch_kernel_designs.py``
+emulates both arithmetics on the CPU).
 """
 
 import numpy as np
@@ -182,24 +184,25 @@ def test_return_partials(cuda, G, D):
     assert torch.all(got[0][0] == -1e30) and torch.all(got[1][0] == 0)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8],
-                         ids=["bf16", "f32", "int8"])
-@pytest.mark.parametrize("G,D", HEADS, ids=HEAD_IDS)
-def test_paged_kernel_matches_plain(cuda, dtype, G, D):
-    """Shared prefix blocks in several tables, -1 entries, a stale block."""
-    B, bs, T, Hk = 4, 16, 20, 8
-    nb = 64
-    g = torch.Generator(device="cpu").manual_seed(7)
+def _paged(dev, *, B, T, Hk, G, D, dtype, bs=16, nb=64, idle=(), seed=7):
+    """A pool of ``nb`` blocks read through a (B, T) table: a 3-block
+    prefix shared by every row, -1 entries past each row's position, a
+    stale block no table cites, and the lanes in ``idle`` with no granted
+    entry at all (q_pos -1).  Returns (args, kw)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
     q = torch.randn((B, 1, Hk * G, D), generator=g)
     k = torch.randn((nb, bs, Hk, D), generator=g)
     v = torch.randn((nb, bs, Hk, D), generator=g)
     perm = torch.randperm(nb, generator=g).tolist()
     tbl = np.full((B, T), -1, np.int32)
-    q_pos = np.array([T * bs - 1, 150, 37, 200], np.int32)
+    n = T * bs
+    q_pos = np.array([(n - 1, n * 5 // 8, n // 4 + 5, n * 3 // 4)[b % 4]
+                      for b in range(B)], np.int32)
+    q_pos[list(idle)] = -1
     shared = perm[:3]                          # a 3-block common prefix
     nxt = 3
     for b in range(B):
-        need = q_pos[b] // bs + 1
+        need = q_pos[b] // bs + 1 if q_pos[b] >= 0 else 0
         for j in range(need):
             if j < 3:
                 tbl[b, j] = shared[j]
@@ -219,15 +222,63 @@ def test_paged_kernel_matches_plain(cuda, dtype, G, D):
     if dtype == torch.int8:
         k, ks = _quant(k)
         v, vs = _quant(v)
-        kw = {"k_scale": ks.to(cuda), "v_scale": vs.to(cuda)}
+        kw = {"k_scale": ks.to(dev), "v_scale": vs.to(dev)}
         q = q.to(torch.bfloat16)
     else:
         q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-    args = (q.to(cuda), k.to(cuda), v.to(cuda),
-            torch.from_numpy(kv_pos).to(cuda),
-            torch.from_numpy(q_pos).to(cuda))
-    t = torch.from_numpy(tbl).to(cuda)
-    _assert_matches_plain(args, dict(block_tables=t, **kw))
+    args = (q.to(dev), k.to(dev), v.to(dev),
+            torch.from_numpy(kv_pos).to(dev),
+            torch.from_numpy(q_pos).to(dev))
+    return args, dict(block_tables=torch.from_numpy(tbl).to(dev), **kw)
+
+
+@pytest.mark.parametrize("n_splits", [0, 1, 3, 8],
+                         ids=["card", "1", "3", "8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8],
+                         ids=["bf16", "f32", "int8"])
+@pytest.mark.parametrize("G,D", HEADS, ids=HEAD_IDS)
+def test_paged_kernel_matches_plain(cuda, dtype, G, D, n_splits):
+    """Shared prefix blocks in several tables, -1 entries, a stale block, an
+    idle lane; the card's split count and explicit ones over T = 23 table
+    entries, which no split count but 1 divides (so a split may hold an
+    ungranted entry only, and the last split is uneven)."""
+    args, kw = _paged(cuda, B=5, T=23, Hk=8, G=G, D=D, dtype=dtype,
+                      idle=(4,))
+    got = _assert_matches_plain(args, dict(n_splits=n_splits, **kw))
+    assert torch.count_nonzero(got[4]) == 0          # idle lane: exactly 0
+
+
+@pytest.mark.parametrize("n_splits", [0, 1, 3, 8],
+                         ids=["card", "1", "3", "8"])
+@pytest.mark.parametrize("G,D", [(2, 128), (1, 128), (1, 32)],
+                         ids=["G2-D128", "G1-D128", "G1-D32"])
+def test_paged_return_partials(cuda, G, D, n_splits):
+    """The paged kernel's merged f32 partials (m, l, acc) against the plain
+    version's; an idle lane (no granted entry) gives m = -1e30, l = 0,
+    acc = 0 exactly."""
+    args, kw = _paged(cuda, B=4, T=23, Hk=2, G=G, D=D, dtype=torch.float32,
+                      idle=(2,), seed=11)
+    kw["n_splits"] = n_splits
+    got = ops.flash_decode(*args, return_partials=True, **kw)
+    want = fd.flash_decode_ref(*args, return_partials=True, **kw)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        _close(a, b, 1e-4)
+    assert torch.all(got[0][2] == -1e30)
+    assert torch.count_nonzero(got[1][2]) == 0
+    assert torch.count_nonzero(got[2][2]) == 0
+
+
+@pytest.mark.parametrize("kw", [dict(window=100),
+                                dict(kind="prefix", prefix_len=60),
+                                dict(kind="full"), dict(softcap=5.0)],
+                         ids=["window", "prefix", "full", "softcap"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8],
+                         ids=["bf16", "int8"])
+def test_paged_kernel_masks(cuda, dtype, kw):
+    args, skw = _paged(cuda, B=4, T=20, Hk=2, G=2, D=64, dtype=dtype,
+                       seed=13)
+    _assert_matches_plain(args, {**kw, **skw})
 
 
 @pytest.mark.parametrize("n_splits", [0, 1, 3, 8],
@@ -292,28 +343,74 @@ def test_ring_wrapper_is_one_kernel_launch(cuda, Hk, G):
     """A ring call, output or partials, is one kernel and no other device
     work (no copy, fill or combine), at the fixed batch of each served
     config."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     q, k, v, kv_pos, pos, _ = _ring(cuda, B=4, S=576, Hk=Hk, G=G, D=128,
                                     dtype=torch.bfloat16)
     calls = (lambda: ops.flash_decode(q, k, v, kv_pos, pos),
              lambda: ops.flash_decode(q, k, v, kv_pos, 575),
              lambda: ops.flash_decode(q, k, v, kv_pos, pos,
                                       return_partials=True))
+    n0 = fd.LAUNCHES["flash_decode"]
+    dev_ops = _device_ops(calls)
+    assert sum(n for _, n in dev_ops) == 12, dev_ops
+    assert fd.LAUNCHES["flash_decode"] - n0 == 15       # the warm round too
+
+
+def _device_ops(calls, reps: int = 4):
+    """[(kernel name, count)] of the device work ``reps`` rounds of
+    ``calls`` put on the device (torch.profiler), after a warm round."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     for call in calls:
         call()
     torch.cuda.synchronize()
-    n0 = fd.LAUNCHES["flash_decode"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(4):
+        for _ in range(reps):
             for call in calls:
                 call()
         torch.cuda.synchronize()
-    dev_ops = [(e.key, e.count) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    return [(e.key, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("Hk,G", [(8, 2), (32, 1)], ids=["G2", "G1"])
+def test_paged_wrapper_is_one_kernel_launch(cuda, Hk, G):
+    """A paged call, output or partials, is one kernel and no other device
+    work (no fill of q_pos, no combine), at the engine's pool of each
+    served config (12 lanes, 8 entries of 16 slots, idle lanes)."""
+    args, kw = _paged(cuda, B=12, T=8, Hk=Hk, G=G, D=128,
+                      dtype=torch.bfloat16, nb=100, idle=(2, 5, 9))
+    calls = (lambda: ops.flash_decode(*args, **kw),
+             lambda: ops.flash_decode(*args[:4], 100, **kw),
+             lambda: ops.flash_decode(*args, return_partials=True, **kw))
+    n0 = fd.LAUNCHES["flash_decode_paged"]
+    dev_ops = _device_ops(calls)
     assert sum(n for _, n in dev_ops) == 12, dev_ops
-    assert fd.LAUNCHES["flash_decode"] - n0 == 12
+    assert fd.LAUNCHES["flash_decode_paged"] - n0 == 15  # the warm round too
+
+
+@pytest.mark.parametrize("G", [2, 1], ids=["G2", "G1"])
+def test_paged_call_replays_in_a_cuda_graph(cuda, G):
+    """A paged call captured in a CUDA graph and replayed after its inputs
+    changed in place equals the eager call on the new inputs."""
+    args, kw = _paged(cuda, B=12, T=8, Hk=4, G=G, D=128,
+                      dtype=torch.bfloat16, nb=100, idle=(3,))
+    q, k, v, kv_pos, q_pos = args
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.flash_decode(*args, **kw)                # warm: build, queries
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.flash_decode(*args, **kw)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    q.copy_(torch.randn(q.shape, generator=g).to(q.dtype))
+    q_pos[0] -= 9                                    # a shorter row 0
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, ops.flash_decode(*args, **kw))
+    _assert_matches_plain(args, kw)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8,
@@ -538,6 +635,25 @@ def test_flash_attention_kernel_tile_edges(cuda, S, D, causal, dtype):
     assert got.dtype == dtype and got.shape == q.shape
     want = fa.flash_attention_ref(q.float(), k.float(), v.float(), causal)
     _allclose(got, want, 2e-5, 2.0 ** -8 if dtype == torch.bfloat16 else 0.0)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("B,H,S,D", [(4, 8, 1024, 128), (2, 4, 100, 128),
+                                     (2, 4, 1024, 64), (1, 3, 77, 64)],
+                         ids=["benchmark", "ragged", "d64", "ragged-d64"])
+def test_f32_attention_kernel_matches_plain(cuda, B, H, S, D, causal):
+    """The f32 kernel (3xTF32 on the tensor cores) at the reference
+    benchmark's shape, the ragged shape and D 64, through the bare launch
+    and through ops, within the f32 limit of the plain version (2e-5)."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device="cpu").manual_seed(S * D + H)
+    q, k, v = (torch.randn((B, H, S, D), generator=g).to(cuda)
+               for _ in range(3))
+    want = fa.flash_attention_ref(q, k, v, causal)
+    launch, o = fa.flash_attention_launcher(q, k, v, causal)
+    launch()
+    _allclose(o, want, 2e-5)
+    _allclose(ops.flash_attention(q, k, v, causal=causal), want, 2e-5)
 
 
 def test_ops_kernels_refuse_what_they_do_not_take(cuda):

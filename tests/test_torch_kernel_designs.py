@@ -8,6 +8,19 @@ held on the CPU before any card run.
   resident clusters of each size, every (row, head)'s cluster fits at
   once.  The kernel cuts split i of n at ``floor(i * S / n)``
   (``csrc/flash_decode.cu``); the bounds here are that formula.
+* The paged flash-decode's split policy (``_paged_splits``): every table
+  entry in exactly one split of whole entries (split i of n holds entries
+  ``floor(i * T / n)`` .. ``floor((i + 1) * T / n)``), requests honoured
+  and refused above 8, every cluster resident; and its cluster merge,
+  emulated: each split's (m, l, acc) from the plain version over its own
+  entries, merged in split order as block 0 does, matches
+  ``flash_decode_ref(block_tables=...)`` within 1e-6, idle lanes exactly 0.
+* The f32 flash-attention kernel's arithmetic (3xTF32): each operand split
+  into a TF32 ``hi`` (cvt.rna's rounding) and a truncated TF32 ``lo``, the
+  products ``lo hi + hi lo + hi hi`` in f32, an f32 online softmax over
+  32-key tiles; held to the plain version and the JAX package's oracle
+  within the card's unchanged f32 limit (atol 2e-5, rtol 2e-5).  One TF32
+  product alone misses it.
 * The bf16 flash-attention kernel's arithmetic, emulated in plain torch:
   bf16 inputs, f32 scores of exact products, an f32 online softmax over
   64-key tiles, p split as ``p_hi + p_lo`` (two bf16 values) for P . V,
@@ -76,7 +89,7 @@ def _check_splits(S: int, n: int, split_len: int):
     slots = [t for lo, hi in bounds for t in range(lo, hi)]
     assert slots == list(range(S)), (S, n)          # each slot exactly once
     assert all(hi > lo for lo, hi in bounds), (S, n)    # none empty
-    assert 1 <= n <= fd.MAX_RING_SPLITS
+    assert 1 <= n <= fd.MAX_SPLITS
     assert split_len == max(hi - lo for lo, hi in bounds)
 
 
@@ -151,6 +164,207 @@ def test_ring_splits_keep_every_cluster_resident(B, Hk, resident, want):
 
 
 # ---------------------------------------------------------------------------
+# The paged pool's split policy and cluster merge
+# ---------------------------------------------------------------------------
+
+def _entry_bounds(T: int, n: int):
+    """The kernel's splits of a table row of T entries: split i of n holds
+    entries [floor(i T / n), floor((i + 1) T / n))."""
+    return [(i * T // n, (i + 1) * T // n) for i in range(n)]
+
+
+def _check_paged_splits(T: int, n: int, split_entries: int):
+    bounds = _entry_bounds(T, n)
+    entries = [e for lo, hi in bounds for e in range(lo, hi)]
+    assert entries == list(range(T)), (T, n)        # each entry exactly once
+    assert all(hi > lo for lo, hi in bounds), (T, n)    # none empty
+    assert 1 <= n <= fd.MAX_SPLITS
+    assert split_entries == max(hi - lo for lo, hi in bounds)
+
+
+@pytest.mark.parametrize("sm_count", [8, 114, H100_SMS])
+@pytest.mark.parametrize("B", [1, 3, 4, 12, 64])
+def test_paged_splits_cover_every_entry_once(B, sm_count):
+    """Every table entry in exactly one split of whole entries, for the
+    engine's T = 8 and ragged T; splits of at least 32 slots; no more
+    splits than about two blocks an SM need."""
+    for Hk in (1, 2, 8, 32):
+        for T in (1, 2, 3, 7, 8, 9, 20, 23, 64, 100, 257):
+            for bs in (8, 16):
+                n, entries = fd._paged_splits(B, Hk, T, bs, sm_count)
+                _check_paged_splits(T, n, entries)
+                assert n == 1 or (T // n) * bs >= 32
+                assert n == 1 or (n - 1) * B * Hk < 2 * sm_count
+
+
+def test_paged_splits_fill_the_card_at_the_engine_pool():
+    """The engine's pool (12 lanes, T = 8 entries of 16 slots) on 132 SMs:
+    qwen3-0.6b (Hk = 8) takes 3 splits, 288 blocks; fedtime-llama2-7b (Hk =
+    32) 1, 384 blocks; so also given the occupancy a bf16 instance read on
+    the card in PR 17 (clusters of 1..8 resident at once)."""
+    fits = (396, 198, 124, 92, 69, 62, 47, 45)
+    for resident in (None, fits):
+        n, entries = fd._paged_splits(12, 8, 8, 16, H100_SMS,
+                                      max_clusters=resident)
+        assert (n, entries, n * 12 * 8) == (3, 3, 288)
+        n, entries = fd._paged_splits(12, 32, 8, 16, H100_SMS,
+                                      max_clusters=resident)
+        assert (n, entries, n * 12 * 32) == (1, 8, 384)
+
+
+@pytest.mark.parametrize("requested", [1, 2, 3, 5, 8])
+def test_paged_splits_honour_a_request(requested):
+    for T in (1, 2, 3, 7, 8, 23, 100):
+        for sm_count in (8, H100_SMS):
+            n, entries = fd._paged_splits(12, 8, T, 16, sm_count, requested)
+            assert n == min(requested, T)
+            _check_paged_splits(T, n, entries)
+
+
+@pytest.mark.parametrize("requested", [-1, 9, 16])
+def test_paged_splits_refuse_more_than_a_cluster(requested):
+    with pytest.raises(ValueError, match="n_splits"):
+        fd._paged_splits(12, 8, 8, 16, H100_SMS, requested)
+
+
+@pytest.mark.parametrize("B,Hk,T,resident,want", [
+    (4, 8, 256, (264,) * 8, 8),                       # every cluster fits
+    (4, 8, 256, (264, 132, 88, 64, 48, 40, 32, 28), 7),  # 32 of 8 do not
+    (4, 8, 256, (264, 132, 88, 40, 24, 20, 16, 14), 4),
+    (12, 8, 8, (264, 132, 88, 64, 48, 40, 32, 28), 2),   # 96 of 3 do not
+    (12, 8, 8, (264, 132, 96, 64, 48, 40, 32, 28), 3),
+    (64, 8, 256, (264,) * 8, 1),                      # one block a pair fills
+    (4, 32, 256, (264, 132, 88, 64, 48, 40, 32, 28), 2),
+    (1, 32, 256, (264, 132, 88, 40, 24, 20, 16, 14), 4)])
+def test_paged_splits_keep_every_cluster_resident(B, Hk, T, resident, want):
+    """Given the card's resident clusters of each size, the policy takes the
+    most splits (up to its own choice) whose B * Hk clusters all fit at
+    once; a request is honoured whatever fits."""
+    n, entries = fd._paged_splits(B, Hk, T, 16, H100_SMS,
+                                  max_clusters=resident)
+    assert n == want
+    assert n == 1 or resident[n - 1] >= B * Hk
+    _check_paged_splits(T, n, entries)
+    assert fd._paged_splits(B, Hk, T, 16, H100_SMS, 8, resident)[0] == 8
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 7, 8, 13, 16, 20, 24, 100, 128, 1000,
+                               4096, 65537, 2 ** 30 + 3])
+def test_paged_block_index_is_exact(d):
+    """The kernel's slot-to-block index, ``umulhi(n, mul) >> shr`` with the
+    wrapper's magic, equals n // d for slots 0 .. 2**31 - 1: every block
+    size a pool can have (``auto_block_size`` picks divisors near 16, not
+    only powers of two)."""
+    mul, shr = fd._fast_divisor(d)
+    assert 0 <= mul < 2 ** 32 and 0 <= shr < 32
+    rng = np.random.default_rng(d)
+    top = (2 ** 31 - 1) // d * d                  # the last multiple of d
+    n = np.concatenate([np.arange(min(4 * d + 8, 4096)),
+                        rng.integers(0, 2 ** 31, 20000),
+                        [d - 1, d, d + 1, top - 1, top, 2 ** 31 - 1]
+                        ]).astype(np.uint64)
+    n = n[n < 2 ** 31]
+    got = n if mul == 0 else ((n * np.uint64(mul)) >> np.uint64(32)) >> \
+        np.uint64(shr)
+    assert np.array_equal(got, n // np.uint64(d))
+
+
+def _pool_case(*, B, T, Hk, G, D, bs, int8, idle, seed):
+    """A pool read through a (B, T) table, drawn with numpy: a 2-block
+    prefix shared by the active rows, -1 entries past each row's
+    position, a stale block, and idle lanes with no granted entry."""
+    rng = np.random.default_rng(seed)
+    nb = B * T + 4
+    q = rng.standard_normal((B, 1, Hk * G, D)).astype(np.float32)
+    k = rng.standard_normal((nb, bs, Hk, D)).astype(np.float32)
+    v = rng.standard_normal((nb, bs, Hk, D)).astype(np.float32)
+    n = T * bs
+    q_pos = np.array([(n - 1, n // 3, 5, n * 2 // 3 + 1)[b % 4]
+                      for b in range(B)], np.int32)
+    q_pos[list(idle)] = -1
+    perm = rng.permutation(nb)
+    tbl = np.full((B, T), -1, np.int32)
+    kv_pos = np.full((nb, bs), -1, np.int32)
+    nxt = 2
+    for b in range(B):
+        for j in range(q_pos[b] // bs + 1 if q_pos[b] >= 0 else 0):
+            tbl[b, j] = perm[j] if j < 2 else perm[nxt]
+            nxt += j >= 2
+            ar = np.arange(j * bs, (j + 1) * bs)
+            kv_pos[tbl[b, j]] = np.maximum(kv_pos[tbl[b, j]],
+                                           np.where(ar <= q_pos[b], ar, -1))
+    kv_pos[perm[-1]] = np.arange(bs)               # stale, cited by no table
+    kw = {}
+    if int8:
+        ks = (np.abs(k).max(-1, keepdims=True) / 127.0).astype(np.float32)
+        vs = (np.abs(v).max(-1, keepdims=True) / 127.0).astype(np.float32)
+        ks = torch.from_numpy(ks).to(torch.bfloat16)
+        vs = torch.from_numpy(vs).to(torch.bfloat16)
+        k = np.clip(np.round(k / ks.float().numpy()), -127, 127).astype(
+            np.int8)
+        v = np.clip(np.round(v / vs.float().numpy()), -127, 127).astype(
+            np.int8)
+        kw = {"k_scale": ks, "v_scale": vs}
+    args = tuple(torch.from_numpy(x) for x in (q, k, v, kv_pos, q_pos))
+    return args, dict(block_tables=torch.from_numpy(tbl), **kw)
+
+
+def _cluster_merge(args, kw, n):
+    """The kernel's result from its splits: each split's (m, l, acc) over
+    its own table entries (the plain version on that slice of the table),
+    then block 0's merge in split order: M = max_r m_r, L = sum_r e^(m_r -
+    M) l_r, A = sum_r e^(m_r - M) acc_r, out = A / max(L, 1e-30)."""
+    tbl = kw["block_tables"]
+    T = tbl.shape[1]
+    parts = [fd.flash_decode_ref(*args, return_partials=True,
+                                 **{**kw, "block_tables": tbl[:, lo:hi]})
+             for lo, hi in _entry_bounds(T, n)]
+    M = parts[0][0]
+    for m, _, _ in parts[1:]:
+        M = torch.maximum(M, m)
+    L = torch.zeros_like(parts[0][1])
+    A = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:                        # in split order
+        w = torch.exp(m - M)
+        L = L + l * w
+        A = A + acc * w
+    q = args[0]
+    B, _, H, D = q.shape
+    return (A / torch.clamp(L, min=1e-30)).reshape(B, 1, H, D), (M, L, A)
+
+
+@pytest.mark.parametrize("n_splits", [1, 3, 8])
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("G,D", [(2, 64), (1, 32)], ids=["G2-D64",
+                                                         "G1-D32"])
+def test_paged_cluster_merge_matches_plain(G, D, int8, n_splits):
+    """The cluster merge over whole-entry splits of a T = 23 table (uneven
+    splits; at 8 splits some hold only ungranted entries) matches
+    ``flash_decode_ref(block_tables=...)`` within 1e-6; an idle lane, whose
+    every split is empty, is exactly 0, as are its merged m = -1e30, l and
+    acc."""
+    args, kw = _pool_case(B=6, T=23, Hk=2, G=G, D=D, bs=8, int8=int8,
+                          idle=(1, 5), seed=D + n_splits)
+    got, (M, L, A) = _cluster_merge(args, kw, n_splits)
+    want = fd.flash_decode_ref(*args, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    # the merged sums, to 1e-6 of l (the scale they are divided by)
+    wm, wl, wacc = fd.flash_decode_ref(*args, return_partials=True, **kw)
+    torch.testing.assert_close(M, wm, rtol=1e-6, atol=1e-6)
+    assert torch.all((L - wl).abs() <= 1e-6 * wl)
+    assert torch.all((A - wacc).abs() <= 1e-6 * wl)
+    for b in (1, 5):
+        assert torch.count_nonzero(got[b]) == 0
+        assert torch.all(M[b] == -1e30) and torch.count_nonzero(L[b]) == 0
+        assert torch.count_nonzero(A[b]) == 0
+    # row 2 (position 5) has one entry: its later splits hold none granted
+    tbl = kw["block_tables"]
+    assert n_splits == 1 or all(
+        torch.all(tbl[2, lo:hi] < 0)
+        for lo, hi in _entry_bounds(23, n_splits)[1:])
+
+
+# ---------------------------------------------------------------------------
 # The bf16 flash-attention kernel's arithmetic
 # ---------------------------------------------------------------------------
 
@@ -218,6 +432,110 @@ def test_bf16_attention_arithmetic_keeps_the_limit(shape, causal):
     # p in one bf16 value (p_hi alone) misses the limit: the split is needed
     _, hi_only = _mma_arithmetic(q, k, v, causal, split_p=False)
     assert _within(hi_only, want, 2e-5, 2.0 ** -8) > 0.0
+
+
+# ---------------------------------------------------------------------------
+# The f32 flash-attention kernel's arithmetic: 3xTF32 on the tensor cores
+# ---------------------------------------------------------------------------
+
+F32_KV_TILE = 32                              # the f32 kernel's key tile
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: x rounded to 10 mantissa bits, to nearest
+    with ties away from zero (on the sign-magnitude bits: add half of the
+    13 dropped bits, then clear them)."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32(x):
+    """x as a_hi + a_lo, both TF32, as the kernel splits it: a_hi = tf32(x)
+    (cvt.rna's rounding), a_lo = x - a_hi (exact in f32) truncated to 10
+    mantissa bits."""
+    hi = _tf32(x)
+    lo = (x - hi).contiguous().view(torch.int32) & ~0x1FFF
+    return hi, lo.view(torch.float32)
+
+
+def _tf32_product(a, b, three: bool):
+    """a . b on the tensor cores: TF32 operands, exact products, f32 sums;
+    with ``three`` the 3xTF32 sum a_lo b_hi + a_hi b_lo + a_hi b_hi,
+    else the one TF32 product a_hi b_hi."""
+    a_hi, a_lo = _split_tf32(a)
+    b_hi, b_lo = _split_tf32(b)
+    if not three:
+        return a_hi @ b_hi
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _tf32x3_arithmetic(q, k, v, causal: bool, three: bool = True):
+    """The f32 kernel's arithmetic on f32 q, k, v (B, H, S, D): S = Q . K^T
+    and O += P . V each as three TF32 products, an f32 online softmax over
+    32-key tiles, the finite finfo(f32).min fill, key tiles above a query
+    row skipped (rows are independent, so the kernel's query tile does
+    not enter); returns the f32 output."""
+    B, H, S, D = q.shape
+    fill = torch.finfo(torch.float32).min
+    rows = torch.arange(S)
+    m = torch.full((B, H, S), fill)
+    l = torch.zeros((B, H, S))
+    acc = torch.zeros((B, H, S, D))
+    for k0 in range(0, S, F32_KV_TILE):
+        keys = torch.arange(k0, min(k0 + F32_KV_TILE, S))
+        s = _tf32_product(q, k[:, :, keys].transpose(-1, -2), three) * (
+            D ** -0.5)
+        if causal:
+            s = s.masked_fill(keys[None, :] > rows[:, None], fill)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + _tf32_product(p, v[:, :, keys], three)
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    """The emulated cvt.rna: 10 mantissa bits kept, a half-way value of
+    either sign rounded away from zero; the split's halves are TF32 and sum
+    to within 2**-21 of the value."""
+    one_ulp = 2.0 ** -10                            # TF32's step at 1.0
+    x = torch.tensor([1.0 + one_ulp / 2, -(1.0 + one_ulp / 2),
+                      1.0 + one_ulp / 2 - 2.0 ** -23, 3.0, -0.0])
+    want = torch.tensor([1.0 + one_ulp, -(1.0 + one_ulp), 1.0, 3.0, -0.0])
+    assert torch.equal(_tf32(x), want)
+    rng = np.random.default_rng(0)
+    y = torch.from_numpy(rng.standard_normal(4096).astype(np.float32))
+    hi, lo = _split_tf32(y)
+    assert torch.all(hi.view(torch.int32) & 0x1FFF == 0)
+    assert torch.all(lo.view(torch.int32) & 0x1FFF == 0)
+    # hi + lo keeps 22 of f32's 24 bits: within 2**-21 of y, relative
+    assert torch.all((hi + lo - y).abs() <= 2.0 ** -21 * y.abs())
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("shape", [(1, 1, 256, 128), (1, 2, 100, 128),
+                                   (1, 2, 100, 64)],
+                         ids=["benchmark-1-head-S256", "ragged", "d64"])
+def test_f32_attention_arithmetic_keeps_the_limit(shape, causal):
+    """The reference benchmark's shape (4, 8, 1024, 128) cut to one head
+    and S 256, the ragged shape (2, 4, 100, 128) cut to one row and two
+    heads, and D 64: 3xTF32 held to the plain version and to the JAX
+    package's oracle within the card's unchanged f32 limit (atol 2e-5,
+    rtol 2e-5); the one TF32 product alone misses it."""
+    rng = np.random.default_rng(sum(shape))
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)) for _ in range(3))
+    got = _tf32x3_arithmetic(q, k, v, causal)
+    want = fa.flash_attention_ref(q, k, v, causal)
+    jwant = torch.from_numpy(np.asarray(jref.flash_attention_ref(
+        *(jnp.asarray(t.numpy()) for t in (q, k, v)), causal=causal)).copy())
+    assert torch.isfinite(got).all()
+    assert _within(got, want, 2e-5, 2e-5) <= 0.0
+    assert _within(got, jwant, 2e-5, 2e-5) <= 0.0
+    one = _tf32x3_arithmetic(q, k, v, causal, three=False)
+    assert _within(one, want, 2e-5, 2e-5) > 0.0
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,10 @@ dequantizes NF4 and leaves the product to XLA, and its norms and attention
 are plain jnp.  This prints, per call, what each kernel moves and computes
 and the bound that follows: the larger of bytes over 3.35 TB/s and
 operations over the rate for their type (989 TFLOP/s for bf16 products on
-the tensor cores, 67 TFLOP/s for f32 arithmetic outside them), from
-NVIDIA's H100 SXM data sheet.  Each input is counted read once and each
+the tensor cores; for f32 matrix products, three TF32 products at 494.7
+TFLOP/s, an effective 164.9, since 3xTF32 on the tensor cores keeps the f32
+limit and so is the least time the card could take; 67 TFLOP/s for other
+f32 arithmetic, outside them), from NVIDIA's H100 SXM data sheet.  Each input is counted read once and each
 output written once.  Two sets of shapes:
 
   * one local step's forward at fedtime-llama2-7b's widths (batch 4 x 2
@@ -18,9 +20,8 @@ output written once.  Two sets of shapes:
   * the reference benchmark's ``--full`` shapes
     (``benchmarks/kernels_bench.py``), in f32.
 
-For qlora_matmul it also prints the floor of f32 arithmetic on the CUDA
-cores, which the kernel keeps (the reference's oracle is f32), beside the
-bf16 tensor-core bound.  No device is used: these are shape arithmetic,
+For bf16 qlora_matmul it also prints the floor of its f32 arithmetic on
+the CUDA cores beside the bf16 tensor-core bound.  No device is used: these are shape arithmetic,
 not measurements.
 """
 
@@ -28,7 +29,10 @@ from __future__ import annotations
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
-F32_FLOPS = 67e12
+F32_FLOPS = 67e12                # f32 arithmetic outside the tensor cores
+# f32 matrix products as 3xTF32 on the tensor cores: three TF32 products
+# (494.7 TFLOP/s) for each f32 one
+F32_MATMUL_FLOPS = 494.7e12 / 3
 
 
 def _bound(name, nbytes, flops, calls=None, rate=BF16_FLOPS):
@@ -48,10 +52,10 @@ def _qlora(name, M, k, n, r, qb, elem, calls=None):
               + (k * r + r * n) * 4 + M * n * elem)
     flops = 2 * M * k * n + 2 * M * k * r + 2 * M * r * n
     _bound(name, nbytes, flops, calls,
-           rate=BF16_FLOPS if elem == 2 else F32_FLOPS)
+           rate=BF16_FLOPS if elem == 2 else F32_MATMUL_FLOPS)
     if elem == 2:
-        print(f"  the same in f32 on the CUDA cores (the kernel's "
-              f"arithmetic): {flops / F32_FLOPS * 1e3:.4f} ms")
+        print(f"  the same in f32 FMAs on the CUDA cores: "
+              f"{flops / F32_FLOPS * 1e3:.4f} ms")
 
 
 def _rmsnorm(name, rows, d, elem, calls=None):
@@ -64,7 +68,7 @@ def _attention(name, B, H, S, D, elem, causal, calls=None):
     """q, k, v, o (B, H, S, D) of ``elem`` bytes."""
     pairs = S * (S + 1) // 2 if causal else S * S
     _bound(name, 4 * B * H * S * D * elem, 4 * B * H * D * pairs, calls,
-           rate=BF16_FLOPS if elem == 2 else F32_FLOPS)
+           rate=BF16_FLOPS if elem == 2 else F32_MATMUL_FLOPS)
 
 
 def main() -> None:
