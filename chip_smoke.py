@@ -11,16 +11,18 @@ Phases, each printing its numbers beside the card's name and power limit:
        for each served config: qwen3-0.6b (Hk=8, G=2, D=128) and
        fedtime-llama2-7b (Hk=32, G=1, D=128): the fixed batch's 4 x
        576-slot ring; the engine's 12 lanes over its 96-block pool of 16
-       slots, with idle lanes, shared blocks and -1 table entries; the CoW
-       block copy on the pool's K and kv_pos leaves; and, at qwen3-0.6b's
-       heads, longer caches (B=4, S in {1024, 4096}, bf16 and int8, ring
-       and paged);
+       slots, with idle lanes, shared blocks and -1 table entries; a CoW
+       event's block copy over the pool's K, V and kv_pos leaves in one
+       launch (beside one launch a leaf); and, at qwen3-0.6b's heads,
+       longer caches (B=4, S in {1024, 4096}, bf16 and int8, ring and
+       paged);
      - the wire hop, int8 and bf16, full and quantize-only, at the fit's
        upload size (8,388,608 adapter elements in rows of 128) and at a
        ragged 1001 rows, equal bit for bit;
      with the wrapper's time, the kernel's alone, the plain version's, the
      least time the card could take (bound) and one library call's time as
-     a yardstick where one exists; for each flash-decode case its grid
+     a yardstick where one exists, and the timer's floor (a one-element
+     ``fill_``); for each flash-decode case its grid
      (splits, blocks, cluster size) and the device operations one wrapper
      call makes (``torch.profiler``; a call, ring or paged, must be
      exactly one);
@@ -38,7 +40,8 @@ Phases, each printing its numbers beside the card's name and power limit:
      launcher (prefill 4x512, 64 decode steps over the contiguous ring),
   4. then the continuous-batching engine (paged pool, prefix sharing, a
      12-request trace with a shared-prefix cluster), checking that every
-     request finishes, all logits are finite, copy-on-write fired, no block
+     request finishes, all logits are finite, copy-on-write fired (one
+     block-copy launch an event), no block
      leaked, and that phases 3-4 launched every serving kernel (launch
      counters set to 0 before phase 3, read after phase 4); a few of the
      main path's own flash-decode calls are copied as they run and held
@@ -478,41 +481,68 @@ def phase_kernels(card: str, timer: Timer) -> dict:
                        library_ms=lib, shape=f"{label}, G = {H // Hk}",
                        grid=grid)
             _keep_row(rows, name, arch, row)
+    floor = timer.ms(lambda: timer.flush[:1].fill_(1.0), 50)
+    print(f"[{card}] timer floor: a one-element fill_ reads {floor:.4f} ms "
+          f"in this harness (a kernel's gap to its bound reads against it)")
     g = torch.Generator(device="cuda").manual_seed(1)
-    n_blocks = ENGINE_POOL_BLOCKS                  # the engine's pool leaves
     for arch, (L, Hk, _, D) in heads.items():
-        for leaf_name, shape, dtype in (
-                ("k", (L, n_blocks, 16, Hk, D), torch.bfloat16),
-                ("kv_pos", (L, n_blocks, 16), torch.int32)):
-            base = torch.randint(-1000, 1000, shape, generator=g,
-                                 device="cuda", dtype=torch.int32)
-            leaf = base.to(dtype)
-            del base
-            want = leaf.clone()
-            fd.paged_block_copy_ref(want, 5, 40)
-            fd.paged_block_copy_cuda(leaf, 5, 40)
-            torch.cuda.synchronize()
-            _check(torch.equal(leaf, want), f"block copy {arch} {leaf_name} "
-                   f"not exact")
-            del want
-            nbytes = 2 * shape[0] * leaf[0, 0].numel() * leaf.element_size()
-            bound, by = _bound_ms(nbytes, 0.0)
-            ms = timer.ms(lambda: fd.paged_block_copy_cuda(leaf, 5, 40), 50)
-            plain = timer.ms(lambda: fd.paged_block_copy_ref(leaf, 5, 40),
-                             50)
-            lib = timer.ms(lambda: leaf[:, 40].copy_(leaf[:, 5]), 50)
-            print(f"[{card}] kernel paged_block_copy {arch} {leaf_name} "
-                  f"{tuple(shape)} {str(dtype)[6:]}: max_abs_err 0 (exact), "
-                  f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-                  f"{bound:.4f} ms ({by}, {nbytes / 1e6:.2f} MB), copy_ "
-                  f"{lib:.4f} ms")
-            if leaf_name == "k":           # the wrapper runs only the kernel
-                _keep_row(rows, "paged_block_copy", arch, dict(
-                    max_abs_err=0.0, ms=ms, kernel_ms=ms, plain_ms=plain,
-                    bound_ms=bound, bound_by=by, library_ms=lib,
-                    shape=f"{arch} engine pool leaf {tuple(shape)}"))
-            del leaf
+        _keep_row(rows, "paged_block_copy", arch,
+                  _cow_event(card, timer, g, arch, L, Hk, D))
     return rows
+
+
+def _cow_event(card: str, timer: Timer, g, arch: str, L: int, Hk: int,
+               D: int) -> dict:
+    """One copy-on-write event of the engine's pool (its K, V and kv_pos
+    leaves, bf16 and int32) through the kernel: one launch over every leaf,
+    held bit for bit against the plain copy; timed beside the three
+    one-leaf launches it replaces, the plain version and
+    ``torch._foreach_copy_`` (one PyTorch call over the leaves).  Returns
+    the event's JSON row."""
+    from repro_torch.kernels import flash_decode as fd
+    n_blocks, bs = ENGINE_POOL_BLOCKS, ENGINE["block_size"]
+    shapes = (("k", (L, n_blocks, bs, Hk, D), torch.bfloat16),
+              ("v", (L, n_blocks, bs, Hk, D), torch.bfloat16),
+              ("kv_pos", (L, n_blocks, bs), torch.int32))
+    leaves = [torch.randint(-1000, 1000, shape, generator=g, device="cuda",
+                            dtype=torch.int32).to(dtype)
+              for _, shape, dtype in shapes]
+    wants = [leaf.clone() for leaf in leaves]
+    fd.paged_block_copy_leaves_ref(wants, 5, 40)
+    fd.paged_block_copy_leaves_cuda(leaves, 5, 40)
+    torch.cuda.synchronize()
+    for (name, _, _), leaf, want in zip(shapes, leaves, wants):
+        _check(torch.equal(leaf, want), f"block copy {arch} {name} not "
+               f"exact")
+    del wants
+    nbytes = sum(2 * leaf.shape[0] * leaf[0, 0].numel() * leaf.element_size()
+                 for leaf in leaves)
+    bound, by = _bound_ms(nbytes, 0.0)
+    ms = timer.ms(lambda: fd.paged_block_copy_leaves_cuda(leaves, 5, 40), 50)
+
+    def one_leaf_each():
+        for leaf in leaves:
+            fd.paged_block_copy_cuda(leaf, 5, 40)
+
+    per_leaf = timer.ms(one_leaf_each, 50)
+    k_alone = timer.ms(lambda: fd.paged_block_copy_cuda(leaves[0], 5, 40),
+                       50)
+    plain = timer.ms(lambda: fd.paged_block_copy_leaves_ref(leaves, 5, 40),
+                     50)
+    lib = timer.ms(lambda: torch._foreach_copy_(
+        [leaf[:, 40] for leaf in leaves], [leaf[:, 5] for leaf in leaves]),
+        50)
+    shown = ", ".join(f"{name} {tuple(shape)} {str(dtype)[6:]}"
+                      for name, shape, dtype in shapes)
+    print(f"[{card}] kernel paged_block_copy {arch} CoW event ({shown}): "
+          f"max_abs_err 0 (exact), one launch {ms:.4f} ms, one launch a "
+          f"leaf {per_leaf:.4f} ms (k alone {k_alone:.4f}), plain "
+          f"{plain:.4f} ms, bound {bound:.4f} ms ({by}, "
+          f"{nbytes / 1e6:.2f} MB), _foreach_copy_ {lib:.4f} ms")
+    return dict(max_abs_err=0.0, ms=ms, kernel_ms=ms, plain_ms=plain,
+                bound_ms=bound, bound_by=by, library_ms=lib,
+                one_leaf_launches_ms=per_leaf, k_leaf_ms=k_alone,
+                shape=f"{arch} engine pool CoW event: {shown}")
 
 
 def _keep_row(rows: dict, name: str, arch: str, row: dict) -> None:
@@ -1022,6 +1052,9 @@ def _run_main_path(card: str, cfg, params) -> dict:
            "engine: pool geometry differs from the one phase 2 checks")
     for name in ("flash_decode", "flash_decode_paged", "paged_block_copy"):
         _check(launches[name] > 0, f"main path never launched {name}")
+    _check(launches["paged_block_copy"] == summ["cow_copies"],
+           f"engine: {launches['paged_block_copy']} block-copy launches for "
+           f"{summ['cow_copies']} copy-on-write events, not one each")
     print(f"[{card}] engine {cfg.name} full width, paged + prefix sharing: "
           f"{summ['requests']} requests, {summ['decode_tokens']} decode "
           f"tokens in {summ['decode_steps']} steps, "

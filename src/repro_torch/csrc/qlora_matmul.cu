@@ -12,8 +12,10 @@
 //
 // Bound on the H100: operations.  At the federated fit's site (M 504,
 // K = N = 4096, r 8) a call does 17.0 GFLOP against 18.0 MB moved: 17 us
-// at the bf16 tensor-core rate, 0.25 ms at the f32 rate of the CUDA cores.
-// Two kernels, one a call, chosen by x's type:
+// at the bf16 tensor-core rate.  At the reference benchmark's f32 shape
+// (512, 1024, 1024, r 8) it does 1.07 GFLOP against 4.85 MB: 6.6 us as
+// 3xTF32 (three TF32 products at 494.7 TFLOP/s for each f32 one).  Two
+// kernels, one a call, chosen by x's type:
 //
 // bf16 x (qlora_mma_kernel): the tensor cores.  x is exact in bf16, so
 // only w needs more bits than one bf16 value holds: one bf16 copy of w errs
@@ -45,22 +47,33 @@
 // reads of x and of both halves of w, the decode's stores), ~1000 cycles
 // at 128 bytes a cycle.
 //
-// f32 x (qlora_kernel): a tiled GEMM on the CUDA cores, the f32 FMAs of the
-// reference.  Each 256-thread block owns one 64 x 64 tile of y and walks K
-// in steps of 32 (the TPU kernel's sequential K grid axis and its VMEM
-// scratch become this loop and registers; nothing carries between blocks).
-// Per step:
-//   * the x tile (64 x 32) is stored in shared memory, transposed, so that a
-//     thread reads its 4 rows as one 16-byte load;
-//   * the packed codes (32 rows x 32 bytes) are read 4 bytes (8 codes) a
-//     thread, decoded through the code book held in shared memory and
-//     multiplied by their row's absmax, once per step for all 64 rows of
-//     the tile (no one-hot product: that is the TPU's way to its MXU);
-//   * each thread accumulates a 4 x 4 patch of x . W in registers, and beside
-//     it its share of the 64 x r product x . A (the LoRA bypass), from the
-//     same x tile in shared memory.
-// The epilogue stages x . A and the B tile in shared memory and adds
-// s . (x . A) . B to each thread's patch before the one write of y.
+// f32 x (qlora_tf32_kernel): the tensor cores, as 3xTF32.  One TF32 product
+// (10 mantissa bits a side) errs by about 2**-11 of each product and misses
+// the reference's atol 1e-4 at K >= 1024, as do both two-product variants
+// (tests/test_torch_kernel_designs.py emulates all four).  So x and w are
+// each split once into TF32 halves (hi: cvt.rna's rounding, lo: the
+// remainder truncated; integer ops on the bit pattern, since cvt issues at
+// a quarter of their rate) and x_lo . w_hi + x_hi . w_lo + x_hi . w_hi is
+// summed into one f32 accumulator (x_lo . w_lo, 2**-22 of a product, is
+// dropped).  Each block owns a 64 x 64 tile of y: 8 x 16 = 128 blocks at
+// the reference benchmark's (512, 1024, 1024), one wave on 132 SMs, where a
+// 128 x 128 tile would give 32.  The skeleton is the bf16 kernel's: four MMA
+// warps (2 x 2, each 32 x 32, mma.sync m16n8k8 tf32) and four decode
+// warps; a cp.async ring of four raw stages (x f32, codes, scales, A:
+// 11,392 bytes a stage at r <= 8, 18,560 at r 64); two decoded stages of
+// fragment tiles (w_hi / w_lo, A's halves and x_hi / x_lo: 34,816 bytes a
+// stage at r <= 8, 49,152 at r 64); 115,200 / 172,544 bytes of shared
+// memory in all.  Per step the decode warps turn the codes into the TF32
+// halves of w = code[q] * absmax (the f32 product, as the reference's) and
+// split x and A once, into fragment-native tiles: a lane's fragment is one
+// 16-byte load free of bank conflicts (the raw x tile's 16-byte chunks are
+// XOR-swizzled by row, the w tiles' lane slots by the n8 tile's parity).
+// The LoRA bypass x . A runs as 3xTF32 on the same x halves (3 r_p / 8
+// MMAs a k8 slice beside the warp's 24 of x . w); its error, about 2**-21
+// of each product, is far inside the limit.  The tensor cores truncate
+// as they accumulate, so each step's MMAs run into zeroed partials that
+// are added into the f32 accumulators, rounded to nearest (one chain over
+// K = 4096 drifts by 3.5e-4).  The epilogue is the bf16 kernel's, in f32.
 //
 // Both: M, N and K may be ragged (the loads past an edge read zeros and the
 // stores past it are dropped); the one layout rule is N % qblock == 0.
@@ -72,193 +85,6 @@
 #include <stdint.h>
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int BM = 64, BN = 64, BK = 32;
-constexpr int XS = BM + 4;   // padded row of the transposed x tile
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ void from_f(float x, float* p) { *p = x; }
-
-template <typename T>
-struct alignas(16) Chunk {
-  static constexpr int N = 16 / sizeof(T);
-  T v[N];
-};
-
-template <int RP>
-struct Smem {
-  static constexpr int kMain = BK * XS + BK * BN + BK * RP;
-  static constexpr int kEpi = BM * (RP + 1) + RP * BN;
-  static constexpr int kFloats = kMain > kEpi ? kMain : kEpi;
-};
-
-// T: x and y type.  RP: the LoRA rank r rounded up to 4, 8, 16, 32 or 64.
-// xvec: x rows may be read as 16-byte chunks (K a whole number of them,
-// x 16-byte aligned).  wvec: code rows may be read 4 bytes at a time.
-template <typename T, int RP>
-__global__ void __launch_bounds__(kThreads)
-qlora_kernel(const T* __restrict__ x, const uint8_t* __restrict__ wq,
-             const float* __restrict__ absmax, const float* __restrict__ la,
-             const float* __restrict__ lb, const float* __restrict__ code,
-             T* __restrict__ y, int M, int N, int K, int r, int qblock,
-             float s, int xvec, int wvec) {
-  __shared__ __align__(16) float smem[Smem<RP>::kFloats];
-  __shared__ float book[16];
-  float* xs = smem;                    // [BK][XS], x tile transposed
-  float* ws = xs + BK * XS;            // [BK][BN], dequantized W tile
-  float* as = ws + BK * BN;            // [BK][RP], A tile
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;   // the thread's 4 x 4 patch
-  const int xr = tid / 4, xc = tid % 4;     // its share of x . A
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int half = N / 2;
-  const int nblk = N / qblock;
-  if (tid < 16) book[tid] = code[tid];
-
-  float acc[4][4] = {};
-  float xa[RP / 4] = {};
-  __syncthreads();
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // x tile -> xs[kk][m] in f32
-    constexpr int W = Chunk<T>::N;
-    if (xvec) {
-      for (int c = tid; c < BM * BK / W; c += kThreads) {
-        const int m = c / (BK / W), kk = (c % (BK / W)) * W;
-        float v[W] = {};
-        if (m0 + m < M && k0 + kk < K) {
-          const Chunk<T> ch = *reinterpret_cast<const Chunk<T>*>(
-              x + static_cast<long long>(m0 + m) * K + k0 + kk);
-#pragma unroll
-          for (int i = 0; i < W; ++i) v[i] = to_f(ch.v[i]);
-        }
-#pragma unroll
-        for (int i = 0; i < W; ++i) xs[(kk + i) * XS + m] = v[i];
-      }
-    } else {
-      for (int e = tid; e < BM * BK; e += kThreads) {
-        const int m = e / BK, kk = e % BK;
-        xs[kk * XS + m] = (m0 + m < M && k0 + kk < K)
-            ? to_f(x[static_cast<long long>(m0 + m) * K + k0 + kk]) : 0.0f;
-      }
-    }
-    // codes -> ws[kk][c]: thread owns row kk, columns [c0, c0 + 8)
-    {
-      const int kk = tid / 8, c0 = (tid % 8) * 8;
-      const int k = k0 + kk, n = n0 + c0;
-      float v[8] = {};
-      if (k < K && n < N) {
-        const uint8_t* row = wq + static_cast<long long>(k) * half;
-        uint32_t bytes = 0;            // byte i of the 4 in bits 8i..8i+7
-        if (wvec && n + 8 <= N) {
-          bytes = *reinterpret_cast<const uint32_t*>(row + n / 2);
-        } else {
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            if (n + 2 * i < N)
-              bytes |= static_cast<uint32_t>(row[n / 2 + i]) << (8 * i);
-        }
-        const float* am = absmax + static_cast<long long>(k) * nblk;
-        int blk = n / qblock, rem = n - blk * qblock;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          if (n + i < N) {
-            const uint32_t byte = (bytes >> (8 * (i / 2))) & 0xFFu;
-            v[i] = book[i % 2 == 0 ? byte >> 4 : byte & 0xFu] * am[blk];
-          }
-          if (++rem == qblock) {
-            rem = 0;
-            ++blk;
-          }
-        }
-      }
-      float4* dst = reinterpret_cast<float4*>(ws + kk * BN + c0);
-      dst[0] = make_float4(v[0], v[1], v[2], v[3]);
-      dst[1] = make_float4(v[4], v[5], v[6], v[7]);
-    }
-    // A tile -> as[kk][j]
-    for (int e = tid; e < BK * RP; e += kThreads) {
-      const int kk = e / RP, j = e % RP;
-      as[e] = (k0 + kk < K && j < r)
-          ? la[static_cast<long long>(k0 + kk) * r + j] : 0.0f;
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(xs + kk * XS + ty * 4);
-      const float4 b = *reinterpret_cast<const float4*>(ws + kk * BN + tx * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      const float xm = xs[kk * XS + xr];
-#pragma unroll
-      for (int j = 0; j < RP / 4; ++j)
-        xa[j] = fmaf(xm, as[kk * RP + xc + 4 * j], xa[j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: y = acc + s . (x . A) . B
-  float* xas = smem;                   // [BM][RP + 1]
-  float* bs = xas + BM * (RP + 1);     // [RP][BN]
-#pragma unroll
-  for (int j = 0; j < RP / 4; ++j) xas[xr * (RP + 1) + xc + 4 * j] = xa[j];
-  for (int e = tid; e < RP * BN; e += kThreads) {
-    const int j = e / BN, c = e % BN;
-    bs[e] = (j < r && n0 + c < N)
-        ? lb[static_cast<long long>(j) * N + n0 + c] : 0.0f;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) break;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= N) break;
-      float lora = 0.0f;
-#pragma unroll
-      for (int q = 0; q < RP; ++q)
-        lora = fmaf(xas[(ty * 4 + i) * (RP + 1) + q], bs[q * BN + tx * 4 + j],
-                    lora);
-      from_f(acc[i][j] + s * lora, y + static_cast<long long>(m) * N + n);
-    }
-  }
-}
-
-template <typename T>
-int launch_rank(int rp, const void* x, const void* wq, const void* absmax,
-                const void* la, const void* lb, const void* code, void* y,
-                int M, int N, int K, int r, int qblock, float s, int xvec,
-                int wvec, cudaStream_t st) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  if (grid.y > 65535) return -1;
-#define QLORA_CASE(R)                                                      \
-  case R:                                                                  \
-    qlora_kernel<T, R><<<grid, kThreads, 0, st>>>(                         \
-        static_cast<const T*>(x), static_cast<const uint8_t*>(wq),         \
-        static_cast<const float*>(absmax), static_cast<const float*>(la),  \
-        static_cast<const float*>(lb), static_cast<const float*>(code),    \
-        static_cast<T*>(y), M, N, K, r, qblock, s, xvec, wvec);            \
-    return 0;
-  switch (rp) {
-    QLORA_CASE(4)
-    QLORA_CASE(8)
-    QLORA_CASE(16)
-    QLORA_CASE(32)
-    QLORA_CASE(64)
-    default:
-      return -1;
-  }
-#undef QLORA_CASE
-}
 
 // ---------------------------------------------------------------------------
 // bf16 x: mma.sync on the tensor cores
@@ -788,35 +614,553 @@ int launch_mma(int rp, const void* x, const void* wq, const void* absmax,
 #undef QLORA_MMA_RANK
 }
 
+// ---------------------------------------------------------------------------
+// f32 x: 3xTF32 mma.sync on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int FM = 64, FN = 64, FK = 32;      // block tile, K step
+constexpr int kTfMmaWarps = 4;                // 2 (M) x 2 (N), 32 x 32 each
+constexpr int kTfDecWarps = 4;                // the loads and the decode
+constexpr int kTfMmaThreads = 32 * kTfMmaWarps;
+constexpr int kTfDecThreads = 32 * kTfDecWarps;
+constexpr int kTfThreads = kTfMmaThreads + kTfDecThreads;
+// Scales a row of the tile spans at qblock >= 8: (FN - 1) / 8 + 2.
+constexpr int kTfScaleW = (FN - 1) / 8 + 2;
+
+// x as hi + lo, both TF32 (10 mantissa bits): hi = x rounded to nearest
+// with ties away from zero (cvt.rna.tf32.f32's result, on the bit pattern:
+// half of the 13 dropped bits added, then cleared), lo = x - hi (exact in
+// f32) truncated to TF32.  hi + lo is within 2**-21 of x, relative.
+// Integer ops run at 64 lanes a clock an SM, cvt at 16.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+// c += a . b: m16n8k8, tf32 in, f32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Float offset of element (row, col) of the raw x tile [FM][FK] f32: its
+// 16-byte chunks XOR-ed with row % 8, so that an A fragment's 32 reads (rows
+// gr and gr + 8, columns tig and tig + 4 of a k8 slice) hit 32 banks.
+__device__ __forceinline__ int swz_xf(int row, int col) {
+  return row * FK + (((col >> 2) ^ (row & 7)) << 2) + (col & 3);
+}
+
+// Dynamic shared memory of the f32 kernel, in bytes.  A ring of kStages raw
+// stages, as loaded (x f32, the packed codes, the rows' scales, the A
+// tile), and two decoded stages of fragment tiles: lane l's 16 bytes of
+// fragment (i, ks) at [i][ks][l], so that a warp reads a fragment with one
+// conflict-free 16-byte load a lane.  w: [ks][nt] of (b0 hi, b1 hi, b0 lo,
+// b1 lo); A: [ks][jt] likewise; x: hi and lo tiles of (a0, a1, a2, a3) at
+// [mt][ks].  The epilogue's x . A and B tiles reuse the front.
+template <int RP>
+struct TfSmem {
+  static constexpr int kX = FM * FK * 4;                  // 8,192
+  static constexpr int kCodes = FK * FN / 2;              // 1,024
+  static constexpr int kScales = FK * kTfScaleW * 4;      // 1,152
+  static constexpr int kA = FK * RP * 4;
+  static constexpr int kRaw = kX + kCodes + kScales + kA;
+  static constexpr int kW = 2 * FK * FN * 4;              // 16,384
+  static constexpr int kAF = 2 * FK * RP * 4;
+  static constexpr int kXF = 2 * FM * FK * 4;             // 16,384
+  static constexpr int kDec = kW + kAF + kXF;
+  static constexpr int kMain = kStages * kRaw + 2 * kDec;
+  static constexpr int kEpi = (FM * (RP + 1) + RP * FN) * 4;
+  static constexpr int kBytes = kMain > kEpi ? kMain : kEpi;
+};
+
+// RP: r rounded up to 8, 16, 32 or 64.  SMALLQ: qblock < 8 (as in
+// qlora_mma_kernel).  Warp roles: warps 0-3 issue the cp.async of step
+// kt + kStages - 1's x tile and run the MMAs of step kt on decoded stage
+// kt % 2; warps 4-7 issue the cp.async of that step's codes, scales and A
+// values and decode raw step kt + 1 into the other decoded stage.  One
+// barrier a step.
+template <int RP, bool SMALLQ>
+__global__ void __launch_bounds__(kTfThreads, 1)
+qlora_tf32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wq,
+                  const float* __restrict__ absmax,
+                  const float* __restrict__ la, const float* __restrict__ lb,
+                  const float* __restrict__ code, float* __restrict__ y,
+                  int M, int N, int K, int r, int qblock, float s, int xvec) {
+  using Sm = TfSmem<RP>;
+  constexpr int JT = RP / 8;                  // n8 tiles of x . A
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float book[16];
+  auto raw = [&](int kt) { return smem + (kt % kStages) * Sm::kRaw; };
+  auto xs = [&](int kt) { return reinterpret_cast<float*>(raw(kt)); };
+  auto rcodes = [&](int kt) { return raw(kt) + Sm::kX; };
+  auto rscales = [&](int kt) {
+    return reinterpret_cast<float*>(raw(kt) + Sm::kX + Sm::kCodes);
+  };
+  auto ra = [&](int kt) {
+    return reinterpret_cast<float*>(raw(kt) + Sm::kX + Sm::kCodes +
+                                    Sm::kScales);
+  };
+  auto dec = [&](int kt) {
+    return smem + kStages * Sm::kRaw + (kt & 1) * Sm::kDec;
+  };
+  auto wf = [&](int kt) { return reinterpret_cast<uint4*>(dec(kt)); };
+  auto af = [&](int kt) {
+    return reinterpret_cast<uint4*>(dec(kt) + Sm::kW);
+  };
+  auto xf = [&](int kt) {                     // x hi, then x lo at + FM FK / 4
+    return reinterpret_cast<uint4*>(dec(kt) + Sm::kW + Sm::kAF);
+  };
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const bool mma_warp = warp < kTfMmaWarps;
+  const int m0 = blockIdx.y * FM, n0 = blockIdx.x * FN;
+  const int half = N / 2;
+  const int nblk = N / qblock;
+  if (tid < 16) book[tid] = code[tid];
+  // 16-byte code rows: N a multiple of 32 and wq 16-byte aligned
+  const bool cvec = N % 32 == 0 &&
+                    (reinterpret_cast<uintptr_t>(wq) & 15u) == 0;
+
+  // ---- the decode warps' share of w: K rows kk0 = 8 ks + tig and kk0 + 4
+  // of a step, columns col .. col + 7 (n8 tile nt): lanes (gr, tig) of
+  // fragment (ks, nt) for gr = 0..7.
+  const int dt = tid - kTfMmaThreads;         // 0 .. 127 in the decode warps
+  const int dks = (dt >> 5) & 3, dtig = dt & 3, dnt = (dt >> 2) & 7;
+  const int blk0 = n0 / qblock;               // the tile's first scale
+  const int sw = (min(n0 + FN, N) - 1) / qblock - blk0 + 1;  // its scales
+  const int col = n0 + dnt * 8;
+  const int sidx = min(col, N - 1) / qblock - blk0;
+  unsigned inside = 0u, upper = 0u;           // per column: < N; next scale
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (col + i < N) inside |= 1u << i;
+    if (!SMALLQ && col + i < N && (col + i) / qblock != col / qblock)
+      upper |= 1u << i;
+  }
+
+  // Step kt's loads into its raw stage (zeros past K, M and N): cp.async
+  // where the layout allows (xvec, cvec), else plain loads.  The MMA warps
+  // take the x tile when its rows are 16-byte aligned (load_x, four
+  // 16-byte chunks a thread), the decode warps the rest (load).
+  auto load_x = [&](int kt) {
+    if (!xvec) return;
+    const int k0 = kt * FK;
+    float* xd = xs(kt);
+#pragma unroll
+    for (int q = 0; q < FM * FK / 4 / kTfMmaThreads; ++q) {
+      const int e = tid + q * kTfMmaThreads;
+      const int row = e >> 3, ch = e & 7;
+      const int gm = m0 + row, gk = k0 + ch * 4;
+      const bool valid = gm < M && gk < K;
+      const float* src = valid ? x + static_cast<long long>(gm) * K + gk : x;
+      cp_async16(xd + swz_xf(row, ch * 4), src, valid);
+    }
+  };
+  auto load = [&](int kt) {
+    const int k0 = kt * FK;
+    if (!xvec) {
+      float* xd = xs(kt);
+      for (int e = dt; e < FM * FK; e += kTfDecThreads) {
+        const int row = e / FK, kk = e % FK;
+        const int gm = m0 + row, gk = k0 + kk;
+        xd[swz_xf(row, kk)] =
+            (gm < M && gk < K) ? x[static_cast<long long>(gm) * K + gk] : 0.0f;
+      }
+    }
+    if (dt < FK * 2) {                // codes: row dt / 2, bytes 16 (dt % 2)
+      const int kk = dt >> 1, q = dt & 1;
+      const int k = k0 + kk;
+      const int c = n0 + q * 32;      // the chunk's first column
+      uint8_t* cd = rcodes(kt) + kk * (FN / 2) + q * 16;
+      const uint8_t* row = wq + static_cast<long long>(k < K ? k : 0) * half;
+      if (cvec) {
+        const bool valid = k < K && c < N;
+        cp_async16(cd, valid ? row + c / 2 : wq, valid);
+      } else {
+#pragma unroll
+        for (int b = 0; b < 16; ++b)
+          cd[b] = (k < K && c + 2 * b < N) ? row[c / 2 + b] : 0;
+      }
+    }
+    if constexpr (!SMALLQ) {          // the rows' scales: [FK][kTfScaleW]
+      float* sd = rscales(kt);
+      for (int e = dt; e < FK * sw; e += kTfDecThreads) {
+        const int row = e / sw, j = e % sw;
+        const bool valid = k0 + row < K;
+        cp_async4(sd + row * kTfScaleW + j,
+                  absmax + (valid ? static_cast<long long>(k0 + row) * nblk +
+                                        blk0 + j
+                                  : 0),
+                  valid);
+      }
+    }
+    float* ad = ra(kt);
+#pragma unroll
+    for (int i = 0; i < RP / 4; ++i) {
+      const int e = dt + i * kTfDecThreads;
+      const int kk = e / RP, j = e % RP;
+      const bool valid = k0 + kk < K && j < r;
+      cp_async4(ad + e,
+                la + (valid ? static_cast<long long>(k0 + kk) * r + j : 0),
+                valid);
+    }
+  };
+
+  // Raw step kt into decoded stage kt: the thread's 16 weights (8 columns
+  // of rows kk0 and kk0 + 4) as TF32 halves, and its shares of the A tile
+  // and of the x tile (lane `lane` of A fragment (mt, dks) for each mt).
+  auto decode = [&](int kt) {
+    const int kk0 = dks * 8 + dtig;
+    const uint8_t* cd = rcodes(kt) + dnt * 4;
+    const float* sd = rscales(kt);
+    const float* am0 = nullptr;
+    const float* am1 = nullptr;
+    if constexpr (SMALLQ) {
+      const int k = kt * FK + kk0;
+      if (k < K) am0 = absmax + static_cast<long long>(k) * nblk;
+      if (k + 4 < K) am1 = absmax + static_cast<long long>(k + 4) * nblk;
+    }
+    // Every shared-memory read first, every store last.
+    const uint32_t codes0 = *reinterpret_cast<const uint32_t*>(
+        cd + kk0 * (FN / 2));
+    const uint32_t codes1 = *reinterpret_cast<const uint32_t*>(
+        cd + (kk0 + 4) * (FN / 2));
+    float s00 = 0.0f, s01 = 0.0f, s10 = 0.0f, s11 = 0.0f;
+    if constexpr (!SMALLQ) {
+      s00 = sd[kk0 * kTfScaleW + sidx];
+      s10 = sd[(kk0 + 4) * kTfScaleW + sidx];
+      if (upper) {
+        s01 = sd[kk0 * kTfScaleW + sidx + 1];
+        s11 = sd[(kk0 + 4) * kTfScaleW + sidx + 1];
+      }
+    }
+    float c0[8], c1[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const uint32_t b0 = (codes0 >> (8 * (i / 2))) & 0xffu;
+      const uint32_t b1 = (codes1 >> (8 * (i / 2))) & 0xffu;
+      c0[i] = book[i % 2 == 0 ? b0 >> 4 : b0 & 0xfu];
+      c1[i] = book[i % 2 == 0 ? b1 >> 4 : b1 & 0xfu];
+    }
+    float av[2][RP / 8];                // 16 RP fragment lanes of A
+#pragma unroll
+    for (int i = 0; i < RP / 8; ++i) {
+      const int f = dt + i * kTfDecThreads;   // lane f % 32 of fragment f / 32
+      const int fl = f & 31, fb = f >> 5;
+      const int kk = (fb / JT) * 8 + (fl & 3), j = (fb % JT) * 8 + (fl >> 2);
+      av[0][i] = ra(kt)[kk * RP + j];
+      av[1][i] = ra(kt)[(kk + 4) * RP + j];
+    }
+    float xv[4][4];
+    const float* xr = xs(kt);
+    const int xc = dks * 8 + (lane & 3);
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      const int row = mt * 16 + (lane >> 2);
+      xv[mt][0] = xr[swz_xf(row, xc)];
+      xv[mt][1] = xr[swz_xf(row + 8, xc)];
+      xv[mt][2] = xr[swz_xf(row, xc + 4)];
+      xv[mt][3] = xr[swz_xf(row + 8, xc + 4)];
+    }
+    uint4 wo[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float sc0, sc1;
+      const bool in = (inside >> i) & 1u;
+      if constexpr (SMALLQ) {
+        sc0 = (am0 && in) ? __ldg(am0 + (col + i) / qblock) : 0.0f;
+        sc1 = (am1 && in) ? __ldg(am1 + (col + i) / qblock) : 0.0f;
+      } else {
+        const bool up = (upper >> i) & 1u;
+        sc0 = up ? s01 : s00;
+        sc1 = up ? s11 : s10;
+      }
+      split_tf32(in ? c0[i] * sc0 : 0.0f, wo[i].x, wo[i].z);
+      split_tf32(in ? c1[i] * sc1 : 0.0f, wo[i].y, wo[i].w);
+    }
+    uint4* wd = wf(kt) + (dks * 8 + dnt) * 32;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      wd[(i * 4 + dtig) ^ ((dnt & 1) << 2)] = wo[i];
+#pragma unroll
+    for (int i = 0; i < RP / 8; ++i) {
+      uint4 o;
+      split_tf32(av[0][i], o.x, o.z);
+      split_tf32(av[1][i], o.y, o.w);
+      af(kt)[dt + i * kTfDecThreads] = o;
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      uint4 h, l;
+      split_tf32(xv[mt][0], h.x, l.x);
+      split_tf32(xv[mt][1], h.y, l.y);
+      split_tf32(xv[mt][2], h.z, l.z);
+      split_tf32(xv[mt][3], h.w, l.w);
+      const int o = (mt * 4 + dks) * 32 + lane;
+      xf(kt)[o] = h;
+      xf(kt)[FM * FK / 4 + o] = l;
+    }
+  };
+
+  // ---- the MMA warps' share: a 32 x 32 tile of y (m16 tiles 2 wm, 2 wm +
+  // 1; n8 tiles 4 wn .. 4 wn + 3) and x . A of m16 tile `warp` (= 2 wm +
+  // wn, one of its own).  The tensor cores add an MMA's products into its
+  // accumulator with truncation, not rounding, so a chain of them drifts
+  // toward zero by up to an ulp of the accumulator each: 1,536 MMAs at
+  // K = 4096 read 3.5e-4, over the limit.  Each step's MMAs run into zeroed
+  // partials (pa, px: 12 MMAs a chain), which are added into acc and xa in
+  // f32, rounded to nearest.
+  const int wm = warp >> 1, wn = warp & 1;
+  const int gr = lane >> 2, tig = lane & 3;   // fragment row / column
+  float acc[2][4][4], pa[2][4][4];    // [m16 tile][n8 tile][fragment]
+  float xa[JT][4], px[JT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < JT; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) xa[j][q] = 0.0f;
+
+  // x . A's three products for n8 tile j of slice ks, on the x halves of
+  // m16 tile `warp`.
+  auto lora = [&](int kt, int ks, const uint32_t (&h)[4],
+                  const uint32_t (&l)[4]) {
+#pragma unroll
+    for (int j = 0; j < JT; ++j) {
+      const uint4 ab = af(kt)[(ks * JT + j) * 32 + lane];
+      mma_tf32(px[j], l, ab.x, ab.y);
+      mma_tf32(px[j], h, ab.z, ab.w);
+      mma_tf32(px[j], h, ab.x, ab.y);
+    }
+  };
+  // The MMAs of k8 slice ks of step kt into the partials: x_lo . w_hi for
+  // the warp's 8 (m16, n8) tiles, then x_hi . w_lo, then x_hi . w_hi (each
+  // partial's three products 8 MMAs apart, the small terms first), and
+  // x . A's.
+  auto mma_slice = [&](int kt, int ks) {
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int o = ((wm * 2 + mi) * 4 + ks) * 32 + lane;
+      const uint4 h = xf(kt)[o];
+      const uint4 l = xf(kt)[FM * FK / 4 + o];
+      ah[mi][0] = h.x; ah[mi][1] = h.y; ah[mi][2] = h.z; ah[mi][3] = h.w;
+      al[mi][0] = l.x; al[mi][1] = l.y; al[mi][2] = l.z; al[mi][3] = l.w;
+    }
+    uint4 b[4];
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int nt = wn * 4 + ni;
+      b[ni] = wf(kt)[(ks * 8 + nt) * 32 + (lane ^ ((nt & 1) << 2))];
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+        mma_tf32(pa[mi][ni], al[mi], b[ni].x, b[ni].y);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+        mma_tf32(pa[mi][ni], ah[mi], b[ni].z, b[ni].w);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+        mma_tf32(pa[mi][ni], ah[mi], b[ni].x, b[ni].y);
+    if (wn == 0)                      // warp-uniform
+      lora(kt, ks, ah[0], al[0]);
+    else
+      lora(kt, ks, ah[1], al[1]);
+  };
+  auto mma_step = [&](int kt) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) pa[i][j][q] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < JT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) px[j][q] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < FK / 8; ++ks) mma_slice(kt, ks);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][j][q] += pa[i][j][q];
+#pragma unroll
+    for (int j = 0; j < JT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) xa[j][q] += px[j][q];
+  };
+
+  const int nk = (K + FK - 1) / FK;
+  for (int kt = 0; kt < kStages - 1; ++kt) {
+    if (kt < nk) {
+      if (mma_warp)
+        load_x(kt);
+      else
+        load(kt);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 3>();       // steps 0 and 1 are in
+  __syncthreads();                    // (and the code book)
+  if (!mma_warp) decode(0);
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    const int fill = kt + kStages - 1;
+    if (mma_warp) {
+      if (fill < nk) load_x(fill);
+      cp_async_commit();
+      mma_step(kt);
+    } else {
+      if (fill < nk) load(fill);
+      cp_async_commit();
+      if (kt + 1 < nk) decode(kt + 1);
+    }
+    cp_async_wait<kStages - 3>();     // step kt + 2 is in
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // Epilogue: y = acc + s . (x . A) . B, x . A and the B tile through
+  // shared memory.
+  float* xas = reinterpret_cast<float*>(smem);          // [FM][RP + 1]
+  float* bsm = xas + FM * (RP + 1);                     // [RP][FN]
+  if (mma_warp) {
+#pragma unroll
+    for (int j = 0; j < JT; ++j) {
+      const int row = warp * 16 + gr;
+      const int c = j * 8 + 2 * tig;
+      xas[row * (RP + 1) + c] = xa[j][0];
+      xas[row * (RP + 1) + c + 1] = xa[j][1];
+      xas[(row + 8) * (RP + 1) + c] = xa[j][2];
+      xas[(row + 8) * (RP + 1) + c + 1] = xa[j][3];
+    }
+  }
+  for (int e = tid; e < RP * FN; e += kTfThreads) {
+    const int j = e / FN, c = e % FN;
+    bsm[e] = (j < r && n0 + c < N)
+                 ? lb[static_cast<long long>(j) * N + n0 + c] : 0.0f;
+  }
+  __syncthreads();
+  if (!mma_warp) return;
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) {
+    const int nl = wn * 32 + ni * 8 + 2 * tig;         // even; N is even
+    if (n0 + nl >= N) continue;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int rw = wm * 32 + mi * 16 + gr;           // rows rw, rw + 8
+      float l[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 8
+      for (int j = 0; j < RP; ++j) {
+        const float2 bv = *reinterpret_cast<const float2*>(bsm + j * FN + nl);
+        const float xa0 = xas[rw * (RP + 1) + j];
+        const float xa1 = xas[(rw + 8) * (RP + 1) + j];
+        l[0] = fmaf(xa0, bv.x, l[0]);
+        l[1] = fmaf(xa0, bv.y, l[1]);
+        l[2] = fmaf(xa1, bv.x, l[2]);
+        l[3] = fmaf(xa1, bv.y, l[3]);
+      }
+      const float* c = acc[mi][ni];
+      const long long o = static_cast<long long>(m0 + rw) * N + n0 + nl;
+      if (m0 + rw < M)
+        *reinterpret_cast<float2*>(y + o) =
+            make_float2(c[0] + s * l[0], c[1] + s * l[1]);
+      if (m0 + rw + 8 < M)
+        *reinterpret_cast<float2*>(y + o + 8LL * N) =
+            make_float2(c[2] + s * l[2], c[3] + s * l[3]);
+    }
+  }
+}
+
+template <int RP, bool SMALLQ>
+int launch_tf32_instance(const void* x, const void* wq, const void* absmax,
+                         const void* la, const void* lb, const void* code,
+                         void* y, int M, int N, int K, int r, int qblock,
+                         float s, int xvec, cudaStream_t st) {
+  static bool ready[64] = {};
+  constexpr int bytes = TfSmem<RP>::kBytes;
+  const dim3 grid((N + FN - 1) / FN, (M + FM - 1) / FM);
+  if (grid.y > 65535) return -1;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return -1;
+  if (!ready[dev]) {
+    if (cudaFuncSetAttribute(qlora_tf32_kernel<RP, SMALLQ>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes) != cudaSuccess)
+      return static_cast<int>(cudaGetLastError());
+    ready[dev] = true;
+  }
+  qlora_tf32_kernel<RP, SMALLQ><<<grid, kTfThreads, bytes, st>>>(
+      static_cast<const float*>(x), static_cast<const uint8_t*>(wq),
+      static_cast<const float*>(absmax), static_cast<const float*>(la),
+      static_cast<const float*>(lb), static_cast<const float*>(code),
+      static_cast<float*>(y), M, N, K, r, qblock, s, xvec);
+  return 0;
+}
+
+int launch_tf32(int rp, const void* x, const void* wq, const void* absmax,
+                const void* la, const void* lb, const void* code, void* y,
+                int M, int N, int K, int r, int qblock, float s, int xvec,
+                cudaStream_t st) {
+#define QLORA_TF32_RANK(R)                                                    \
+  case R:                                                                     \
+    return qblock < 8                                                         \
+        ? launch_tf32_instance<R, true>(x, wq, absmax, la, lb, code, y, M, N, \
+                                        K, r, qblock, s, xvec, st)            \
+        : launch_tf32_instance<R, false>(x, wq, absmax, la, lb, code, y, M,   \
+                                         N, K, r, qblock, s, xvec, st);
+  switch (rp) {
+    QLORA_TF32_RANK(8)
+    QLORA_TF32_RANK(16)
+    QLORA_TF32_RANK(32)
+    QLORA_TF32_RANK(64)
+    default:
+      return -1;
+  }
+#undef QLORA_TF32_RANK
+}
+
 }  // namespace
 
 // x (M, K) of x_bf16 ? bf16 : f32 and y (M, N) of the same type; wq (K,
 // N/2) u8; absmax (K, N/qblock), la (K, r), lb (r, N), code (16) f32; all
 // contiguous, lb 8-byte aligned.  1 <= r <= 64, N % qblock == 0, N even.
 // xvec: x rows may be read as 16-byte chunks (K a whole number of them, x
-// 16-byte aligned); wvec: code rows may be read 4 bytes at a time.  bf16
-// launches qlora_mma_kernel, f32 qlora_kernel.
+// 16-byte aligned).  bf16 launches qlora_mma_kernel, f32 qlora_tf32_kernel.
 extern "C" int qm_qlora_matmul(const void* x, int x_bf16, const void* wq,
                                const void* absmax, const void* la,
                                const void* lb, const void* code, void* y,
                                int M, int N, int K, int r, int qblock,
-                               float s, int xvec, int wvec, void* stream) {
+                               float s, int xvec, void* stream) {
   if (M < 1 || N < 2 || K < 1 || r < 1 || r > 64 || qblock < 1 ||
       N % 2 != 0 || N % qblock != 0)
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int rc;
-  if (x_bf16) {
-    int rp = 8;
-    while (rp < r) rp *= 2;
-    rc = launch_mma(rp, x, wq, absmax, la, lb, code, y, M, N, K, r, qblock,
-                    s, xvec, st);
-  } else {
-    int rp = 4;
-    while (rp < r) rp *= 2;
-    rc = launch_rank<float>(rp, x, wq, absmax, la, lb, code, y, M, N, K, r,
-                            qblock, s, xvec, wvec, st);
-  }
+  int rp = 8;
+  while (rp < r) rp *= 2;
+  const int rc = x_bf16 ? launch_mma(rp, x, wq, absmax, la, lb, code, y, M, N,
+                                     K, r, qblock, s, xvec, st)
+                        : launch_tf32(rp, x, wq, absmax, la, lb, code, y, M,
+                                      N, K, r, qblock, s, xvec, st);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,14 +9,16 @@ their plain PyTorch versions beside them:
   * ``flash_decode_cuda`` with ``block_tables`` replaces
     ``::_flash_decode_paged``: the same body over one shared pool
     ``(n_blocks, block_size, Hk, D)`` read through the ``(B, T)`` table.
-  * ``paged_block_copy_cuda`` replaces ``::paged_block_copy``: the
-    copy-on-write move of one block across every layer of a pool leaf.
+  * ``paged_block_copy_leaves_cuda`` replaces ``::paged_block_copy``: the
+    copy-on-write move of one block across every layer of every leaf of
+    the pool, one launch an event; ``paged_block_copy_cuda`` is its
+    one-leaf case, with the reference's per-leaf signature.
 
 Flash-decode is bound by bytes on the H100: at B=4, S=4096, Hk=8, D=128 in
 bf16 one call reads 67.1 MB of K and V, about 20 us at 3.35 TB/s.  The
-block copy is bound by launch latency (1.8 MB per K or V leaf at
-qwen3-0.6b with 16-slot blocks).  The kernels' sources say how their
-design answers that.
+block copy is bound by launch latency (3.7 MB an event at qwen3-0.6b with
+16-slot blocks), so an event is one launch over all its leaves.  The
+kernels' sources say how their design answers that.
 
 One flash-decode kernel serves both layouts.  It picks its splits for the
 card (``_ring_splits``, ``_paged_splits``: from the SM count and the work,
@@ -189,6 +191,13 @@ def paged_block_copy_ref(leaf, src: int, dst: int):
     return leaf
 
 
+def paged_block_copy_leaves_ref(leaves, src: int, dst: int):
+    """Plain block copy of every leaf of an event, in place."""
+    for leaf in leaves:
+        paged_block_copy_ref(leaf, src, dst)
+    return leaves
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
@@ -221,11 +230,16 @@ def _fn(name: str):
     return fn
 
 
+# Leaves one block-copy launch takes (csrc/block_copy.cu, kMaxLeaves): an
+# int8 pool's K, V, their scales and kv_pos fit.
+MAX_COPY_LEAVES = 8
+
+
 def _copy_lib():
     lib = library("block_copy")
-    fn = lib.bc_block_copy
+    fn = lib.bc_block_copy_leaves
     if fn.argtypes is None:
-        fn.argtypes = [_P, _I, _LL, _LL, _LL, _LL, _P]
+        fn.argtypes = [_I, _P, _P, _P, _P, _LL, _LL, _P]
         fn.restype = _I
     return fn
 
@@ -517,23 +531,44 @@ def flash_decode_cuda(q, k, v, kv_pos, q_pos, **kw):
     return out
 
 
-def paged_block_copy_cuda(leaf, src: int, dst: int):
+def paged_block_copy_leaves_cuda(leaves, src: int, dst: int):
     """The CUDA block-copy kernel: block ``src`` -> ``dst`` in every layer
-    of the layer-stacked pool leaf ``(L, n_blocks, ...)``, in place."""
-    if not leaf.is_cuda:
-        raise ValueError("block copy kernel: leaf must be a CUDA tensor")
-    if leaf.ndim < 2 or not leaf.is_contiguous():
-        raise ValueError("block copy kernel: leaf must be a contiguous "
-                         "(L, n_blocks, ...) tensor")
-    L, nb = leaf.shape[:2]
+    of each layer-stacked pool leaf ``(L, n_blocks, ...)``, in place, in one
+    launch (at most ``MAX_COPY_LEAVES`` leaves)."""
+    leaves = list(leaves)
+    n = len(leaves)
+    if not 1 <= n <= MAX_COPY_LEAVES:
+        raise ValueError(f"block copy kernel: 1 to {MAX_COPY_LEAVES} "
+                         f"leaves, got {n}")
     src, dst = int(src), int(dst)
-    if not (0 <= src < nb and 0 <= dst < nb):
-        raise ValueError(f"block copy kernel: src {src} / dst {dst} outside "
-                         f"[0, {nb})")
-    block_bytes = leaf[0, 0].numel() * leaf.element_size()
-    stream = torch.cuda.current_stream(leaf.device).cuda_stream
-    rc = _copy_lib()(leaf.data_ptr(), L, nb, block_bytes, src, dst, stream)
+    dev = leaves[0].device
+    for leaf in leaves:
+        if not leaf.is_cuda or leaf.device != dev:
+            raise ValueError("block copy kernel: leaves must be CUDA "
+                             "tensors on one device")
+        if leaf.ndim < 2 or not leaf.is_contiguous():
+            raise ValueError("block copy kernel: leaf must be a contiguous "
+                             "(L, n_blocks, ...) tensor")
+        nb = leaf.shape[1]
+        if not (0 <= src < nb and 0 <= dst < nb):
+            raise ValueError(f"block copy kernel: src {src} / dst {dst} "
+                             f"outside [0, {nb})")
+    bases = (_P * n)(*(leaf.data_ptr() for leaf in leaves))
+    layers = (_I * n)(*(leaf.shape[0] for leaf in leaves))
+    n_blocks = (_LL * n)(*(leaf.shape[1] for leaf in leaves))
+    block_bytes = (_LL * n)(*(leaf[0, 0].numel() * leaf.element_size()
+                              for leaf in leaves))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _copy_lib()(n, bases, layers, n_blocks, block_bytes, src, dst,
+                     stream)
     if rc != 0:
         raise RuntimeError(f"block copy kernel launch failed (code {rc})")
     LAUNCHES["paged_block_copy"] += 1
+    return leaves
+
+
+def paged_block_copy_cuda(leaf, src: int, dst: int):
+    """The one-leaf case: block ``src`` -> ``dst`` in every layer of the
+    layer-stacked pool leaf ``(L, n_blocks, ...)``, in place."""
+    paged_block_copy_leaves_cuda([leaf], src, dst)
     return leaf

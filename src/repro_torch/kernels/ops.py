@@ -39,6 +39,15 @@ def block_copy(pool_leaf, src: int, dst: int):
     return _fd.paged_block_copy_cuda(pool_leaf, src, dst)
 
 
+def block_copy_leaves(pool_leaves, src: int, dst: int):
+    """``block_copy`` of every leaf of a copy-on-write event at once: on
+    the card one kernel launch for all of them.  Returns the leaves."""
+    leaves = list(pool_leaves)
+    if leaves and leaves[0].device.type == "cpu":
+        return _fd.paged_block_copy_leaves_ref(leaves, src, dst)
+    return _fd.paged_block_copy_leaves_cuda(leaves, src, dst)
+
+
 def qlora_matmul(x, w_nf4, absmax, lora_a, lora_b, lora_scale):
     """``y = x . dequant_nf4(Wq) + s . (x . A) . B`` with f32 products, in
     x's type; see ``repro_torch.kernels.qlora_matmul`` for the layouts.

@@ -5,11 +5,13 @@
 its plain PyTorch version, with the arithmetic of the reference's oracle
 ``repro/kernels/ref.py::qlora_matmul_ref``: NF4 dequantized to f32, every
 product in f32, the result cast to x's type.  A call launches one kernel,
-chosen by x's type: for bf16 x ``qlora_mma_kernel`` on the tensor cores
-(the dequantized weight as two bf16 values ``w_hi + w_lo``, A as three,
-f32 sums), for f32 x ``qlora_kernel`` on the CUDA cores.  Both keep the
-reference's limit (``tests/test_torch_kernel_designs.py`` emulates the
-bf16 kernel's arithmetic on the CPU).
+chosen by x's type, both on the tensor cores: for bf16 x
+``qlora_mma_kernel`` (the dequantized weight as two bf16 values ``w_hi +
+w_lo``, A as three, f32 sums), for f32 x ``qlora_tf32_kernel`` (3xTF32:
+x, w and A each split into TF32 halves, ``lo . hi + hi . lo + hi . hi``
+summed in f32).  Both keep the reference's limit
+(``tests/test_torch_kernel_designs.py`` emulates both arithmetics on the
+CPU).
 
 Layouts (the reference's kernel contract): x (M, K) f32 or bf16; w_nf4 u8
 (K, N/2), two codes a byte, the high nibble the even column; absmax f32
@@ -88,7 +90,7 @@ def _lib():
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P, I, P, P, P, P, P, P, I, I, I, I, I, ctypes.c_float,
-                       I, I, P]
+                       I, P]
         fn.restype = I
     return fn
 
@@ -114,12 +116,11 @@ def qlora_matmul_launcher(x, w_nf4, absmax, lora_a, lora_b, lora_scale):
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     code = code_book(x.device)
     xvec = int(K % (16 // x.element_size()) == 0 and x.data_ptr() % 16 == 0)
-    wvec = int(N % 8 == 0 and w_nf4.data_ptr() % 4 == 0)
     fn = _lib()
     args = (x.data_ptr(), int(x.dtype == torch.bfloat16), w_nf4.data_ptr(),
             absmax.data_ptr(), lora_a.data_ptr(), lora_b.data_ptr(),
             code.data_ptr(), y.data_ptr(), M, N, K, r, qblock,
-            float(lora_scale), xvec, wvec)
+            float(lora_scale), xvec)
 
     def launch():
         rc = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)

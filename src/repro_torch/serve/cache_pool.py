@@ -18,8 +18,8 @@ Copy-on-write prefix sharing: blocks are refcounted and a prefix-hash index
 — and whole prompts, with the last-token logits row — to live block
 chains.  A lane whose prompt matches maps the chain's blocks read-only
 (``share_map``); the first write into a block with refcount > 1 copies it
-first (``cow``: fresh block, ``ops.block_copy`` of every leaf, remap,
-decref).  Chains never pin blocks: a block's death drops every chain that
+first (``cow``: fresh block, one ``ops.block_copy_leaves`` of every
+leaf, remap, decref).  Chains never pin blocks: a block's death drops every chain that
 cites it.  Sharing is safe because every prompt starts at position 0,
 decode writes precede reads at the same position, and stale future slots
 of a shared tail block are excluded by the causal / ring-validity mask.
@@ -383,8 +383,7 @@ class PagedCachePool(_LanePool):
                              f"not granted")
         new = self.allocator.alloc(1)[0]
         try:
-            for leaf in self.cache.values():
-                ops.block_copy(leaf, old, new)
+            ops.block_copy_leaves(self.cache.values(), old, new)
         except BaseException:
             self.allocator.decref(new)
             raise

@@ -248,6 +248,40 @@ def test_block_copy_bit_exact(dtype):
     assert np.array_equal(got2.numpy(), np.asarray(want2))
 
 
+def test_block_copy_leaves_equals_per_leaf_copies():
+    """One ``block_copy_leaves`` call over an event's leaves (bf16, f32,
+    int8, int32 and an odd tail, as a pool's K, V, scales and kv_pos) in
+    place equals ``paged_block_copy_ref`` of each leaf and the reference's
+    ``block_copy`` of each, bit for bit; the other blocks are untouched."""
+    rng = np.random.default_rng(11)
+    L, nb = 3, 7
+    tails = {"bfloat16": (4, 2, 8), "float32": (4, 2, 8), "int8": (4, 2, 8),
+             "int32": (4,), "odd": (3, 5)}
+    leaves, wants, jwants = [], [], []
+    for name, tail in tails.items():
+        base = rng.standard_normal((L, nb) + tail) * 50
+        dtype = {"odd": "int8"}.get(name, name)
+        jleaf = jnp.asarray(base).astype(getattr(jnp, dtype))
+        jwants.append(np.asarray(jops.block_copy(jleaf, 5, 2).astype(
+            jnp.float32)))
+        leaf = torch.from_numpy(np.array(jleaf.astype(jnp.float32)))
+        leaf = leaf.to(getattr(torch, dtype))
+        want = leaf.clone()
+        tfd.paged_block_copy_ref(want, 5, 2)
+        leaves.append(leaf)
+        wants.append(want)
+    before = [leaf.clone() for leaf in leaves]
+    got = tops.block_copy_leaves(iter(leaves), 5, 2)
+    assert len(got) == len(leaves)
+    for g, leaf, want, jwant, old in zip(got, leaves, wants, jwants, before):
+        assert g is leaf                       # in place
+        assert torch.equal(leaf, want)
+        assert np.array_equal(leaf.float().numpy(), jwant)
+        assert torch.equal(leaf[:, 5], old[:, 5])
+        keep = [b for b in range(nb) if b != 2]
+        assert torch.equal(leaf[:, keep], old[:, keep])
+
+
 def test_policy_matches_reference():
     """The paged kernel cuts a row's table into runs of whole entries, as
     the reference's Pallas kernel does: wherever the reference's split
@@ -273,3 +307,5 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         tfd.flash_decode_cuda(tq, tk, tv, tkp, tpos)
     with pytest.raises(ValueError, match="CUDA"):
         tfd.paged_block_copy_cuda(torch.zeros(2, 3, 4), 0, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfd.paged_block_copy_leaves_cuda([torch.zeros(2, 3, 4)], 0, 1)

@@ -22,7 +22,8 @@ counts, at lengths (slots or table entries) that no split count divides,
 with idle lanes (q_pos -1) and empty rings or tables, through
 ``return_partials`` (their merged f32 sums), and each must be one kernel
 launch a call (counted with ``torch.profiler``); a paged call captured in
-a CUDA graph replays to the eager result.
+a CUDA graph replays to the eager result.  A copy-on-write event's block
+copy over all of a pool's leaves (bf16 and int8 pools) is one launch.
 
 The wire-hop kernel (int8 and bf16 wires, full and quantize-only forms)
 must equal its plain version bit for bit: acc, codes, scales and residual.
@@ -41,7 +42,9 @@ within its own rounding, half a bf16 step (a relative 2**-8), over the f32
 limit.  The bf16 kernel runs on the tensor cores with p split into two bf16
 values, and the f32 kernel as three TF32 products for each f32 one, which
 keeps each inside its limit (``tests/test_torch_kernel_designs.py``
-emulates both arithmetics on the CPU).
+emulates both arithmetics on the CPU).  qlora_matmul's f32 kernel runs as
+3xTF32 too, held to the same 1e-4 as before; its shapes include one past
+its 64 x 64 tile and 32-deep K step in M, K and N.
 """
 
 import numpy as np
@@ -428,6 +431,40 @@ def test_block_copy_bit_exact(cuda, dtype, tail):
     assert torch.equal(got, want)
 
 
+def _pool_leaves(dev, int8: bool, L=4, nb=24, bs=16, Hk=8, D=128):
+    """A paged pool's leaves as the engine holds them: K and V (bf16, or
+    int8 with bf16 scales a slot and head) and int32 kv_pos."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    kv = (L, nb, bs, Hk, D)
+    rnd = lambda shape, dtype: torch.randint(  # noqa: E731
+        -100, 100, shape, generator=g).to(dtype).to(dev)
+    if int8:
+        leaves = [rnd(kv, torch.int8), rnd(kv, torch.int8),
+                  rnd(kv[:4], torch.bfloat16), rnd(kv[:4], torch.bfloat16)]
+    else:
+        leaves = [rnd(kv, torch.bfloat16), rnd(kv, torch.bfloat16)]
+    return leaves + [rnd((L, nb, bs), torch.int32)]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_block_copy_leaves_is_one_launch(cuda, int8):
+    """One ``block_copy_leaves`` call, a whole copy-on-write event over a
+    pool's leaves, is one kernel launch and one device operation, and
+    equals the plain copy of each leaf bit for bit."""
+    leaves = _pool_leaves(cuda, int8)
+    wants = [leaf.clone() for leaf in leaves]
+    fd.paged_block_copy_leaves_ref(wants, 19, 4)
+    n0 = fd.LAUNCHES["paged_block_copy"]
+    got = ops.block_copy_leaves(leaves, 19, 4)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES["paged_block_copy"] - n0 == 1
+    assert all(g is leaf for g, leaf in zip(got, leaves))
+    for leaf, want in zip(leaves, wants):
+        assert torch.equal(leaf, want)
+    dev_ops = _device_ops((lambda: ops.block_copy_leaves(leaves, 7, 11),))
+    assert sum(n for _, n in dev_ops) == 4, dev_ops
+
+
 def test_launch_counters(cuda):
     fd.reset_launches()
     q, k, v, kv_pos, pos, _ = _ring(cuda, B=1, S=256, Hk=1, G=2, D=64,
@@ -435,8 +472,11 @@ def test_launch_counters(cuda):
     ops.flash_decode(q, k, v, kv_pos, pos)
     fd.flash_decode_ref(q, k, v, kv_pos, pos)      # plain: not counted
     ops.block_copy(torch.zeros((2, 3, 4), device=cuda), 0, 1)
+    leaves = _pool_leaves(cuda, int8=True, L=2, nb=4)
+    ops.block_copy_leaves(leaves, 0, 3)             # five leaves, one launch
+    fd.paged_block_copy_leaves_ref(leaves, 3, 0)    # plain: not counted
     assert fd.LAUNCHES == {"flash_decode": 1, "flash_decode_paged": 0,
-                           "paged_block_copy": 1}
+                           "paged_block_copy": 2}
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "fedtime-llama2-7b"])
@@ -592,7 +632,8 @@ def _qlora_case(dev, M, K, N, r, qb, dtype, seed=0):
     (504, 4096, 4096, 8, 64),     # fedtime-llama2-7b's wq at full width
     (512, 1024, 1024, 8, 64),     # the reference benchmark's --full
     (5, 37, 36, 3, 12),           # no vector loads of x or of the codes
-    (70, 96, 128, 64, 32)])       # the largest rank
+    (70, 96, 128, 64, 32),        # the largest rank
+    (65, 33, 66, 8, 33)])         # one past the f32 tile in M, K and N
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_qlora_kernel_matches_plain(cuda, M, K, N, r, qb, dtype):
     from repro_torch.kernels import qlora_matmul as qm

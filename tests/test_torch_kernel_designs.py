@@ -48,6 +48,20 @@ held on the CPU before any card run.
   on its own.  The same arithmetic with w in one bf16 value (``w_hi``
   alone) misses the limit: at K = 4096 its error, about 2**-9 of each
   product, breaks ``atol 1e-4`` on outputs near 0.
+* The f32 qlora_matmul kernel's arithmetic (``qlora_tf32_kernel``,
+  3xTF32), emulated in plain torch: x, the dequantized weight ``w =
+  code[q] * absmax`` and A each split into TF32 halves as the kernel
+  splits them (``_split_tf32``), one 32-deep K step at a time ``x_lo·w_hi +
+  x_hi·w_lo + x_hi·w_hi`` summed in f32 into one accumulator, the LoRA
+  bypass ``x·A`` as 3xTF32 on the same x halves, and the f32 epilogue
+  ``acc + s·(x·A)·B``.  It is held to the plain version and to the JAX
+  package's oracle within the reference's f32 limit (atol 1e-4, rtol
+  1e-4).  At K >= 1024 one TF32 product, ``x_hi·(w_hi + w_lo)`` and
+  ``(x_hi + x_lo)·w_hi`` each miss it: the kernel needs all three.  Each
+  MMA is modelled as the tensor cores add (the exact products and the
+  accumulator summed, then truncated): at K = 4096 one chain of MMAs
+  over all of K misses the limit, so the kernel runs each 32-deep step
+  into zeroed partials and adds them into f32 sums rounded to nearest.
 """
 
 import jax.numpy as jnp
@@ -579,15 +593,15 @@ def _qlora_mma_arithmetic(x, wq, am, a, b, s, split_w: bool = True):
     return out, out.to(torch.bfloat16)
 
 
-def _qlora_inputs(M, K, N, r, qb, seed):
+def _qlora_inputs(M, K, N, r, qb, seed, dtype=torch.bfloat16):
     """The card's qlora case (``chip_smoke._ops_cases``) drawn with numpy:
-    w ~ 0.02 N(0, 1) quantized to NF4, x ~ N(0, 1) in bf16, A and B ~
+    w ~ 0.02 N(0, 1) quantized to NF4, x ~ N(0, 1) in ``dtype``, A and B ~
     0.1 N(0, 1), s = 2."""
     rng = np.random.default_rng(seed)
     f = lambda *shape: torch.from_numpy(              # noqa: E731
         rng.standard_normal(shape).astype(np.float32))
     wq, am = nf4_quantize(f(K, N) * 0.02, qb)
-    x = f(M, K).to(torch.bfloat16)
+    x = f(M, K).to(dtype)
     return x, wq, am.reshape(K, N // qb), f(K, r) * 0.1, f(r, N) * 0.1, 2.0
 
 
@@ -618,3 +632,97 @@ def test_bf16_qlora_arithmetic_keeps_the_limit(M, K, N, r, qb):
         _, hi_only = _qlora_mma_arithmetic(x, wq, am, a, b, s,
                                            split_w=False)
         assert _within(hi_only, want, QLORA_ATOL, QLORA_RTOL) > 0.0
+
+
+# ---------------------------------------------------------------------------
+# The f32 qlora_matmul kernel's arithmetic (3xTF32)
+# ---------------------------------------------------------------------------
+
+# The TF32 products of x . w the f32 kernel sums (``qlora_tf32_kernel``), in
+# its order, and the variants with fewer products.
+QLORA_3XTF32 = ("lo_hi", "hi_lo", "hi_hi")
+QLORA_VARIANTS = {"1xTF32": ("hi_hi",),
+                  "x_hi.(w_hi + w_lo)": ("hi_lo", "hi_hi"),
+                  "(x_hi + x_lo).w_hi": ("lo_hi", "hi_hi")}
+
+
+def _rz(v):
+    """f64 -> f32, rounded toward zero."""
+    f = v.float()
+    return torch.where(f.double().abs() > v.abs(),
+                       torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _qlora_tf32_arithmetic(x, wq, am, a, b, s, products=QLORA_3XTF32,
+                           flush: bool = True):
+    """The f32 kernel's arithmetic on f32 x (M, K): the dequantized weight
+    ``w = code[q] * absmax`` (f32), x, w and A each split into TF32 halves
+    (``_split_tf32``); for each 8-deep slice an MMA of each product named in
+    ``products`` (and of the LoRA bypass x . A's three), modelled as the
+    tensor cores add: the exact products and the accumulator summed, then
+    truncated to f32.  With ``flush`` a 32-deep K step's MMAs run into
+    zeroed partials that are added into the f32 accumulators rounded to
+    nearest, as the kernel does; without it every MMA adds into one chain.
+    Then the f32 epilogue ``acc + s . (x . A) . B``."""
+    M, K = x.shape
+    w = nf4_dequant(wq, am.reshape(-1))
+    halves = {"x": _split_tf32(x), "w": _split_tf32(w), "a": _split_tf32(a)}
+    halves = {k: tuple(t.double() for t in v) for k, v in halves.items()}
+    pick = {"hi": 0, "lo": 1}
+    acc = torch.zeros((M, w.shape[1]))
+    xa = torch.zeros((M, a.shape[1]))
+    for k0 in range(0, K, K_TILE):               # one K step at a time
+        pa = torch.zeros_like(acc) if flush else acc
+        px = torch.zeros_like(xa) if flush else xa
+        for k8 in range(k0, min(k0 + K_TILE, K), 8):
+            ks = slice(k8, k8 + 8)
+
+            def term(name, rhs):
+                xp, rp = name.split("_")
+                return (halves["x"][pick[xp]][:, ks]
+                        @ halves[rhs][pick[rp]][ks])
+
+            for name in products:
+                pa = _rz(pa.double() + term(name, "w"))
+            for name in QLORA_3XTF32:
+                px = _rz(px.double() + term(name, "a"))
+        acc, xa = (acc + pa, xa + px) if flush else (pa, px)
+    return acc + s * (xa @ b)
+
+
+@pytest.mark.parametrize("M,K,N,r,qb", [
+    (512, 1024, 256, 8, 64),      # the benchmark's --full, N cut
+    (37, 200, 192, 8, 64),        # ragged: M, K and N past a 64 tile
+    (70, 96, 136, 64, 8)],        # the largest rank, qblock 8
+    ids=["benchmark-N256", "ragged", "rank64"])
+def test_f32_qlora_arithmetic_keeps_the_limit(M, K, N, r, qb):
+    """3xTF32 held to the plain version and to the JAX package's oracle
+    within the reference's f32 limit (atol 1e-4, rtol 1e-4); at K >= 1024
+    one TF32 product and both two-product variants miss it."""
+    x, wq, am, a, b, s = _qlora_inputs(M, K, N, r, qb, seed=M + K + N,
+                                       dtype=torch.float32)
+    got = _qlora_tf32_arithmetic(x, wq, am, a, b, s)
+    want = qm.qlora_matmul_ref(x, wq, am, a, b, s)
+    jwant = torch.from_numpy(np.asarray(jref.qlora_matmul_ref(
+        *(jnp.asarray(t.numpy()) for t in (x, wq, am, a, b)), s)).copy())
+    assert torch.isfinite(got).all()
+    assert _within(got, want, 1e-4, 1e-4) <= 0.0
+    assert _within(got, jwant, 1e-4, 1e-4) <= 0.0
+    if K >= 1024:
+        for label, products in QLORA_VARIANTS.items():
+            fewer = _qlora_tf32_arithmetic(x, wq, am, a, b, s, products)
+            assert _within(fewer, want, 1e-4, 1e-4) > 0.0, label
+
+
+def test_f32_qlora_accumulation_flushes_each_step():
+    """The tensor cores truncate as they accumulate: at K = 4096 (the fit's
+    site, M and N cut to one 64 x 64 tile) one chain of MMAs over all of K
+    misses the f32 limit, and the kernel's partials flushed into f32 sums
+    each 32-deep step keep it."""
+    x, wq, am, a, b, s = _qlora_inputs(64, 4096, 64, 8, 64, seed=1,
+                                       dtype=torch.float32)
+    want = qm.qlora_matmul_ref(x, wq, am, a, b, s)
+    got = _qlora_tf32_arithmetic(x, wq, am, a, b, s)
+    assert _within(got, want, 1e-4, 1e-4) <= 0.0
+    chain = _qlora_tf32_arithmetic(x, wq, am, a, b, s, flush=False)
+    assert _within(chain, want, 1e-4, 1e-4) > 0.0

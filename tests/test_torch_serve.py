@@ -9,7 +9,8 @@ D 32), each a case of every engine test.
   * the engine equals each request decoded alone, bit for bit, and the
     paged pool equals contiguous lanes bit for bit;
   * on the cluster-skew trace of benchmarks/serving_bench.py copy-on-write
-    fires and the shared run equals the unshared one;
+    fires and the shared run equals the unshared one, each event one block
+    copy of every leaf (``ops.block_copy_leaves``);
   * sampling: top-k / top-p masks equal JAX's, temperature 0 is the argmax,
     and sampled frequencies pass a chi-square test against the softmax.
 """
@@ -28,6 +29,7 @@ from repro.serve import Request as JaxRequest
 from repro.serve.sampling import sample_vec as jax_sample_vec
 from repro_torch import bridge
 from repro_torch.configs import get_smoke_config
+from repro_torch.kernels import ops
 from repro_torch.launch.serve import make_trace
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models.registry import get_model
@@ -182,6 +184,32 @@ def test_cluster_skew_cow_matches_unshared(dense):
     assert eng_s.pool.blocks_in_use == 0
 
 
+def test_cow_event_is_one_block_copy_of_every_leaf(dense, monkeypatch):
+    """Each copy-on-write event is one ``ops.block_copy_leaves`` call over
+    every leaf of the pool (on the card, one kernel launch), and the shared
+    run still matches the unshared one."""
+    _, _, cfg, params = dense
+    reqs, slots = _cluster_skew(cfg)
+    kw = dict(num_slots=slots, cache_len=CACHE_LEN, paged=True,
+              block_size=8, pool_blocks=18)
+    calls = []
+    real = ops.block_copy_leaves
+
+    def counted(leaves, src, dst):
+        leaves = list(leaves)
+        calls.append((len(leaves), src, dst))
+        return real(leaves, src, dst)
+
+    monkeypatch.setattr("repro_torch.kernels.ops.block_copy_leaves", counted)
+    shared, eng = _run(cfg, params, reqs, share_prefixes=True, **kw)
+    monkeypatch.undo()
+    base, _ = _run(cfg, params, reqs, share_prefixes=False, **kw)
+    assert shared == base
+    assert len(calls) == eng.metrics.cow_copies >= 1
+    assert all(n == len(eng.pool.cache) and s != d for n, s, d in calls)
+    eng.pool.assert_partition()
+
+
 def test_failed_cow_copy_raises_without_leaking(dense, monkeypatch):
     """A block copy that fails (a kernel that does not build or launch) is
     not taken for pool exhaustion: the engine re-raises, and the block
@@ -189,10 +217,11 @@ def test_failed_cow_copy_raises_without_leaking(dense, monkeypatch):
     _, _, cfg, params = dense
     reqs, slots = _cluster_skew(cfg)
 
-    def broken_copy(leaf, src, dst):
+    def broken_copy(leaves, src, dst):
         raise RuntimeError("block copy kernel launch failed (code 98)")
 
-    monkeypatch.setattr("repro_torch.kernels.ops.block_copy", broken_copy)
+    monkeypatch.setattr("repro_torch.kernels.ops.block_copy_leaves",
+                        broken_copy)
     eng = ForecastEngine(cfg, params, device="cpu", num_slots=slots,
                          cache_len=CACHE_LEN, paged=True, block_size=8,
                          pool_blocks=18)
