@@ -46,6 +46,18 @@ Phases, each printing its numbers beside the card's name and power limit:
      counters set to 0 before phase 3, read after phase 4); a few of the
      main path's own flash-decode calls are copied as they run and held
      against the plain version afterwards;
+  4c. qwen3-0.6b's fault-tolerant engine at phase 4's geometry: its 12
+     requests plus 4 under the reference's chaos plan (a malformed prompt,
+     a NaN-poisoned lane, a deadline, a burst; 25%), a queue of 3 with
+     shed-and-retry, a virtual clock and a request journal, held bit for
+     bit against a fault-free run of the same geometry (run with tracing
+     on and off: tok/s of each); quarantines by reason, the deadline
+     window, no leaked block (and no live lane on a free block after any
+     tick), block-copy launches equal to copy-on-write events, one
+     lifecycle span per finished request; then an engine dropped mid-trace
+     with its journal open, replayed into a fresh one, every request's
+     tokens equal to the fault-free run's (launch counters set to 0 before
+     the chaos run, read after);
   4b. phases 3-4 again with fedtime-llama2-7b at full width (32 layers,
      d_model 4096, 32/32 heads of 128: G = 1, vocab 32,000, bf16), the same
      geometry and checks, its own launch counts; then its weights and caches
@@ -894,9 +906,16 @@ def phase_ops_kernels(card: str, timer: Timer):
         plain_fn = getattr(mods[name], f"{name}_ref")
         plain = timer.ms(lambda: plain_fn(*args), 3 if heavy else 10)
         lib = timer.ms(_ops_library(name, args), 20)
+        layout = ""
+        if name == "rmsnorm":
+            x = args[0]
+            layout = ", layout " + str(tuple(rn.rmsnorm_layout(
+                x.numel() // x.shape[-1], x.shape[-1], x.element_size(),
+                torch.cuda.get_device_properties(0).multi_processor_count)))
         print(f"[{card}] kernel {name} {label}: wrapper {ms:.4f} ms, kernel "
               f"alone {kernel_ms:.4f} ms, plain {plain:.4f} ms, bound "
-              f"{bound:.4f} ms ({by}, {mb:.2f} MB), library {lib:.4f} ms")
+              f"{bound:.4f} ms ({by}, {mb:.2f} MB), library {lib:.4f} ms"
+              f"{layout}")
         if label.startswith("fit"):               # the rows the JSON keeps
             rows[name] = dict(max_abs_err=err, ms=ms, kernel_ms=kernel_ms,
                               plain_ms=plain, bound_ms=bound, bound_by=by,
@@ -1066,6 +1085,277 @@ def _run_main_path(card: str, cfg, params) -> dict:
           f"wall {wall:.1f} s")
     print(f"[{card}] {cfg.name} main-path launches (fixed batch + engine): "
           f"{launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the fault-tolerant engine at full width
+# ---------------------------------------------------------------------------
+
+# The reference's serving chaos acceptance plan
+# (tests/test_serving_chaos.py::test_serving_chaos_acceptance): 25% of 16
+# requests faulted, a bounded queue with shed-and-retry, the virtual clock.
+CHAOS_PLAN = ({2: "malformed", 5: "poison", 9: "deadline", 12: "burst"}, 5)
+CHAOS = dict(max_queue=3, step_time_s=0.1, deadline_s=0.15, per_tick=4,
+             crash_tick=6)
+
+
+def _chaos_trace(cfg):
+    """Phase 4's 12 requests (in arrival order, so its shared-prefix
+    cluster lands at indices 1, 6, 8 and 10, none faulted) plus 4 more
+    from the launcher's trace maker; arrival is the harness's."""
+    from repro_torch.launch.serve import make_trace
+    extra = make_trace(cfg, 4, gen=16, max_prompt=96, rate=1.0, seed=2)
+    reqs = _engine_trace(cfg) + [{**r, "id": f"x{i}"}
+                                 for i, r in enumerate(extra)]
+    return [{**r, "arrival_step": 0} for r in reqs]
+
+
+def _drive_chaos(engine, trace, plan, *, faults: bool, vocab: int,
+                 stop_at: int = 0, submitted=None):
+    """Submit ``trace`` as the reference's acceptance harness does, four
+    requests a tick (two there, which leaves the queue of 3 unfilled at 12
+    lanes), the burst request at tick 0; a shed request, or a queued
+    victim it displaced, resubmits after its retry-after hint; and
+    step the engine until it drains, or until tick ``stop_at``.  With
+    ``faults`` the plan's faults are injected: a malformed prompt, an
+    armed poison, a deadline of CHAOS["deadline_s"].  After every tick no
+    live lane's table may point at a free block.  Returns the submit
+    events and the ticks run; ``submitted`` (a set) collects the ids
+    submitted."""
+    from repro_torch.serve.request import Request
+    step_s = CHAOS["step_time_s"]
+    pending = sorted((0 if plan.kind_for(i) == "burst"
+                      else i // CHAOS["per_tick"], i)
+                     for i in range(len(trace)))
+    events, t = [], 0
+    pool = engine.pool
+    while pending or engine.scheduler.pending or engine.active_requests:
+        _check(t < 1000, "phase 4c: the trace did not drain")
+        if stop_at and t == stop_at:
+            break
+        still = []
+        for due, i in pending:
+            if due > t:
+                still.append((due, i))
+                continue
+            r = trace[i]
+            kind = plan.kind_for(i) if faults else None
+            prompt = np.asarray(r["prompt"], np.int32)
+            if kind == "malformed":
+                prompt = plan.malform_prompt(i, prompt, vocab)
+            v = engine.submit(Request(
+                id=r["id"], prompt=prompt,
+                max_new_tokens=r["max_new_tokens"],
+                deadline_s=CHAOS["deadline_s"] if kind == "deadline"
+                else None))
+            if submitted is not None:
+                submitted.add(r["id"])
+            events.append((t, r["id"], v.verdict, v.shed_id))
+            if kind == "poison" and v.ok:
+                engine.poison(r["id"])
+            if v.verdict == "shed":
+                still.append((t + int(v.retry_after_s / step_s) + 1, i))
+            elif v.shed_id is not None:
+                j = next(k for k, q in enumerate(trace)
+                         if q["id"] == v.shed_id)
+                still.append(
+                    (t + int(engine.shed_log[v.shed_id] / step_s) + 1, j))
+        pending = sorted(still)
+        engine.step()
+        t += 1
+        free = set(pool.allocator._free)
+        for i, st in enumerate(engine.slots):
+            if st is not None:
+                row = pool.table[i]
+                _check(not free & {int(b) for b in row[row >= 0]},
+                       f"phase 4c: live lane {st.request.id} maps a free "
+                       f"block at tick {t}")
+    return events, t
+
+
+def phase_chaos(card: str) -> dict:
+    """qwen3-0.6b at published widths through the fault-tolerant engine
+    (phase 4c), random bf16 weights drawn on the card from phase 4's seed;
+    returns the launch counts of its chaos run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+    cfg = get_config("qwen3-0.6b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = get_model(cfg).init(cfg, gen, device="cuda")
+    launches = _chaos_checks(card, cfg, params, "cuda")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _chaos_checks(card: str, cfg, params, device) -> dict:
+    """Phase 4's engine geometry, 16 requests under the reference's chaos
+    plan, max_queue 3, a virtual clock and a journal.  Checks it against a
+    fault-free run of the same geometry on the same device (run four
+    times, tracing on, off, off, on: tok/s of each), then drops an engine mid-trace
+    without closing its journal and replays the journal into a fresh one.
+    The launch counts are set to 0 just before the chaos run and read just
+    after.  Returns them."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.fault.clock import VirtualClock
+    from repro_torch.fault.plan import ServingFaultPlan
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.serve.engine import ForecastEngine
+    from repro_torch.serve.journal import replay_journal
+
+    plan = ServingFaultPlan(*CHAOS_PLAN)
+    trace = _chaos_trace(cfg)
+    geometry = dict(num_slots=ENGINE["slots"], cache_len=ENGINE["cache_len"],
+                    block_size=ENGINE["block_size"], device=device)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_journal_")
+    env_trace = os.environ.get("REPRO_TRACE")
+
+    def engine(**kw):
+        return ForecastEngine(cfg, params, **geometry, **kw)
+
+    try:
+        # fault-free runs, tracing on, off, off, on (host clock: the order
+        # is balanced so a drift over the runs cancels)
+        runs = []
+        for flag in ("1", "0", "0", "1"):
+            os.environ["REPRO_TRACE"] = flag
+            eng = engine()
+            _drive_chaos(eng, trace, plan, faults=False,
+                         vocab=cfg.vocab_size)
+            runs.append((flag, {k: v.tokens.tolist()
+                                for k, v in eng.finished.items()},
+                         eng.metrics.summary()["steady_tok_per_s"]))
+            del eng
+        want = runs[0][1]
+        _check(all(r[1] == want for r in runs),
+               "phase 4c: the fault-free runs differ with tracing on/off")
+        _check(len(want) == len(trace) and all(
+            len(want[r["id"]]) == r["max_new_tokens"] for r in trace),
+            "phase 4c: the fault-free run did not finish every request")
+        rate = {f: [r[2] for r in runs if r[0] == f] for f in ("1", "0")}
+        print(f"[{card}] engine {cfg.name} fault-free, 16 requests, steady "
+              f"tok/s: REPRO_TRACE=1 "
+              f"{', '.join(f'{x:.1f}' for x in rate['1'])} (mean "
+              f"{np.mean(rate['1']):.1f}), REPRO_TRACE=0 "
+              f"{', '.join(f'{x:.1f}' for x in rate['0'])} (mean "
+              f"{np.mean(rate['0']):.1f}); the four runs' tokens equal")
+
+        # the chaos run, traced
+        os.environ["REPRO_TRACE"] = "1"
+        obs.reset()
+        fd.reset_launches()
+        eng = engine(clock=VirtualClock(), step_time_s=CHAOS["step_time_s"],
+                     max_queue=CHAOS["max_queue"],
+                     journal=os.path.join(tmp, "chaos.jrnl"))
+        t0 = time.perf_counter()
+        events, ticks = _drive_chaos(eng, trace, plan, faults=True,
+                                     vocab=cfg.vocab_size)
+        wall = time.perf_counter() - t0
+        launches = dict(fd.LAUNCHES)
+        summ = eng.metrics.summary()
+        ids = [r["id"] for r in trace]
+        faulted = {ids[i]: k for i, k in plan.faults.items()}
+        quarantined = {k: q.reason for k, q in eng.quarantined.items()}
+        _check(quarantined == {ids[2]: "malformed_prompt",
+                               ids[5]: "nonfinite_logits"},
+               f"phase 4c: quarantines {quarantined} differ from the plan")
+        done = eng.finished
+        _check(set(done) | set(quarantined) == set(ids)
+               and not set(done) & set(quarantined),
+               "phase 4c: a request neither finished nor quarantined")
+        miss = done[ids[9]]
+        _check(miss.reason == "deadline"
+               and miss.tokens.tolist() == want[ids[9]][:len(miss.tokens)],
+               f"phase 4c: the deadline request ended {miss.reason} or its "
+               f"partial tokens differ")
+        # on the virtual clock: the first sweep past 0.15 s after its
+        # accepted submit (a shed retry starts a fresh window), two ticks on
+        submit_tick = max(t for t, rid, v, _ in events
+                          if rid == ids[9] and v == "ok")
+        _check(miss.finished_step - submit_tick
+               <= int(CHAOS["deadline_s"] / CHAOS["step_time_s"]) + 1,
+               "phase 4c: the deadline window did not hold")
+        survivors = sorted(set(ids) - {ids[2], ids[5], ids[9]})
+        for rid in survivors:
+            _check(done[rid].reason == "length", f"phase 4c: {rid} ended "
+                   f"{done[rid].reason}")
+            _check(done[rid].tokens.tolist() == want[rid],
+                   f"phase 4c: {rid}'s tokens differ from the fault-free "
+                   f"run's")
+        q_step = eng.quarantined[ids[5]].step
+        neighbours = [rid for rid in survivors
+                      if done[rid].admitted_step <= q_step
+                      <= done[rid].finished_step]
+        _check(len(neighbours) >= 2, "phase 4c: the poisoned lane had no "
+               "neighbours in its decode tick")
+        eng.pool.assert_partition()
+        _check(eng.pool.blocks_in_use == 0, "phase 4c: blocks leaked")
+        _check(launches["flash_decode_paged"] > 0,
+               "phase 4c: the paged flash-decode never launched")
+        _check(summ["cow_copies"] >= 1
+               and launches["paged_block_copy"] == summ["cow_copies"],
+               f"phase 4c: {launches['paged_block_copy']} block-copy "
+               f"launches for {summ['cow_copies']} copy-on-write events")
+        spans = obs.span_count("req.lifecycle")
+        _check(spans == summ["requests"],
+               f"phase 4c: {spans} lifecycle spans for {summ['requests']} "
+               f"finished requests")
+        shed = sum(1 for e in events if e[2] == "shed" or e[3] is not None)
+        _check(summ["shed"] == shed, "phase 4c: shed count")
+        eng.journal.close()
+        _check(replay_journal(eng.journal.path).unfinished_ids == [],
+               "phase 4c: the chaos journal replays unfinished requests")
+        print(f"[{card}] phase 4c {cfg.name} chaos, 16 requests ({faulted}): "
+              f"{ticks} ticks, {summ['decode_tokens']} decode tokens, "
+              f"{summ['steady_tok_per_s']:.1f} tok/s steady, wall "
+              f"{wall:.1f} s; quarantined {quarantined}; {summ['shed']} shed "
+              f"(then retried), {summ['deadline_misses']} deadline miss "
+              f"({len(miss.tokens)} tokens); {len(survivors)} survivors and "
+              f"the poisoned lane's {len(neighbours)} neighbours bit for bit "
+              f"with the fault-free run; cow {summ['cow_copies']} = block "
+              f"copies {launches['paged_block_copy']}; {spans} lifecycle "
+              f"spans; launches {launches}")
+        del eng
+
+        # a crash: an engine dropped at a tick with its journal open, the
+        # journal replayed into a fresh engine
+        path = os.path.join(tmp, "crash.jrnl")
+        eng = engine(journal=path)
+        submitted = set()
+        _drive_chaos(eng, trace, plan, faults=False, vocab=cfg.vocab_size,
+                     stop_at=CHAOS["crash_tick"], submitted=submitted)
+        del eng                                # no close: a crash
+        st = replay_journal(path)
+        eng = engine(journal=path)
+        resumed = st.unfinished_requests()
+        for r in resumed:
+            _check(eng.submit(r).ok, "phase 4c: a replayed submit refused")
+        rest = [r for r in trace if r["id"] not in submitted]
+        _drive_chaos(eng, rest, ServingFaultPlan({}), faults=False,
+                     vocab=cfg.vocab_size)
+        got = {rid: st.tokens[rid] for rid in st.finished}
+        got.update({k: v.tokens.tolist() for k, v in eng.finished.items()})
+        eng.journal.close()
+        _check(set(got) == set(ids), "phase 4c: the replay lost a request")
+        bad = sorted(rid for rid in ids if got[rid] != want[rid])
+        _check(not bad, f"phase 4c: after the replay {bad} differ from the "
+               f"fault-free run")
+        mid = sum(1 for r in resumed if r.resume)
+        print(f"[{card}] phase 4c crash at tick {CHAOS['crash_tick']}: "
+              f"{len(st.finished)} finished before it, {mid} resumed "
+              f"mid-decode and {len(resumed) - mid} before their first "
+              f"token from the journal, {len(rest)} not yet submitted; "
+              f"every request's tokens equal the fault-free run's")
+        del eng
+    finally:
+        if env_trace is None:
+            os.environ.pop("REPRO_TRACE", None)
+        else:
+            os.environ["REPRO_TRACE"] = env_trace
+        shutil.rmtree(tmp, ignore_errors=True)
     return launches
 
 
@@ -1378,11 +1668,15 @@ def main() -> None:
     del timer
     torch.cuda.empty_cache()
 
-    served = {arch: phase_main_path(card, arch) for arch in SERVED}
+    served = {SERVED[0]: phase_main_path(card, SERVED[0])}
+    chaos_launches = phase_chaos(card)
+    served.update({arch: phase_main_path(card, arch) for arch in SERVED[1:]})
     launches = dict(served[SERVED[0]])
     for name in ("flash_decode", "flash_decode_paged", "paged_block_copy"):
         for arch in SERVED[1:]:
             rows[name][arch]["launches"] = served[arch][name]
+        rows[name]["fault_tolerant_engine"] = {
+            "launches": chaos_launches[name]}
 
     launches.update(phase_fit(card))
     launches.update(ops_launches)

@@ -1,4 +1,5 @@
-"""Server-side delta validation, the last screen before aggregation.
+"""Finite screens: server-side delta validation, and the serve step's
+per-lane logits screen.
 
 Applied to every upload of a round's cohort:
 
@@ -7,8 +8,12 @@ Applied to every upload of a round's cohort:
   * **norm** — a delta whose L2 norm exceeds ``byz_k`` × the cohort median
     norm rejects (``reason="byzantine"``).
 
-The reference's fault plans, virtual clock and snapshots are not ported
-yet; this screen runs on the plain path of every round.
+``logits_finite`` is the serving mirror of the finite screen: the guarded
+serve step evaluates it on every decode step's logits, and the engine
+quarantines a lane that fails it.
+
+The reference's federated fault plans and snapshots are not ported yet;
+the delta screen runs on the plain path of every round.
 """
 
 from __future__ import annotations
@@ -20,6 +25,13 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tree_util
+
+
+def logits_finite(logits: torch.Tensor) -> torch.Tensor:
+    """Per-lane finite screen of a ``(B, V)`` logits slice: a ``(B,)`` bool
+    tensor, False where any entry of that lane's row is NaN or Inf.  It
+    stays on the logits' device (no synchronization)."""
+    return torch.isfinite(logits).all(dim=-1)
 
 
 def delta_norm(tree) -> float:

@@ -9,13 +9,19 @@ are kept as samples and reported as p50/p95/p99.
 ``wall_s`` spans from construction to the last recorded event.
 ``steady_tok_per_s`` excludes the first decode step, which carries the
 kernels' first-use cost (build or load, first launches).
+
+Fault tolerance is counted in requests: ``requests_submitted`` (accepted
+submits), ``shed`` (backpressure rejections), ``deadline_misses`` (SLO
+cancellations of either kind, ``ttft_slo_misses`` the first-token ones)
+and ``quarantined`` (by reason on the dataclass, their total in the
+summary); ``deadline_miss_rate`` is misses over accepted submits.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -51,6 +57,12 @@ class EngineMetrics:
     itl_s: List[float] = dataclasses.field(default_factory=list)
     first_step_s: float = 0.0
     steady_decode_s: float = 0.0              # decode wall time past step 1
+    # fault tolerance (requests, not steps):
+    requests_submitted: int = 0               # accepted submits (verdict ok)
+    requests_shed: int = 0                    # backpressure rejections
+    deadline_misses: int = 0                  # SLO cancellations, either kind
+    ttft_slo_misses: int = 0                  # subset: first-token SLO
+    quarantined: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def record_admit(self, prompt_len: int) -> None:
         self.prefill_tokens += prompt_len
@@ -90,10 +102,28 @@ class EngineMetrics:
         self.cow_copies += 1
         self.cow_bytes += nbytes
 
-    def record_finish(self, ttft_s: float) -> None:
+    def record_finish(self, ttft_s: Optional[float] = None) -> None:
+        """``ttft_s=None`` counts the finish without a TTFT sample: an SLO
+        cancellation before the first token has no TTFT."""
         self.requests_finished += 1
-        self.ttft_s.append(ttft_s)
+        if ttft_s is not None:
+            self.ttft_s.append(ttft_s)
         self.last_event_at = time.perf_counter()
+
+    def record_submit(self) -> None:
+        self.requests_submitted += 1
+
+    def record_shed(self) -> None:
+        self.requests_shed += 1
+
+    def record_deadline_miss(self, *, ttft: bool = False) -> None:
+        """One SLO cancellation; ``ttft=True`` when the first-token SLO was
+        the one missed."""
+        self.deadline_misses += 1
+        self.ttft_slo_misses += bool(ttft)
+
+    def record_quarantine(self, reason: str) -> None:
+        self.quarantined[reason] = self.quarantined.get(reason, 0) + 1
 
     def summary(self) -> Dict[str, float]:
         span = (self.last_event_at or time.perf_counter()) - self.started
@@ -135,4 +165,12 @@ class EngineMetrics:
             "cow_bytes": self.cow_bytes,
             "mean_fragmentation": self.frag_sum / steps if steps else 0.0,
             "peak_fragmentation": self.peak_fragmentation,
+            "requests_submitted": self.requests_submitted,
+            "shed": self.requests_shed,
+            "deadline_misses": self.deadline_misses,
+            "ttft_slo_misses": self.ttft_slo_misses,
+            "quarantined": int(sum(self.quarantined.values())),
+            "deadline_miss_rate": (
+                self.deadline_misses / self.requests_submitted
+                if self.requests_submitted else 0.0),
         }

@@ -30,11 +30,16 @@ class SamplingParams:
 class Request:
     """One serving request.
 
+    SLOs are measured on the engine's clock from the request's first
+    submit (a shed and retried request starts a fresh window; an evicted
+    or journal-replayed one keeps its original): ``deadline_s`` bounds the
+    whole request, ``ttft_slo_s`` its first token.
+
     ``resume`` is engine-internal: a request re-queued mid-decode (evicted
-    to recompute) carries its generated tokens in the prompt and records
-    ``{"generated": [...], "prompt_len": orig}`` so that its output and
-    sampling counters stay those of the original request.  Deadlines and
-    first-token SLOs are not ported yet and raise."""
+    to recompute, or replayed from the journal) carries its generated
+    tokens in the prompt and records ``{"generated": [...], "prompt_len":
+    orig}`` so that its output and sampling counters stay those of the
+    original request."""
     id: str
     prompt: Sequence[int]
     max_new_tokens: int
@@ -53,9 +58,11 @@ class Request:
                              f"1-D token sequence")
         if self.max_new_tokens < 1:
             raise ValueError(f"request {self.id}: max_new_tokens must be >= 1")
-        if self.deadline_s is not None or self.ttft_slo_s is not None:
-            raise NotImplementedError(
-                f"request {self.id}: deadlines / TTFT SLOs are not ported yet")
+        for name in ("deadline_s", "ttft_slo_s"):
+            v = getattr(self, name)
+            if v is not None and not (float(v) > 0.0):
+                raise ValueError(
+                    f"request {self.id}: {name} must be > 0 when set")
 
     @property
     def prompt_len(self) -> int:
@@ -80,6 +87,9 @@ class GenState:
     admitted_step: int = 0
     admitted_time: float = 0.0
     first_token_time: float = 0.0
+    # a resume's generated tokens still to re-decode (fed as the step's
+    # inputs, not emitted again)
+    forced: List[int] = dataclasses.field(default_factory=list)
 
     @property
     def remaining(self) -> int:
@@ -95,8 +105,10 @@ class GenState:
 
 @dataclasses.dataclass
 class FinishedRequest:
-    """Engine output record for one retired request (``reason`` is
-    ``"length"`` or ``"eos"``)."""
+    """Engine output record for one retired request.  ``reason`` is
+    ``"length"``/``"eos"`` for clean completions, ``"deadline"``/
+    ``"ttft_slo"`` for SLO cancellations (``tokens`` then holds whatever
+    was generated before the miss)."""
     id: str
     tokens: np.ndarray                        # (n_generated,) int32
     prompt_len: int
@@ -104,3 +116,37 @@ class FinishedRequest:
     finished_step: int
     ttft_s: float                             # submit -> first token
     reason: str
+
+
+@dataclasses.dataclass(frozen=True)
+class SubmitVerdict:
+    """What ``ForecastEngine.submit`` tells the caller happened.
+
+    ``verdict``:
+      * ``"ok"``          — queued (``shed_id`` names a *different*, older
+        queued request this submit displaced, if any);
+      * ``"shed"``        — the submitted request itself was shed by
+        backpressure; retry after ``retry_after_s`` engine seconds;
+      * ``"quarantined"`` — rejected at submit (malformed prompt); never
+        queued, audited in ``engine.quarantined``.
+    """
+    id: str
+    verdict: str                              # "ok" | "shed" | "quarantined"
+    retry_after_s: float = 0.0                # shed: suggested resubmit delay
+    shed_id: Optional[str] = None             # ok: queued victim it displaced
+    reason: Optional[str] = None              # quarantined: audit reason
+
+    @property
+    def ok(self) -> bool:
+        return self.verdict == "ok"
+
+
+@dataclasses.dataclass(frozen=True)
+class QuarantinedRequest:
+    """Audit record for a poisoned or malformed request parked by the
+    engine: why, when, and how far decode got before the screen fired."""
+    id: str
+    reason: str                    # "malformed_prompt" | "nonfinite_logits"
+    step: int                      # engine step the quarantine fired on
+    prompt_len: int
+    generated: int                 # tokens emitted before quarantine

@@ -18,6 +18,7 @@ import dataclasses
 from collections import deque
 from typing import Callable, Deque, List, Optional
 
+from repro_torch import obs
 from repro_torch.serve.request import Request
 
 
@@ -50,11 +51,46 @@ class FIFOScheduler:
         (``requests[0]`` pops first).  A tick's victims arrive in ONE call,
         oldest submit first, so FIFO order survives multi-eviction ticks."""
         for r in reversed(requests):
+            obs.instant("sched.requeue", track=f"req:{r.id}", id=r.id,
+                        queue_depth=len(self._queue))
             self._queue.appendleft(r)
 
     @property
     def pending(self) -> int:
         return len(self._queue)
+
+    def pending_tokens(self) -> int:
+        """Worst-case token footprint queued (the engine's retry-after
+        hint divides this by the slot count)."""
+        return sum(r.total_tokens for r in self._queue)
+
+    def queued(self) -> List[Request]:
+        """Snapshot of the queue, head first (the engine's shed-victim
+        choice reads it; changes go through ``remove``/``cancel_where``,
+        which keep FIFO order)."""
+        return list(self._queue)
+
+    def remove(self, request: Request) -> bool:
+        """Drop one queued request (load shedding), the order of the rest
+        untouched.  False if it already left the queue."""
+        try:
+            self._queue.remove(request)
+            return True
+        except ValueError:
+            return False
+
+    def cancel_where(self, pred: Callable[[Request], bool]
+                     ) -> List[Request]:
+        """Remove every queued request matching ``pred`` (the SLO sweep),
+        keeping the survivors' FIFO order.  Returns the removed requests in
+        queue order."""
+        flags = [bool(pred(r)) for r in self._queue]
+        removed = [r for r, f in zip(self._queue, flags) if f]
+        if removed:
+            kept = [r for r, f in zip(self._queue, flags) if not f]
+            self._queue.clear()
+            self._queue.extend(kept)
+        return removed
 
     def admit(self, *, now_step: int, free_slots: int,
               tokens_in_flight: int, free_blocks: int = -1,

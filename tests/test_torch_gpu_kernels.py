@@ -616,6 +616,36 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
                   2.0 ** -7 if dtype == torch.bfloat16 else 0.0)
 
 
+@pytest.mark.parametrize("shape,dtype,layout", [
+    ((4, 37, 512), torch.float32, (32, 4, 2, 2)),
+    ((4, 37, 512), torch.float32, (64, 2, 4, 1)),
+    ((4, 37, 512), torch.bfloat16, (32, 1, 1, 2)),
+    ((64, 4096), torch.float32, (64, 1, 4, 4)),
+    ((64, 4096), torch.float32, (256, 2, 1, 4)),
+    ((64, 4096), torch.float32, (128, 4, 2, 4)),
+    ((3, 16384), torch.float32, (512, 1, 2, 4)),
+    ((504, 4096), torch.bfloat16, (512, 1, 1, 1)),
+    ((504, 4096), torch.bfloat16, (64, 8, 2, 4)),
+    ((5, 1030), torch.float32, (32, 1, 4, 4)),
+    ((5, 1030), torch.float32, (64, 2, 2, 4)),
+    ((2, 2000), torch.bfloat16, (128, 4, 2, 1))])
+def test_rmsnorm_kernel_layouts(cuda, shape, dtype, layout):
+    """Layouts other than the one the launcher picks (clusters of 2 and 4,
+    several rows a block, rows masked in a block or cluster), with f32 and
+    bf16 scales, aligned and at an address not aligned to its vector."""
+    from repro_torch.kernels import rmsnorm as rn
+    g = torch.Generator(device="cpu").manual_seed(shape[-1] + 1)
+    x = torch.randn(shape, generator=g).to(dtype).to(cuda)
+    lay = rn.Layout(*layout)
+    for scale_dtype in (torch.float32, torch.bfloat16):
+        full = torch.randn(shape[-1] + 1, generator=g).to(scale_dtype)
+        for s in (full[:-1].to(cuda), full.to(cuda)[1:]):
+            launch, got = rn.rmsnorm_launcher(x, s, layout=lay)
+            launch()
+            _allclose(got, rn.rmsnorm_ref(x, s), 2e-5,
+                      2.0 ** -7 if dtype == torch.bfloat16 else 0.0)
+
+
 def _qlora_case(dev, M, K, N, r, qb, dtype, seed=0):
     from repro_torch.core.quant import nf4_quantize
     g = torch.Generator(device="cpu").manual_seed(seed)
@@ -731,3 +761,49 @@ def test_ops_launch_counters(cuda):
     ops.flash_attention(q, q, q, causal=False)
     assert (rn.LAUNCHES, qm.LAUNCHES, fa.LAUNCHES) == (
         {"rmsnorm": 1}, {"qlora_matmul": 1}, {"flash_attention": 1})
+
+
+# ---------------------------------------------------------------------------
+# The fault-tolerant engine's guarded decode step
+# ---------------------------------------------------------------------------
+
+def test_guarded_decode_tick_copies_to_host_once(cuda):
+    """A decode tick of the engine brings the tokens and the guard's
+    per-lane screen back in one device-to-host copy, a poisoned tick too,
+    and the poisoned lane is quarantined alone (qwen3-0.6b's smoke config
+    on the card)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve.engine import ForecastEngine
+    from repro_torch.serve.request import Request
+    cfg = get_smoke_config("qwen3-0.6b")
+    params = get_model(cfg).init(
+        cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    eng = ForecastEngine(cfg, params, num_slots=4, cache_len=48,
+                         device=cuda)
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        eng.submit(Request(id=f"r{i}", max_new_tokens=12,
+                           prompt=rng.integers(0, cfg.vocab_size, 9 + i)))
+    eng.step()                                  # admissions: their copies
+    copies = []
+    for poison in (None, "r1"):
+        if poison:
+            eng.poison(poison)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.step()
+            torch.cuda.synchronize()
+        copies.append(sum(e.count for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA
+                          and "DtoH" in e.key))
+    assert copies == [1, 1], copies
+    assert set(eng.quarantined) == {"r1"}
+    assert eng.active_requests == 2
+    done = eng.run(max_steps=100)
+    assert set(done) == {"r0", "r2"}
+    eng.pool.assert_partition()

@@ -62,6 +62,17 @@ held on the CPU before any card run.
   accumulator summed, then truncated): at K = 4096 one chain of MMAs
   over all of K misses the limit, so the kernel runs each 32-deep step
   into zeroed partials and adds them into f32 sums rounded to nearest.
+* The rmsnorm kernel's layout (``rmsnorm_layout``): pinned at the three
+  shapes ``chip_smoke.py`` phase 2b drives (the fit's (504, 4096) bf16,
+  the benchmark's (64, 4096) f32, the ragged (4, 37, 512) f32), at rows
+  below the SM count (still one block a row: a cluster measured slower),
+  at many short rows and at a row only a cluster covers; over a grid of
+  shapes every 16-byte chunk of a row is owned by exactly one thread, a
+  block holds at most 512 threads and at least a warp a row.  The kernel's
+  sum of squares in its order (a thread's chunks, the warp's butterfly,
+  the row's warps, the cluster's blocks in rank order), emulated in f32, is
+  held to the plain version and the JAX package's oracle within the f32
+  limit 2e-5.
 """
 
 import jax.numpy as jnp
@@ -74,6 +85,7 @@ from repro_torch.core.quant import nf4_dequant, nf4_quantize
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import qlora_matmul as qm
+from repro_torch.kernels import rmsnorm as rn
 
 H100_SMS = 132
 
@@ -726,3 +738,103 @@ def test_f32_qlora_accumulation_flushes_each_step():
     assert _within(got, want, 1e-4, 1e-4) <= 0.0
     chain = _qlora_tf32_arithmetic(x, wq, am, a, b, s, flush=False)
     assert _within(chain, want, 1e-4, 1e-4) > 0.0
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm: the layout and the order of the sum of squares
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rows,d,itemsize,want", [
+    (504, 4096, 2, (256, 1, 1, 2)),     # the fit's shape, bf16: 504 blocks
+    (64, 4096, 4, (256, 1, 1, 4)),      # benchmark f32: 64 rows < 132 SMs
+    (148, 512, 4, (64, 1, 1, 2)),       # ragged (4, 37, 512) f32
+    (8, 4096, 4, (256, 1, 1, 4)),       # few rows: still a block a row
+    (2, 2000, 2, (128, 1, 1, 2)),       # d not a multiple of 16 bytes' 2
+    (100000, 64, 4, (32, 8, 1, 1)),     # many short rows: 8 to a block
+    (3, 16384, 4, (512, 1, 2, 4))])     # 4096 chunks: a cluster of 2
+def test_rmsnorm_layout_pinned(rows, d, itemsize, want):
+    assert tuple(rn.rmsnorm_layout(rows, d, itemsize, H100_SMS)) == want
+
+
+def _rmsnorm_chunks(lay, d, itemsize):
+    """The 16-byte chunks each (cluster rank, thread) of a row owns."""
+    W = 16 // itemsize
+    own = {}
+    for rank in range(lay.cl):
+        for t in range(lay.tpr):
+            g = rank * lay.tpr + t
+            own[(rank, t)] = [c for j in range(lay.nv)
+                              for c in [j * lay.tpr * lay.cl + g]
+                              if c * W < d]
+    return own
+
+
+@pytest.mark.parametrize("sms", [8, 114, H100_SMS])
+@pytest.mark.parametrize("rows", [1, 3, 64, 131, 132, 148, 504, 100000])
+@pytest.mark.parametrize("d,itemsize", [(37, 4), (512, 4), (1030, 4),
+                                        (4096, 4), (9000, 4), (16384, 4),
+                                        (4096, 2), (2000, 2), (32768, 2)])
+def test_rmsnorm_layout_covers_each_chunk_once(rows, d, itemsize, sms):
+    lay = rn.rmsnorm_layout(rows, d, itemsize, sms)
+    assert lay.tpr % 32 == 0 and 32 <= lay.tpr
+    assert lay.tpr * lay.rpb <= 512 and lay.cl in (1, 2, 4)
+    assert lay.nv in (1, 2, 4)
+    chunks = -(-d * itemsize // 16)
+    owned = sorted(c for cs in _rmsnorm_chunks(lay, d, itemsize).values()
+                   for c in cs)
+    assert owned == list(range(chunks))
+    assert lay.nv == 1 or (lay.nv // 2) * lay.tpr * lay.cl < chunks
+    if lay.cl > 1:                      # only a row too long for a block
+        assert chunks > 512 * 4
+
+
+def _rmsnorm_kernel_order(x, scale, lay, eps=1e-6):
+    """The kernel's arithmetic on the CPU in f32, sum of squares in its
+    order: each thread over its chunks (fma, in element order), a warp's
+    xor butterfly, the row's warps in order, the cluster's blocks in rank
+    order; y = x * (1 / sqrt(ss / d + eps)) * scale."""
+    rows, d = x.shape
+    W = 16 // x.element_size()
+    xf = x.float()
+    own = _rmsnorm_chunks(lay, d, x.element_size())
+    ss = torch.zeros((rows, lay.cl, lay.tpr), dtype=torch.float32)
+    for (rank, t), cs in own.items():
+        acc = torch.zeros(rows, dtype=torch.float32)
+        for c in cs:
+            for i in range(W):
+                if c * W + i < d:
+                    v = xf[:, c * W + i]
+                    acc = (v.double() * v.double() + acc.double()).float()
+        ss[:, rank, t] = acc
+    warps = ss.reshape(rows, lay.cl, lay.tpr // 32, 32)
+    for o in (16, 8, 4, 2, 1):
+        lane = torch.arange(32)
+        warps = warps + warps[..., lane ^ o]
+    per_block = torch.zeros((rows, lay.cl), dtype=torch.float32)
+    for w in range(lay.tpr // 32):
+        per_block = per_block + warps[..., w, 0]
+    total = torch.zeros(rows, dtype=torch.float32)
+    for r in range(lay.cl):
+        total = total + per_block[:, r]
+    inv = 1.0 / torch.sqrt(total / d + eps)
+    return (xf * inv[:, None] * scale.float()).to(x.dtype)
+
+
+@pytest.mark.parametrize("rows,d,dtype", [
+    (148, 512, torch.float32), (64, 4096, torch.float32),
+    (24, 4096, torch.bfloat16), (5, 1030, torch.float32)])
+def test_rmsnorm_kernel_order_keeps_the_limit(rows, d, dtype):
+    rng = np.random.default_rng(rows + d)
+    x = torch.from_numpy(rng.standard_normal((rows, d),
+                                             dtype=np.float32)).to(dtype)
+    scale = torch.from_numpy(rng.standard_normal(d, dtype=np.float32))
+    lay = rn.rmsnorm_layout(rows, d, x.element_size(), H100_SMS)
+    got = _rmsnorm_kernel_order(x, scale, lay)
+    want = rn.rmsnorm_ref(x, scale)
+    jwant = torch.from_numpy(np.asarray(jref.rmsnorm_ref(
+        jnp.asarray(x.float().numpy()), jnp.asarray(scale.numpy())),
+        np.float32).copy()).to(dtype)
+    bf16 = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    for ref in (want, jwant):
+        torch.testing.assert_close(got.float(), ref.float(), atol=2e-5,
+                                   rtol=2e-5 + bf16)

@@ -251,14 +251,22 @@ def test_failed_prefill_raises(dense, monkeypatch):
     assert eng.step_count == 0
 
 
-def test_unported_engine_options_raise(dense):
+def test_unported_engine_options_raise(dense, tmp_path):
+    """The swap tier is the one engine option still refused; the
+    fault-tolerance options and request SLOs are taken (a non-positive SLO
+    is a caller error, as in the reference)."""
     _, _, cfg, params = dense
-    for kw in (dict(swap_tier=True), dict(journal="j.log"),
-               dict(max_queue=4), dict(default_deadline_s=1.0)):
-        with pytest.raises(NotImplementedError):
-            ForecastEngine(cfg, params, device="cpu", **kw)
     with pytest.raises(NotImplementedError):
-        Request(id="x", prompt=[1, 2], max_new_tokens=2, deadline_s=1.0)
+        ForecastEngine(cfg, params, device="cpu", swap_tier=True)
+    for kw in (dict(journal=str(tmp_path / "j.log")), dict(max_queue=4),
+               dict(default_deadline_s=1.0), dict(default_ttft_slo_s=0.5)):
+        eng = ForecastEngine(cfg, params, device="cpu", **kw)
+        if eng.journal is not None:
+            eng.journal.close()
+    assert Request(id="x", prompt=[1, 2], max_new_tokens=2,
+                   deadline_s=1.0).deadline_s == 1.0
+    with pytest.raises(ValueError):
+        Request(id="x", prompt=[1, 2], max_new_tokens=2, ttft_slo_s=0.0)
 
 
 # ---------------------------------------------------------------------------
