@@ -58,6 +58,24 @@ Phases, each printing its numbers beside the card's name and power limit:
      with its journal open, replayed into a fresh one, every request's
      tokens equal to the fault-free run's (launch counters set to 0 before
      the chaos run, read after);
+  3b. qwen3-0.6b, one 8192-token prompt (B = 1): the prefill takes the
+     blockwise attention path (at 4096 tokens and over), held against the
+     naive path forced on the same prompt beside a planted fault's reading
+     (the prompt's second quarter dropped from every softmax), with both
+     paths' peak device memory; then 16 greedy ``generate`` steps from its
+     cache, each token its logits' argmax;
+  3c. ``generate`` at phase 3's fixed batch: greedy equals the fixed-batch
+     launcher bit for bit; sampled (temperature 0.8, top-k 50) twice with
+     one seed gives the same tokens, each in its row's top 50 (ring
+     flash-decode launches of 3b-3c counted and checked);
+  4d. the host swap tier: phase 4's engine geometry and trace with 32 new
+     tokens a request on a pool cut from 96 to 32 blocks, so lanes park
+     and swap out: at least 2 swap-outs, as many swap-ins, no eviction and
+     no recompute prefill, tokens equal to the full pool's and to the cut
+     pool's with the tier off (which evicts), block-copy launches equal to
+     copy-on-write events; swap bytes and the host time of a swap-out and
+     a swap-in (launch counters set to 0 before the swapping run, read
+     after);
   4b. phases 3-4 again with fedtime-llama2-7b at full width (32 layers,
      d_model 4096, 32/32 heads of 128: G = 1, vocab 32,000, bf16), the same
      geometry and checks, its own launch counts; then its weights and caches
@@ -71,6 +89,11 @@ Phases, each printing its numbers beside the card's name and power limit:
      bytes up equal to the wire's price times the uploads, peak device
      memory printed, and the run's first hop calls held against the plain
      version;
+  5b. ``two_phase_fit`` at the same widths and cut schedule, one SFT round,
+     4 DPO steps, one forecasting round, batch 4, the int8 wire: the first
+     DPO loss (policy = reference) within 1e-6 of ln 2, every loss finite,
+     test MSE/MAE finite, hop launches equal to uploads (counted from 0),
+     peak device memory under 80 GB, the wall time of each phase;
   6. check the model path on the card against the plain path on the CPU at
      the smoke configs in f32: prefill + teacher-forced decode (ring and
      paged) of qwen3-0.6b and of fedtime-llama2-7b (G = 1), and a 2-round
@@ -84,6 +107,7 @@ without the repository beside it, it fails.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -411,8 +435,9 @@ def _served_heads():
 def phase_kernels(card: str, timer: Timer) -> dict:
     """Every kernel against its plain version at the main path's own call
     shapes (for each served config: the fixed batch's ring and the engine's
-    pool, bf16; the rows the JSON line keeps) and at longer caches (S =
-    1024, 4096; bf16 and int8; qwen3-0.6b's heads).  Returns the JSON rows:
+    pool, bf16; the rows the JSON line keeps; for qwen3-0.6b also phase
+    3b's one-row ring of 8208 slots and phase 4d's 32-block pool) and at
+    longer caches (S = 1024, 4096; bf16 and int8; qwen3-0.6b's heads).  Returns the JSON rows:
     qwen3-0.6b's, with fedtime-llama2-7b's nested under its name."""
     from repro_torch.kernels import flash_decode as fd
     F = torch.nn.functional
@@ -429,6 +454,11 @@ def phase_kernels(card: str, timer: Timer) -> dict:
                   (arch, f"main path {arch}: engine pool", engine_rows,
                    S_eng, False, True, ENGINE_POOL_BLOCKS, hw)]
     _, Hk, G, D = heads[SERVED[0]]
+    hw = dict(Hk=Hk, G=G, D=D)
+    cases += [(None, f"main path {SERVED[0]}: phase 3b's generate ring",
+               [LONG_PROMPT], LONG_PROMPT + LONG_GEN, False, False, 0, hw),
+              (None, f"main path {SERVED[0]}: phase 4d's cut pool",
+               engine_rows, S_eng, False, True, SWAP["pool_blocks"], hw)]
     for S in (1024, 4096):
         rows4 = [S - 1, S - 100, 3 * S // 4, S // 2 + 5]
         for int8 in (False, True):
@@ -927,14 +957,13 @@ def phase_ops_kernels(card: str, timer: Timer):
 # phases 3-4: the main path at full width
 # ---------------------------------------------------------------------------
 
-def _engine_trace(cfg):
+def _engine_trace(cfg, gen: int = 16):
     """Eight Poisson requests from the launcher's trace maker plus a
     shared-prefix cluster: a donor, a divergent tail and two identical
-    replays of a 40-token core.  The core ends inside its third 16-slot
-    block, so a replay's first own token lands in a shared block and
-    copy-on-write fires."""
+    replays of a 40-token core, each ``gen`` new tokens.  The core ends
+    inside its third 16-slot block, so a replay's first own token lands in
+    a shared block and copy-on-write fires."""
     from repro_torch.launch.serve import make_trace
-    gen = 16
     trace = make_trace(cfg, 8, gen=gen, max_prompt=96, rate=1.0, seed=0)
     rng = np.random.default_rng(1)
     core = rng.integers(0, cfg.vocab_size, 40).tolist()
@@ -1360,6 +1389,298 @@ def _chaos_checks(card: str, cfg, params, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 3b, 3c, 4d: a long prompt, generate, the swap tier
+# ---------------------------------------------------------------------------
+
+# Phase 3b: one prompt past the blockwise threshold (4096), B = 1, then
+# LONG_GEN greedy steps of ``generate`` from its cache.
+LONG_PROMPT, LONG_GEN = 8192, 16
+# Blockwise against naive last-token logits, both bf16 through 28 layers:
+# max |difference| over max |naive logit|.  The two paths round p to bf16
+# at different points (the blockwise path before it is normalized, a KV
+# block at a time), so they differ by bf16 rounding carried through the
+# layers; the planted fault (one KV block of 2048 positions dropped from
+# every query's softmax) must read outside the limit.
+TOL_BLOCKWISE = 0.05
+# Phase 4d: phase 4's trace with longer generations on a cut pool, so that
+# lanes park and leave through the swap tier (3 swap-outs: picked by
+# running the engine's block accounting at these lengths on the CPU).
+SWAP = dict(pool_blocks=32, gen=32)
+
+
+class _Recorder:
+    """A model API whose ``decode_step`` keeps each step's last-position
+    logits (f32) for the checks of ``generate``'s tokens."""
+
+    def __init__(self, api):
+        self.api, self.logits = api, []
+
+    def decode_step(self, *args, **kw):
+        lg, cache = self.api.decode_step(*args, **kw)
+        self.logits.append(lg[:, -1].float())
+        return lg, cache
+
+
+def phase_serving_extras(card: str) -> dict:
+    """qwen3-0.6b at published widths, random bf16 weights drawn on the
+    card from phase 4's seed: the blockwise prefill (3b), ``generate``
+    (3c) and the swap tier (4d).  The launch counts are set to 0 before
+    3b and read after 3c, then set to 0 before 4d's swapping run and read
+    after it; returns both."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models.registry import get_model
+    cfg = get_config("qwen3-0.6b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = get_model(cfg).init(cfg, gen, device="cuda")
+    fd.reset_launches()
+    _phase_blockwise(card, cfg, params)
+    _phase_generate(card, cfg, params)
+    out = {"generate": dict(fd.LAUNCHES)}
+    steps = LONG_GEN + 4 * FIXED["gen"]        # 3b, then 3c's four loops
+    _check(out["generate"]["flash_decode"] == steps * cfg.num_layers,
+           f"phases 3b-3c: {out['generate']['flash_decode']} ring "
+           f"flash-decode launches, not {steps * cfg.num_layers}")
+    out["swap_tier_engine"] = _phase_swap(card, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _prefill_measured(api, params, cfg, tokens, cache_len):
+    """(cache, last-token logits (V,) f32, wall s, peak GiB over what was
+    allocated before the call) of one prefill."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cache, lg = api.prefill(params, cfg, {"tokens": tokens},
+                            cache_len=cache_len)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    return cache, lg[0, -1].float(), wall, peak
+
+
+def _phase_blockwise(card: str, cfg, params, device="cuda") -> None:
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import attention
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve.sampling import generate
+    api = get_model(cfg)
+    tokens = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, LONG_PROMPT)), device=device)
+    ring = LONG_PROMPT + LONG_GEN
+    _check(LONG_PROMPT >= transformer.BLOCKWISE_THRESHOLD,
+           "phase 3b: the prompt is under the blockwise threshold")
+    cache, blk, wall_b, peak_b = _prefill_measured(api, params, cfg, tokens,
+                                                   ring)
+    saved = transformer.BLOCK_Q, transformer.BLOCK_KV
+    transformer.BLOCK_Q = transformer.BLOCK_KV = 0      # the naive path
+    try:
+        _, naive, wall_n, peak_n = _prefill_measured(api, params, cfg,
+                                                     tokens, ring)
+    finally:
+        transformer.BLOCK_Q, transformer.BLOCK_KV = saved
+    # the planted fault: the prompt's second quarter (a KV block of 2048
+    # at 8192 tokens) dropped from every softmax
+    real_mask = attention._mask
+    lo, hi = LONG_PROMPT // 4, LONG_PROMPT // 2
+
+    def dropped(q_pos, kv_pos, *rest):
+        kp = kv_pos[:, None, None, None, :]
+        return real_mask(q_pos, kv_pos, *rest) & ~((kp >= lo) & (kp < hi))
+
+    attention._mask = dropped
+    try:
+        _, fault, _, _ = _prefill_measured(api, params, cfg, tokens, ring)
+    finally:
+        attention._mask = real_mask
+    scale = float(naive.abs().max())
+    err = float((blk - naive).abs().max()) / scale
+    fault_err = float((fault - naive).abs().max()) / scale
+    _check(bool(torch.isfinite(blk).all()) and bool(
+        torch.isfinite(naive).all()), "phase 3b: non-finite logits")
+    print(f"[{card}] phase 3b {cfg.name} full width, one {LONG_PROMPT}-token "
+          f"prompt: blockwise (Q {saved[0]} x KV {saved[1]}) prefill "
+          f"{wall_b:.3f} s, peak {peak_b:.2f} GiB over the weights; naive "
+          f"{wall_n:.3f} s, peak {peak_n:.2f} GiB; last-token logits "
+          f"max|blockwise - naive| / max|naive| = {err:.3g} (limit "
+          f"{TOL_BLOCKWISE}; planted fault, KV {lo}-{hi - 1} dropped: "
+          f"{fault_err:.3g})")
+    _check(err <= TOL_BLOCKWISE, f"phase 3b: blockwise logits off the naive "
+           f"path's by {err} > {TOL_BLOCKWISE}")
+    _check(fault_err > TOL_BLOCKWISE, "phase 3b: the limit does not catch "
+           "the planted fault")
+    rec = _Recorder(api)
+    first = blk.argmax().to(torch.int32).reshape(1, 1)
+    toks, _ = generate(rec, params, cfg, cache, first, steps=LONG_GEN,
+                       start_pos=LONG_PROMPT)
+    toks = toks.cpu()
+    _check(toks.shape == (1, LONG_GEN) and len(rec.logits) == LONG_GEN,
+           "phase 3b: generate's shape")
+    for i, lg in enumerate(rec.logits):
+        _check(bool(torch.isfinite(lg).all()), "phase 3b: non-finite "
+               "logits in generate")
+        _check(int(toks[0, i]) == int(lg[0].argmax()),
+               f"phase 3b: greedy token {i} is not its logits' argmax")
+    print(f"[{card}] phase 3b: {LONG_GEN} greedy generate steps from the "
+          f"blockwise prefill at positions {LONG_PROMPT}-"
+          f"{LONG_PROMPT + LONG_GEN - 1}: finite, each token its logits' "
+          f"argmax")
+
+
+def _phase_generate(card: str, cfg, params, device="cuda") -> None:
+    from repro_torch.launch.serve import run_fixed_batch
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve.sampling import generate
+    api = get_model(cfg)
+    B, P, n = FIXED["batch"], FIXED["prompt_len"], FIXED["gen"]
+    fixed = run_fixed_batch(cfg, params, device=device, quiet=True,
+                            **FIXED)["tokens"]
+    # run_fixed_batch's prompts (its seed 0)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, P)), device=device)
+
+    def start():
+        cache, lg = api.prefill(params, cfg, {"tokens": tokens},
+                                cache_len=P + n)
+        return cache, lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+
+    cache, first = start()
+    _check(first.cpu().numpy().tolist() == fixed[:, :1].tolist(),
+           "phase 3c: the prefill's first tokens differ")
+    t0 = time.perf_counter()
+    greedy, _ = generate(api, params, cfg, cache, first, steps=n,
+                         start_pos=P)
+    greedy = greedy.cpu().numpy()
+    wall = time.perf_counter() - t0
+    _check(np.array_equal(greedy, fixed[:, 1:]), "phase 3c: greedy "
+           "generate differs from the fixed-batch launcher")
+    runs = []
+    for _ in range(2):
+        cache, first = start()
+        rec = _Recorder(api)
+        toks, _ = generate(rec, params, cfg, cache, first, steps=n,
+                           start_pos=P, temperature=0.8, top_k=50,
+                           generator=torch.Generator(
+                               device=device).manual_seed(5))
+        runs.append((toks.cpu(), rec.logits))
+    (a, logits), (b, _) = runs
+    _check(torch.equal(a, b), "phase 3c: seeded sampling did not repeat")
+    for i, lg in enumerate(logits):
+        scaled = lg / np.float32(0.8)
+        kth = scaled.sort(dim=-1, descending=True).values[:, 49].cpu()
+        got = scaled.gather(1, a[:, i:i + 1].to(device).long())[:, 0].cpu()
+        _check(bool((got >= kth).all()), f"phase 3c: sampled token {i} "
+               f"outside its row's top 50")
+    distinct = len(set(a.flatten().tolist()))
+    greedy_share = float((a.numpy() == greedy).mean())
+    print(f"[{card}] phase 3c {cfg.name} {B}x{P} prompt: greedy generate of "
+          f"{n} steps equals the fixed-batch launcher bit for bit "
+          f"({wall:.2f} s); sampled (temperature 0.8, top-k 50) twice with "
+          f"one seed: equal, every token in its row's top 50 "
+          f"({distinct} distinct tokens, {greedy_share:.2f} of them the "
+          f"greedy one)")
+
+
+def _phase_swap(card: str, cfg, params, device="cuda") -> dict:
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.launch.serve import _to_request
+    from repro_torch.serve.engine import ForecastEngine
+    trace = _engine_trace(cfg, gen=SWAP["gen"])
+
+    def serve(pool_blocks: int, swap_tier: bool, timed: bool = False):
+        eng = ForecastEngine(cfg, params, num_slots=ENGINE["slots"],
+                             cache_len=ENGINE["cache_len"],
+                             block_size=ENGINE["block_size"],
+                             pool_blocks=pool_blocks, swap_tier=swap_tier,
+                             device=device)
+        prefills = []
+        real_prefill = eng._prefill
+
+        def counted(*a, **k):
+            prefills.append(1)
+            return real_prefill(*a, **k)
+
+        eng._prefill = counted
+        for r in trace:
+            _check(eng.submit(_to_request(r)).ok, "phase 4d: a submit refused")
+        watches = [_Stopwatch(eng, n) for n in
+                   ("_swap_out", "_drain_swaps", "_swap_in")] if timed else []
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            for w in watches:
+                stack.enter_context(w)
+            eng.run(max_steps=2000)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        eng.pool.assert_partition()
+        _check(eng.pool.blocks_in_use == 0, "phase 4d: blocks leaked")
+        _check(not eng.swap, "phase 4d: a swap handle outlived its request")
+        toks = {k: v.tokens.tolist() for k, v in eng.finished.items()}
+        _check(len(toks) == len(trace) and all(
+            len(toks[r["id"]]) == r["max_new_tokens"] for r in trace),
+            "phase 4d: a request did not finish")
+        return eng, toks, len(prefills), wall, watches
+
+    torch.cuda.reset_peak_memory_stats()
+    fd.reset_launches()
+    eng, toks, n_prefill, wall, watches = serve(SWAP["pool_blocks"], True,
+                                                timed=True)
+    launches = dict(fd.LAUNCHES)
+    summ = eng.metrics.summary()
+    _, want, _, wall_full, _ = serve(ENGINE_POOL_BLOCKS, True)
+    off, evicted, _, wall_off, _ = serve(SWAP["pool_blocks"], False)
+    off_summ = off.metrics.summary()
+    _check(summ["swap_outs"] >= 2, f"phase 4d: {summ['swap_outs']} "
+           f"swap-outs, fewer than 2")
+    _check(summ["swap_ins"] == summ["swap_outs"],
+           "phase 4d: swap-ins differ from swap-outs")
+    _check(summ["evictions"] == 0, "phase 4d: the tier on evicted")
+    fresh = len(trace) - summ["full_prompt_hits"]
+    _check(n_prefill == fresh, f"phase 4d: {n_prefill} prefills for "
+           f"{fresh} fresh admissions: a resume recomputed")
+    _check(toks == want, "phase 4d: tokens differ from the full pool's")
+    _check(off_summ["evictions"] >= 1, "phase 4d: the tier off never "
+           "evicted")
+    _check(evicted == want, "phase 4d: the tier-off tokens differ")
+    _check(launches["paged_block_copy"] == summ["cow_copies"],
+           f"phase 4d: {launches['paged_block_copy']} block-copy launches "
+           f"for {summ['cow_copies']} copy-on-write events")
+    _check(launches["flash_decode_paged"] > 0,
+           "phase 4d: the paged flash-decode never launched")
+    out_s, drain_s, in_s = (w.seconds for w in watches)
+    n_out = summ["swap_outs"]
+    print(f"[{card}] phase 4d {cfg.name} full width, swap tier: phase 4's "
+          f"geometry ({ENGINE['slots']} slots, cache {ENGINE['cache_len']}, "
+          f"blocks of {ENGINE['block_size']}) and 12-request trace with "
+          f"{SWAP['gen']} new tokens each, the pool cut "
+          f"{ENGINE_POOL_BLOCKS} -> {SWAP['pool_blocks']} blocks: "
+          f"{summ['parked_events']} parks, {n_out} swap-outs "
+          f"({summ['swap_out_bytes']} B), {summ['swap_ins']} swap-ins "
+          f"({summ['swap_in_bytes']} B), 0 evictions, {n_prefill} prefills "
+          f"for {fresh} fresh admissions; tokens equal the "
+          f"{ENGINE_POOL_BLOCKS}-block pool's and, with the tier off "
+          f"({off_summ['evictions']} evictions), the cut pool's; cow "
+          f"{summ['cow_copies']} = block copies "
+          f"{launches['paged_block_copy']}; paged flash-decode launches "
+          f"{launches['flash_decode_paged']}")
+    print(f"[{card}] phase 4d host clock (synchronized): swap-out "
+          f"{out_s / n_out * 1e3:.2f} ms a lane (gather + release) + drain "
+          f"{drain_s / n_out * 1e3:.2f} ms (copy to pinned host), swap-in "
+          f"{in_s / summ['swap_ins'] * 1e3:.2f} ms (grant + insert); runs "
+          f"{wall:.1f} s (cut, tier on, timed), {wall_full:.1f} s (full "
+          f"pool), {wall_off:.1f} s (cut, tier off, "
+          f"{off_summ['decode_steps']} decode steps against "
+          f"{summ['decode_steps']}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return {k: launches[k] for k in ("flash_decode_paged",
+                                     "paged_block_copy")}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the federated fit at full width
 # ---------------------------------------------------------------------------
 
@@ -1393,12 +1714,14 @@ class _HopRecorder:
 class _Stopwatch:
     """Wraps ``module.name`` during a run and sums the wall time of its
     calls, each closed by ``torch.cuda.synchronize()`` so that the device
-    work they queued is inside; ``first`` is when the first call began."""
+    work they queued is inside; ``first`` is when the first call began,
+    ``laps`` each call's (start, end)."""
 
     def __init__(self, module, name: str):
         self.module, self.name = module, name
         self.real = getattr(module, name)
         self.seconds, self.calls, self.first = 0.0, 0, None
+        self.laps = []
 
     def __enter__(self):
         setattr(self.module, self.name, self)
@@ -1414,7 +1737,8 @@ class _Stopwatch:
             self.first = t0
         out = self.real(*args, **kw)
         torch.cuda.synchronize()
-        self.seconds += time.perf_counter() - t0
+        self.laps.append((t0, time.perf_counter()))
+        self.seconds += self.laps[-1][1] - t0
         self.calls += 1
         return out
 
@@ -1524,6 +1848,105 @@ def phase_fit(card: str) -> dict:
         _check(len(recorder.calls) > 0, f"fit {wire}: no hop recorded")
         del res, recorder
     return launches
+
+
+# Phase 5b: the paper's two-phase pipeline on phase 5's cut schedule.
+TWO_PHASE = dict(rounds_sft=1, rounds_forecast=1, dpo_steps=4, batch_size=4)
+
+
+def phase_two_phase(card: str, device="cuda") -> dict:
+    """``two_phase_fit`` (SFT rounds, DPO alignment, forecasting rounds) at
+    fedtime-llama2-7b's widths on the int8 wire, then
+    ``evaluate_forecaster``.  The hop launch counts are set to 0 just
+    before it and read just after; returns them."""
+    from repro_torch import tree as tree_util
+    from repro_torch.core import dpo, fedtime
+    from repro_torch.dist import fedcomm
+    from repro_torch.kernels import wire_hop as wh
+    from repro_torch.train import fed_trainer
+    from repro_torch.train.trainer import evaluate_forecaster
+    cfg = _fit_config()
+    cdata, xte, yte = _fit_data(cfg.fedtime)
+    losses, aligned = [], []
+    real_loss, real_update = dpo.dpo_loss, fed_trainer.local_update
+
+    def recorded(*a, **k):
+        loss = real_loss(*a, **k)
+        losses.append(loss.detach())
+        return loss
+
+    def update(loss_fn, base, adapters, batches, **k):
+        """The DPO stage's call (its batch holds preference pairs) keeps
+        the adapters it started from (the SFT fedavg) and those it ends
+        with."""
+        if "y_w" not in batches:
+            return real_update(loss_fn, base, adapters, batches, **k)
+        before = tree_util.map_(torch.clone, adapters)
+        out = real_update(loss_fn, base, adapters, batches, **k)
+        aligned.append((before, out[0]))
+        return out
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wh.reset_launches()
+    dpo.dpo_loss, fed_trainer.local_update = recorded, update
+    t0 = time.perf_counter()
+    try:
+        with _Stopwatch(fed_trainer, "federated_fit") as fits, \
+                _Stopwatch(fedcomm, "quantize_update") as wires:
+            res = fed_trainer.two_phase_fit(cfg, cdata, wire="int8", seed=0,
+                                            device=device, **TWO_PHASE)
+            torch.cuda.synchronize()
+    finally:
+        dpo.dpo_loss, fed_trainer.local_update = real_loss, real_update
+    wall = time.perf_counter() - t0
+    n = dict(wh.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _check(len(fits.laps) == 2, "phase 5b: not two federated fits")
+    (s0, s1), (f0, f1) = fits.laps
+    dpo_l = [float(l) for l in losses]
+    _check(len(dpo_l) == TWO_PHASE["dpo_steps"], "phase 5b: DPO steps")
+    first_err = abs(dpo_l[0] - float(np.log(2.0)))
+    _check(first_err <= 1e-6, f"phase 5b: dpo_loss(p, p) before the first "
+           f"DPO step is {dpo_l[0]}, {first_err} from ln 2")
+    round_l = [l.train_loss for l in res.logs]
+    _check(all(np.isfinite(round_l + dpo_l)), f"phase 5b: losses "
+           f"{round_l}, DPO {dpo_l}")
+    # a step left undone reads ln 2 again, a wrong-signed one more than it
+    _check(dpo_l[1] < dpo_l[0], f"phase 5b: the first DPO step did not "
+           f"lower the loss ({dpo_l[0]} -> {dpo_l[1]})")
+    _check(len(aligned) == 1, f"phase 5b: {len(aligned)} DPO stages")
+    before, after = aligned[0]
+    moved = max(float((a.float() - b.float()).abs().max()) for a, b in
+                zip(tree_util.leaves(after), tree_util.leaves(before)))
+    _check(moved > 0, "phase 5b: the aligned adapters equal the SFT "
+           "fedavg")
+    _check(len(res.logs) == 2 * cfg.fedtime.num_clusters,
+           "phase 5b: round logs")
+    _check(n["wire_hop_int8"] == wires.calls > 0 and n["wire_hop_bf16"] == 0,
+           f"phase 5b: {n} hop launches for {wires.calls} uploads")
+    metrics = evaluate_forecaster(lambda p, x: fedtime.forward(p, cfg, x),
+                                  res.params_for_cluster(0), xte, yte)
+    _check(all(np.isfinite(v) for v in metrics.values()),
+           f"phase 5b: metrics {metrics}")
+    _check(peak < 80, f"phase 5b: peak device memory {peak:.2f} GiB")
+    print(f"[{card}] phase 5b two_phase_fit {cfg.name} full width, phase "
+          f"5's cut schedule, {TWO_PHASE}, int8 wire: SFT round losses "
+          f"{[round(l, 4) for l in round_l[:len(round_l) // 2]]}, DPO "
+          f"losses {[round(l, 6) for l in dpo_l]} (the first "
+          f"{first_err:.2g} from ln 2; the aligned adapters moved up to "
+          f"{moved:.3g} off the SFT fedavg), forecast round losses "
+          f"{[round(l, 4) for l in round_l[len(round_l) // 2:]]}; "
+          f"{wires.calls} uploads = {n['wire_hop_int8']} hop launches; test "
+          f"MSE {metrics['mse']:.4f} MAE {metrics['mae']:.4f}; peak device "
+          f"memory {peak:.2f} GiB")
+    print(f"[{card}] phase 5b host clock (synchronized): SFT fit "
+          f"{s1 - s0:.2f} s, fedavg + merge + {TWO_PHASE['dpo_steps']} DPO "
+          f"steps {f0 - s1:.2f} s, forecast fit {f1 - f0:.2f} s, "
+          f"{wall:.2f} s in all")
+    del res
+    torch.cuda.empty_cache()
+    return {"wire_hop_int8": n["wire_hop_int8"]}
 
 
 def _fit_reference(card: str) -> None:
@@ -1670,6 +2093,7 @@ def main() -> None:
 
     served = {SERVED[0]: phase_main_path(card, SERVED[0])}
     chaos_launches = phase_chaos(card)
+    extras = phase_serving_extras(card)
     served.update({arch: phase_main_path(card, arch) for arch in SERVED[1:]})
     launches = dict(served[SERVED[0]])
     for name in ("flash_decode", "flash_decode_paged", "paged_block_copy"):
@@ -1677,8 +2101,15 @@ def main() -> None:
             rows[name][arch]["launches"] = served[arch][name]
         rows[name]["fault_tolerant_engine"] = {
             "launches": chaos_launches[name]}
+    rows["flash_decode"]["generate"] = {
+        "launches": extras["generate"]["flash_decode"]}
+    for name in ("flash_decode_paged", "paged_block_copy"):
+        rows[name]["swap_tier_engine"] = {
+            "launches": extras["swap_tier_engine"][name]}
 
     launches.update(phase_fit(card))
+    rows["wire_hop_int8"]["two_phase_fit"] = {
+        "launches": phase_two_phase(card)["wire_hop_int8"]}
     launches.update(ops_launches)
     torch.cuda.empty_cache()
 

@@ -21,10 +21,13 @@ with cost-aware load shedding, ``--deadline-s`` / ``--ttft-slo-s`` set
 default SLOs (cancelled mid-decode on a miss), ``--journal PATH`` arms the
 write-ahead request journal (the port's own format, see
 ``serve/journal.py``), and ``--virtual-clock`` / ``--step-time-s`` run the
-SLO clock deterministically.  Shed and quarantine verdicts print a line
-each.  ``--trace-out PATH`` writes the run's ``repro_torch.obs`` timeline
-as Chrome trace-event JSON (Perfetto, chrome://tracing); ``--flight-out
-PATH`` arms the flight recorder's post-mortem dump instead.
+SLO clock deterministically.  ``--no-swap-tier`` turns off the host swap
+tier (on by default for the paged pool, as ``REPRO_SWAP_TIER=0`` does): a
+displaced lane is then recomputed instead of restored.  Shed and
+quarantine verdicts print a line each.  ``--trace-out PATH`` writes the
+run's ``repro_torch.obs`` timeline as Chrome trace-event JSON (Perfetto,
+chrome://tracing); ``--flight-out PATH`` arms the flight recorder's
+post-mortem dump instead.
 
 Weights are random, drawn from ``--seed``.  Everything runs on ``cuda``
 unless ``--device cpu`` is given (plain PyTorch versions of the kernels; a
@@ -105,9 +108,9 @@ def run_engine(cfg, params, trace, *, slots: int, cache_len: int,
                max_tokens_in_flight: int = 0, prefill_chunk: int = 0,
                prefill_bucket: int = 0, paged: bool = True,
                block_size: int = 0, pool_blocks: int = 0,
-               share_prefixes=None, max_queue=None, deadline_s=None,
-               ttft_slo_s=None, journal=None, clock=None, step_time_s=None,
-               device="cuda", quiet: bool = False):
+               share_prefixes=None, swap_tier=None, max_queue=None,
+               deadline_s=None, ttft_slo_s=None, journal=None, clock=None,
+               step_time_s=None, device="cuda", quiet: bool = False):
     """Serve ``trace`` (dicts as ``make_trace`` gives) through one engine;
     returns (finished, metrics summary, engine)."""
     from repro_torch.serve.engine import ForecastEngine
@@ -119,7 +122,7 @@ def run_engine(cfg, params, trace, *, slots: int, cache_len: int,
                             paged=paged, block_size=block_size,
                             pool_blocks=pool_blocks,
                             share_prefixes=share_prefixes,
-                            max_queue=max_queue,
+                            swap_tier=swap_tier, max_queue=max_queue,
                             default_deadline_s=deadline_s,
                             default_ttft_slo_s=ttft_slo_s, journal=journal,
                             clock=clock, step_time_s=step_time_s,
@@ -158,11 +161,13 @@ def run_engine(cfg, params, trace, *, slots: int, cache_len: int,
                   f"deadline miss rate {summ['deadline_miss_rate']:.3f}"
                   + (f", journal {engine.journal.path}"
                      if engine.journal is not None else ""))
-        if engine.share_prefixes:
+        if engine.paged and (engine.share_prefixes or engine.swap_tier):
             print(f"        prefix sharing: {summ['share_hits']} hits "
                   f"({summ['full_prompt_hits']} full-prompt, "
                   f"{summ['shared_blocks']} blocks shared, "
-                  f"{summ['cow_copies']} CoW copies)")
+                  f"{summ['cow_copies']} CoW copies), swap tier: "
+                  f"{summ['swap_outs']} out / {summ['swap_ins']} in "
+                  f"({summ['swap_out_bytes']} B out)")
     return done, summ, engine
 
 
@@ -258,6 +263,14 @@ def main() -> None:
     ap.add_argument("--no-share-prefixes", dest="share_prefixes",
                     action="store_const", const=False, default=None,
                     help="disable copy-on-write prefix sharing")
+    ap.add_argument("--swap-tier", dest="swap_tier", action="store_const",
+                    const=True, default=None,
+                    help="host-memory swap tier for displaced lanes "
+                         "(default on for paged pools; REPRO_SWAP_TIER=0 "
+                         "disables)")
+    ap.add_argument("--no-swap-tier", dest="swap_tier", action="store_const",
+                    const=False,
+                    help="disable the swap tier (displaced lanes recompute)")
     # fault tolerance (engine mode; see repro_torch.serve.engine)
     ap.add_argument("--max-queue", type=int, default=0,
                     help="bounded submit queue: backpressure sheds the "
@@ -325,6 +338,7 @@ def main() -> None:
                    prefill_bucket=args.prefill_bucket, paged=args.paged,
                    block_size=args.block_size, pool_blocks=args.pool_blocks,
                    share_prefixes=args.share_prefixes,
+                   swap_tier=args.swap_tier,
                    max_queue=args.max_queue or None,
                    deadline_s=args.deadline_s, ttft_slo_s=args.ttft_slo_s,
                    journal=args.journal or None, clock=clock,

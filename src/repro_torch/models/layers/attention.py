@@ -1,5 +1,6 @@
 """Attention: GQA + qk-norm + logit softcap + sliding window + prefix-LM,
-with a ring-buffer (or paged-pool) KV cache for decode.
+with a memory-bounded blockwise (online-softmax) path for long sequences
+and a ring-buffer (or paged-pool) KV cache for decode.
 
 Position-based masking: every mask is derived from the absolute positions
 of the query rows (``q_pos``) and of the KV slots (``kv_pos``); a slot with
@@ -15,6 +16,7 @@ from __future__ import annotations
 import os
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers.embeddings import apply_rope
@@ -73,23 +75,49 @@ def _mask(q_pos, kv_pos, kind: str, window: int, prefix_len):
     return m & valid
 
 
+def _dequant_kv(x, scale, dtype):
+    return (x.float() * scale.float()).to(dtype)
+
+
+def _scores(q, k, softcap: float):
+    """q (B, Sq, Hk, G, D), k (B, Skv, Hk, D) -> (B, Hk, G, Sq, Skv) f32."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float())
+    s = s * q.shape[-1] ** -0.5
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    return s
+
+
 def sdpa(q, k, v, *, q_pos, kv_pos, kind: str = "causal", window: int = 0,
-         prefix_len=None, softcap: float = 0.0):
-    """Naive scaled dot-product attention with f32 scores and softmax.
+         prefix_len=None, softcap: float = 0.0, block_q: int = 0,
+         block_kv: int = 0, k_scale=None, v_scale=None):
+    """Scaled dot-product attention with f32 scores and softmax.
 
     q: (B, Sq, H, D); k, v: (B, Skv, Hk, D); returns (B, Sq, H, D) in
-    q.dtype.  The reference's blockwise path for 4k+ prefills is not ported
-    yet.
+    q.dtype.  ``block_kv`` > 0 (and Skv over it) selects the blockwise path
+    of the reference: Q blocks of ``block_q`` rows, each an online softmax
+    in f32 over KV blocks of ``block_kv`` slots, so no (Sq, Skv) score
+    tensor is built.  Ragged tails are padded with position -1 (masked;
+    padded Q rows are sliced off).  ``k_scale``/``v_scale`` ((B, Skv, Hk,
+    1)) mark int8 k/v, dequantized one KV block at a time.  A fully masked
+    row gives exactly 0 on both paths.
+
+    Plain PyTorch on every device: the reference computes this in plain
+    jnp, outside any Pallas kernel.
     """
     B, Sq, H, D = q.shape
     Hk = k.shape[2]
     G = H // Hk
     q_pos = _as_b(q_pos, B, q.device)
     kv_pos = _as_b(kv_pos, B, q.device)
-    qg = q.reshape(B, Sq, Hk, G, D)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * D ** -0.5
-    if softcap > 0:
-        s = softcap * torch.tanh(s / softcap)
+    if block_kv > 0 and k.shape[1] > block_kv:
+        return _sdpa_blockwise(q, k, v, q_pos, kv_pos, kind, window,
+                               prefix_len, softcap, block_q, block_kv,
+                               k_scale, v_scale)
+    if k_scale is not None:
+        k = _dequant_kv(k, k_scale, q.dtype)
+        v = _dequant_kv(v, v_scale, q.dtype)
+    s = _scores(q.reshape(B, Sq, Hk, G, D), k, softcap)
     m = _mask(q_pos, kv_pos, kind, window, prefix_len)
     s = torch.where(m, s, torch.full_like(s, _NEG_INF))
     p = torch.softmax(s, dim=-1)
@@ -98,6 +126,75 @@ def sdpa(q, k, v, *, q_pos, kv_pos, kind: str = "causal", window: int = 0,
                     torch.zeros_like(p)).to(q.dtype)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(q.dtype))
     return o.reshape(B, Sq, H, D)
+
+
+def _causal_live_blocks(q_pos, kv_pos, kind, block_q, block_kv):
+    """Under the causal mask, ``live[i][j]`` is False where no query of Q
+    block i sees a slot of KV block j (every valid slot lies after the Q
+    block's last position, or there is none): such a block is an exact
+    no-op of the online softmax (p = 0, corr = 1), so skipping it changes
+    no bit.  One host read of the positions; None for other kinds."""
+    if kind != "causal":
+        return None
+    B = q_pos.shape[0]
+    q_last = q_pos.reshape(B, -1, block_q).amax(dim=(0, 2))
+    none = torch.iinfo(kv_pos.dtype).max
+    kv_first = torch.where(kv_pos >= 0, kv_pos, torch.full_like(
+        kv_pos, none)).reshape(B, -1, block_kv).amin(dim=(0, 2))
+    return (kv_first[None, :] <= q_last[:, None]).tolist()
+
+
+def _sdpa_blockwise(q, k, v, q_pos, kv_pos, kind, window, prefix_len,
+                    softcap, block_q, block_kv, k_scale, v_scale):
+    B, Sq, H, D = q.shape
+    Hk = k.shape[2]
+    G = H // Hk
+    pad_kv = -k.shape[1] % block_kv
+    if pad_kv:
+        pad4 = (0, 0, 0, 0, 0, pad_kv)
+        k, v = F.pad(k, pad4), F.pad(v, pad4)
+        kv_pos = F.pad(kv_pos, (0, pad_kv), value=-1)
+        if k_scale is not None:
+            k_scale, v_scale = F.pad(k_scale, pad4), F.pad(v_scale, pad4)
+    if block_q <= 0 or Sq < block_q:
+        block_q = Sq
+    pad_q = -Sq % block_q
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+        q_pos = F.pad(q_pos, (0, pad_q), value=-1)
+    Sq_pad, Skv_pad = q.shape[1], k.shape[1]
+    qg = q.reshape(B, Sq_pad, Hk, G, D)
+    out = torch.empty((B, Sq_pad, Hk, G, D), dtype=q.dtype, device=q.device)
+    live = _causal_live_blocks(q_pos, kv_pos, kind, block_q, block_kv)
+    for i in range(0, Sq_pad, block_q):
+        qb, qpb = qg[:, i:i + block_q], q_pos[:, i:i + block_q]
+        m_run = torch.full((B, Hk, G, block_q), _NEG_INF, device=q.device)
+        l_run = torch.zeros((B, Hk, G, block_q), device=q.device)
+        acc = torch.zeros((B, Hk, G, block_q, D), device=q.device)
+        for j in range(0, Skv_pad, block_kv):
+            if live is not None and not live[i // block_q][j // block_kv]:
+                continue
+            kb, vb = k[:, j:j + block_kv], v[:, j:j + block_kv]
+            if k_scale is not None:           # dequantized a block at a time
+                kb = _dequant_kv(kb, k_scale[:, j:j + block_kv], q.dtype)
+                vb = _dequant_kv(vb, v_scale[:, j:j + block_kv], q.dtype)
+            msk = _mask(qpb, kv_pos[:, j:j + block_kv], kind, window,
+                        prefix_len)
+            s = torch.where(msk, _scores(qb, kb, softcap),
+                            torch.full((), _NEG_INF, device=q.device))
+            m_new = torch.maximum(m_run, s.amax(dim=-1))
+            # masked slots add exactly 0, so a row with no valid slot keeps
+            # l = 0 and comes out 0
+            p = torch.where(msk, torch.exp(s - m_new[..., None]),
+                            torch.zeros((), device=q.device))
+            corr = torch.exp(m_run - m_new)
+            l_run = l_run * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p.to(vb.dtype), vb).float()
+            m_run = m_new
+        o = acc / torch.clamp(l_run, min=1e-30)[..., None]
+        out[:, i:i + block_q] = o.permute(0, 3, 1, 2, 4).to(q.dtype)
+    return out.reshape(B, Sq_pad, H, D)[:, :Sq]
 
 
 def _project_qkv(params, cfg, x, positions):
@@ -115,12 +212,14 @@ def _project_qkv(params, cfg, x, positions):
 
 
 def attention(params, cfg, x, *, positions, kind: str = "causal",
-              window: int = 0, prefix_len=None, return_kv: bool = False):
+              window: int = 0, prefix_len=None, block_q: int = 0,
+              block_kv: int = 0, return_kv: bool = False):
     """Full-sequence self-attention. x: (B, S, d) -> (B, S, d)."""
     q, k, v = _project_qkv(params, cfg, x, positions)
     o = sdpa(q, k, v, q_pos=positions, kv_pos=positions, kind=kind,
              window=window, prefix_len=prefix_len,
-             softcap=cfg.attn_logit_softcap)
+             softcap=cfg.attn_logit_softcap, block_q=block_q,
+             block_kv=block_kv)
     B, S = x.shape[0], x.shape[1]
     y = dense(params["wo"], o.reshape(B, S, -1))
     if return_kv:

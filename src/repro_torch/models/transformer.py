@@ -25,6 +25,13 @@ from repro_torch.models.layers.norms import init_rmsnorm, rmsnorm
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
+# Sequence length at or above which attention takes the blockwise
+# online-softmax path (memory-bounded), and its block sizes: the
+# reference's values.  Read at each call.
+BLOCKWISE_THRESHOLD = 4096
+BLOCK_Q = 512
+BLOCK_KV = 2048
+
 
 def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
@@ -83,14 +90,21 @@ def layer(tree, i: int):
 # Blocks and the full-sequence trunk
 # ---------------------------------------------------------------------------
 
+def _blocks_for(S: int):
+    """(block_q, block_kv) for a sequence of ``S``: the blockwise path's at
+    ``BLOCKWISE_THRESHOLD`` and over, (0, 0) (naive) below it."""
+    return (BLOCK_Q, BLOCK_KV) if S >= BLOCKWISE_THRESHOLD else (0, 0)
+
+
 def _block(p, cfg: ModelConfig, x, *, positions, window, kind="causal",
            prefix_len=None, capture=None):
     """One pre-norm block.  With ``capture`` (a list) the layer's post-RoPE
     (k, v) is appended to it (prefill)."""
     a_in = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
+    bq, bkv = _blocks_for(x.shape[1])
     h = attention(p["attn"], cfg, a_in, positions=positions, kind=kind,
-                  window=window, prefix_len=prefix_len,
-                  return_kv=capture is not None)
+                  window=window, prefix_len=prefix_len, block_q=bq,
+                  block_kv=bkv, return_kv=capture is not None)
     if capture is not None:
         h, kv = h
         capture.append(kv)

@@ -24,8 +24,12 @@ cites it.  Sharing is safe because every prompt starts at position 0,
 decode writes precede reads at the same position, and stale future slots
 of a shared tail block are excluded by the causal / ring-validity mask.
 
-The pools update their tensors in place.  The reference's host swap tier
-(``gather_lane``) is not ported yet: displaced lanes recompute.
+Host swap tier: ``gather_lane`` snapshots a lane's logical ring as the
+leaves of a batch-1 prefill cache, ``(L, 1, ring_len, ...)``, so that
+``insert`` takes the snapshot back unchanged on swap-in, into whatever
+slot and blocks the lane is granted then.
+
+The pools update their tensors in place.
 """
 
 from __future__ import annotations
@@ -249,6 +253,11 @@ class PagedCachePool(_LanePool):
         """Blocks covering ring slots [0, extent)."""
         return -(-min(extent, self.ring_len) // self.block_size)
 
+    def lane_blocks(self, slot: int) -> int:
+        """Physical blocks lane ``slot``'s table row maps, shared ones
+        included (the bytes a swap-out accounts)."""
+        return int((self.table[slot] >= 0).sum())
+
     @property
     def block_bytes(self) -> int:
         """Device bytes of one physical block across every leaf and layer."""
@@ -281,8 +290,9 @@ class PagedCachePool(_LanePool):
         return b
 
     def grant_tail(self, slot: int, start: int, n: int) -> List[int]:
-        """Admission grant of logical blocks [start, start+n); PoolExhausted
-        without side effects when the pool cannot cover it."""
+        """Admission (or swap-in, from 0) grant of logical blocks
+        [start, start+n); PoolExhausted without side effects when the pool
+        cannot cover it."""
         if n <= 0:
             return []
         ids = self.allocator.alloc(n)
@@ -391,6 +401,31 @@ class PagedCachePool(_LanePool):
         if self.allocator.decref(old):
             self._drop_chains_of(old)
         return old, new
+
+    # -- swap tier -----------------------------------------------------------
+
+    def gather_lane(self, slot: int) -> dict:
+        """Snapshot of lane ``slot``'s logical ring: every leaf gathered
+        from the lane's physical blocks into a new tensor of leaves
+        ``(L, 1, ring_len, ...)``.  Ungranted logical blocks gather block 0
+        with their ``kv_pos`` forced to -1, so a re-insert revalidates
+        nothing stale.  The gather is queued on the device before the
+        caller releases the blocks, so later writes cannot reach it."""
+        row = torch.as_tensor(self.table[slot].astype(np.int64),
+                              device=self.device)
+        safe = row.clamp(min=0)
+        T = self.blocks_per_slot
+        out = {}
+        for name, leaf in self.cache.items():
+            y = leaf.index_select(1, safe)             # (L, T, bs, ...)
+            out[name] = y.reshape((leaf.shape[0], 1, T * self.block_size)
+                                  + tuple(leaf.shape[3:]))
+        granted = (row >= 0)[None, :, None].expand(
+            self.cache["kv_pos"].shape[0], T, self.block_size)
+        kvp = out["kv_pos"].reshape(granted.shape)
+        out["kv_pos"] = torch.where(granted, kvp, torch.full_like(kvp, -1)
+                                    ).reshape(out["kv_pos"].shape)
+        return out
 
     # -- data path ----------------------------------------------------------
 

@@ -13,7 +13,17 @@ per-lane block tables; ``paged=False`` gives contiguous lanes).  Paged
 decode grants blocks on demand as a request's write position crosses a
 block boundary; on pool exhaustion the request parks (its lane masked
 inactive) until frees arrive, and if every resident is parked the youngest
-is evicted and recomputed later, so the engine never livelocks.
+leaves the pool, so the engine never livelocks.
+
+Swap tier (``swap_tier``, default on for paged pools; ``REPRO_SWAP_TIER=0``
+turns it off): the lane that leaves is snapshotted on the device
+(``PagedCachePool.gather_lane``, queued before its blocks are released),
+drained to pinned host memory after the tick's decode without a host wait,
+and requeued; on re-admission the snapshot is re-inserted into freshly
+granted blocks, in whatever slot is free, and decode continues bit for bit
+where it stopped, with no prefill and no re-decode.  Evict-and-recompute
+(``_evict``) remains the fallback with the tier off, or when a swapped
+request's handle is gone.
 
 Prefix sharing (``share_prefixes``, default on for paged pools): a
 whole-prompt hit maps every prefix block read-only and skips prefill (the
@@ -69,9 +79,6 @@ each tick's decode is an ``engine.decode_step`` span (a
 ``torch.profiler.record_function`` range too) with a ``pool`` counter
 track.  Exactly one ``req.lifecycle`` span goes out for each finished
 request, so a trace's lifecycle count equals ``requests_finished``.
-
-Not ported yet: the reference's host swap tier (``swap_tier`` raises
-``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -117,9 +124,6 @@ class ForecastEngine:
                  default_deadline_s: Optional[float] = None,
                  default_ttft_slo_s: Optional[float] = None,
                  journal=None, device="cuda"):
-        if swap_tier:
-            raise NotImplementedError("engine option not ported yet: "
-                                      "swap_tier")
         self.cfg = cfg
         self.params = params
         self.api = get_model(cfg)
@@ -134,13 +138,22 @@ class ForecastEngine:
                                        force_window=force_window,
                                        device=device)
         else:
-            if block_size or pool_blocks or share_prefixes:
-                raise ValueError("block_size/pool_blocks/share_prefixes "
-                                 "require the paged pool")
+            if block_size or pool_blocks or share_prefixes or swap_tier:
+                raise ValueError("block_size/pool_blocks/share_prefixes/"
+                                 "swap_tier require the paged pool")
             self.pool = CachePool(cfg, num_slots, cache_len,
                                   force_window=force_window, device=device)
         self.share_prefixes = bool(self.paged and (
             share_prefixes if share_prefixes is not None else True))
+        self.swap_tier = bool(self.paged and (
+            swap_tier if swap_tier is not None
+            else os.environ.get("REPRO_SWAP_TIER", "1") != "0"))
+        # swapped-out lanes: request id -> {"cache": leaves, "pos", "ready"};
+        # the leaves start as device gathers and are drained to pinned host
+        # buffers after the tick's decode (``ready``: the event after that
+        # copy)
+        self.swap: Dict[str, dict] = {}
+        self._swap_pending: List[str] = []
         # per-request submit sequence: multi-eviction ticks requeue in this
         # order, so FIFO survives same-tick victims (resumes keep the id)
         self._seq: Dict[str, int] = {}
@@ -315,6 +328,7 @@ class ForecastEngine:
             self.journal.commit()
         if self.clock is not None:
             self.clock.advance(self.step_time_s)
+        self._drain_swaps()
 
     def run(self, max_steps: int = 0) -> Dict[str, FinishedRequest]:
         """Drive steps until every submitted request retires."""
@@ -438,9 +452,12 @@ class ForecastEngine:
                 self._retire(st, kind)
 
     def _cancel_queued(self, req: Request, kind: str, now: float) -> None:
-        """SLO-cancel a request that is not resident: finish it with what
-        it generated in earlier residencies, audit the miss."""
+        """SLO-cancel a request that is not resident: drop its swap handle,
+        finish it with what it generated in earlier residencies, audit the
+        miss."""
         res = req.resume or {}
+        if res.get("swap") in self.swap:
+            self.swap.pop(res["swap"])
         gen = [int(t) for t in res.get("generated", [])]
         t0 = self._slo_submit.pop(req.id, None)
         self.metrics.record_deadline_miss(ttft=kind == "ttft_slo")
@@ -486,7 +503,10 @@ class ForecastEngine:
     def _admit_blocks(self, req: Request) -> int:
         """Paged admission price: blocks covering the prefill extent, minus
         the blocks a live prefix chain already holds (a whole-prompt hit is
-        free)."""
+        free).  A swapped lane prices its saved extent."""
+        res = req.resume or {}
+        if self.swap_tier and res.get("swap") in self.swap:
+            return self.pool.blocks_for(self.swap[res["swap"]]["pos"])
         prompt = self._prefill_prompt(req)
         need = self.pool.blocks_for(self._bucketed_len(len(prompt)))
         if self.share_prefixes:
@@ -531,6 +551,15 @@ class ForecastEngine:
                      or self._submit_time.get(req.id, t_admit), t_admit,
                      track=track, id=req.id)
         slot = self.pool.acquire()
+        if self.swap_tier and res.get("swap") in self.swap:
+            handle = self.swap.pop(res["swap"])
+            try:
+                self._swap_in(req, slot, handle)
+            except PoolExhausted:              # pool raced below the price
+                self.swap[res["swap"]] = handle
+                self.pool.release(slot)
+                raise
+            return
         prompt = self._prefill_prompt(req)
         P = len(prompt)
         Pb = self._bucketed_len(P)
@@ -634,7 +663,8 @@ class ForecastEngine:
         grant, and a copy that fails otherwise raises); a sole
         owner whose ring wrapped back over indexed prefix content drops
         the stale chains.  Lanes that cannot be granted park.  If nothing
-        is runnable, the youngest parked lane is evicted (recomputed later)
+        is runnable, the youngest parked lane leaves the pool (swapped to
+        the host tier when it is on, evicted to be recomputed otherwise)
         and the pass retries; same-tick victims requeue in one batch in
         submit order."""
         victims: List[Request] = []
@@ -691,7 +721,8 @@ class ForecastEngine:
             # nothing runnable: snapshot the flight recorder before a lane
             # is displaced
             obs.flight_maybe_dump("engine.park_storm")
-            victims.append(self._evict(victim))
+            victims.append(self._swap_out(victim) if self.swap_tier
+                           else self._evict(victim))
         if victims:
             victims.sort(key=lambda r: self._seq.get(r.id, 0))
             self.scheduler.requeue_front(victims)
@@ -752,6 +783,86 @@ class ForecastEngine:
                     generated=len(st.generated))
         obs.flight_maybe_dump("engine.evict")
         return resumed
+
+    # -- swap tier -----------------------------------------------------------
+
+    def _swap_out(self, slot: int) -> Request:
+        """Displace a parked lane without losing its cache: gather its ring
+        on the device before the release (stream order keeps the snapshot
+        from later writes), free the blocks, return the resumed request.
+        The snapshot goes to the host in ``_drain_swaps``."""
+        st = self.slots[slot]
+        req = st.request
+        resumed = self._resume_request(st)
+        resumed.resume["swap"] = req.id
+        lane = self.pool.gather_lane(slot)
+        blocks = self.pool.lane_blocks(slot)
+        nbytes = blocks * self.pool.block_bytes
+        self.swap[req.id] = {"cache": lane, "pos": st.pos, "ready": None}
+        self._swap_pending.append(req.id)
+        self._clear_lane(slot)
+        self.metrics.record_swap_out(nbytes)
+        obs.instant("pool.swap_out", track=f"req:{req.id}", id=req.id,
+                    slot=slot, blocks=blocks, bytes=nbytes,
+                    generated=len(st.generated))
+        return resumed
+
+    def _drain_swaps(self) -> None:
+        """After the tick's decode is queued: copy each new snapshot into
+        pinned host buffers behind it on the stream and record an event
+        after the copies.  Nothing is read back here; a swap-in waits on
+        the event."""
+        while self._swap_pending:
+            handle = self.swap.get(self._swap_pending.pop())
+            if handle is None or self.device.type != "cuda":
+                continue                       # cancelled, or on the host
+            host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                    for k, v in handle["cache"].items()}
+            for k, v in handle["cache"].items():
+                host[k].copy_(v, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+            handle["cache"], handle["ready"] = host, ready
+
+    def _swap_in(self, req: Request, slot: int, handle: dict) -> None:
+        """Re-admit a swapped lane: grant blocks for its saved extent,
+        re-insert the snapshot (after the event that ends its host copy),
+        and restore the batch rows; no prefill, no resample, and the next
+        decode step continues where the lane stopped."""
+        res = req.resume or {}
+        track = f"req:{req.id}"
+        need = self.pool.blocks_for(handle["pos"])
+        self.pool.grant_tail(slot, 0, need)   # PoolExhausted: no effects
+        nbytes = need * self.pool.block_bytes
+        with obs.span("req.swap_in", device=True, track=track, id=req.id,
+                      slot=slot, blocks=need, bytes=nbytes):
+            if handle["ready"] is not None:
+                handle["ready"].synchronize()
+            self.pool.insert({k: v.to(self.device, non_blocking=True)
+                              for k, v in handle["cache"].items()}, slot)
+        prior: List[int] = list(res.get("generated", []))
+        sp = req.sampling
+        pos = int(handle["pos"])
+        # the token fed at ``pos``; a lane swapped while it still
+        # re-decoded journaled tokens keeps the rest of them forced
+        k = pos - int(res["prompt_len"])
+        st = GenState(request=req, slot=slot, pos=pos, generated=prior,
+                      admitted_step=self.step_count,
+                      admitted_time=time.perf_counter(),
+                      forced=prior[k + 1:])
+        st.first_token_time = res.get("first_token_time") or 0.0
+        self.metrics.record_admit(0)
+        self.metrics.record_swap_in(nbytes)
+        obs.instant("pool.swap_in", track=track, id=req.id, slot=slot,
+                    blocks=need, bytes=nbytes)
+        self.slots[slot] = st
+        self._tok[slot, 0] = prior[k]
+        self._pos[slot] = pos
+        self._temp[slot] = sp.temperature
+        self._topk[slot] = sp.top_k
+        self._topp[slot] = sp.top_p
+        self._seed[slot] = sp.seed
+        self._t[slot] = k + 1                 # the next token's sample index
 
     # -- decode / retire -----------------------------------------------------
 

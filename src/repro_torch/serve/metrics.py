@@ -15,6 +15,10 @@ submits), ``shed`` (backpressure rejections), ``deadline_misses`` (SLO
 cancellations of either kind, ``ttft_slo_misses`` the first-token ones)
 and ``quarantined`` (by reason on the dataclass, their total in the
 summary); ``deadline_miss_rate`` is misses over accepted submits.
+
+The swap tier counts lanes and bytes: ``swap_outs`` / ``swap_out_bytes``
+(lanes snapshotted to the host, device bytes their blocks held) and
+``swap_ins`` / ``swap_in_bytes`` (lanes restored, bytes re-inserted).
 """
 
 from __future__ import annotations
@@ -51,6 +55,10 @@ class EngineMetrics:
     shared_blocks: int = 0                    # blocks mapped, not allocated
     cow_copies: int = 0
     cow_bytes: int = 0
+    swap_outs: int = 0
+    swap_out_bytes: int = 0
+    swap_ins: int = 0
+    swap_in_bytes: int = 0
     frag_sum: float = 0.0                     # sum over steps of pool frag
     peak_fragmentation: float = 0.0
     ttft_s: List[float] = dataclasses.field(default_factory=list)
@@ -101,6 +109,14 @@ class EngineMetrics:
     def record_cow(self, nbytes: int) -> None:
         self.cow_copies += 1
         self.cow_bytes += nbytes
+
+    def record_swap_out(self, nbytes: int) -> None:
+        self.swap_outs += 1
+        self.swap_out_bytes += nbytes
+
+    def record_swap_in(self, nbytes: int) -> None:
+        self.swap_ins += 1
+        self.swap_in_bytes += nbytes
 
     def record_finish(self, ttft_s: Optional[float] = None) -> None:
         """``ttft_s=None`` counts the finish without a TTFT sample: an SLO
@@ -163,6 +179,10 @@ class EngineMetrics:
             "shared_blocks": self.shared_blocks,
             "cow_copies": self.cow_copies,
             "cow_bytes": self.cow_bytes,
+            "swap_outs": self.swap_outs,
+            "swap_out_bytes": self.swap_out_bytes,
+            "swap_ins": self.swap_ins,
+            "swap_in_bytes": self.swap_in_bytes,
             "mean_fragmentation": self.frag_sum / steps if steps else 0.0,
             "peak_fragmentation": self.peak_fragmentation,
             "requests_submitted": self.requests_submitted,

@@ -1,14 +1,18 @@
 """Token sampling: greedy / temperature / top-k / top-p (nucleus).
 
-The reference draws from ``jax.random`` keys; the port draws from one
-``torch.Generator`` per row.  The two streams differ, so the tests compare
-masks and distributions, not sampled tokens.
+The reference draws from ``jax.random`` keys; the port draws from an
+explicit ``torch.Generator`` (``sample``, ``generate``) or one per row
+(``sample_vec``).  The two streams differ, so the tests compare masks and
+distributions, not sampled tokens.  Every sampler draws by the Gumbel-max
+rule over its masked logits, and decodes greedily where the temperature
+is 0 in f32.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 _NEG = torch.finfo(torch.float32).min
@@ -16,6 +20,52 @@ _NEG = torch.finfo(torch.float32).min
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
     return logits.argmax(dim=-1).to(torch.int32)
+
+
+def sample(logits: torch.Tensor, *, temperature: float = 1.0,
+           top_k: int = 0, top_p: float = 0.0,
+           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """logits (B, V) -> tokens (B,) int32, one setting for every row.
+
+    Greedy at ``temperature`` <= 0 (in f32); the masks are
+    ``masked_logits``' (a temperature under 1e-6 taken as 1e-6, ``top_k``
+    clamped to the vocab, no nucleus cut at ``top_p`` >= 1).  One (B, V)
+    draw from ``generator`` (the device's default generator when None)."""
+    logits = logits.float()
+    if float(np.float32(temperature)) <= 0.0:
+        return greedy(logits)
+    B, V = logits.shape
+    dev = logits.device
+    # the settings as device rows (a fill, not a host-to-device copy)
+    lg = masked_logits(logits, temperature=torch.full((B,), temperature,
+                                                      device=dev),
+                       top_k=torch.full((B,), int(top_k), device=dev),
+                       top_p=torch.full((B,), top_p, device=dev))
+    u = torch.rand((B, V), generator=generator, device=dev)
+    u = u.clamp_(min=torch.finfo(torch.float32).tiny)
+    return (lg - torch.log(-torch.log(u))).argmax(dim=-1).to(torch.int32)
+
+
+def generate(api, params, cfg, cache, first_token, *, steps: int,
+             start_pos: int, generator: Optional[torch.Generator] = None,
+             temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
+             force_window: int = 0):
+    """Autoregressive loop over ``api.decode_step`` from a prefill's cache
+    (the contiguous ring: the ring flash-decode kernel on the card).
+
+    first_token: (B, 1) int from the prefill; the token at step i is fed at
+    position ``start_pos + i``.  Returns (tokens (B, steps) int32, cache);
+    the cache is updated in place."""
+    tok = first_token.to(torch.int32)
+    out = []
+    for i in range(steps):
+        logits, cache = api.decode_step(
+            params, cfg, cache, {"token": tok, "pos": start_pos + i},
+            force_window=force_window)
+        tok = sample(logits[:, -1, :], temperature=temperature, top_k=top_k,
+                     top_p=top_p, generator=generator)[:, None]
+        out.append(tok)
+    return torch.cat(out, dim=1), cache
 
 
 def row_generator(seed: int, t: int, device) -> torch.Generator:

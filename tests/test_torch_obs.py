@@ -243,7 +243,7 @@ def test_engine_trace_matches_reference(monkeypatch):
     tracks, counts = [], []
     for mod, Engine, Req, kw in (
             (jobs, JaxEngine, JaxRequest,
-             dict(params=jparams, cfg=jcfg, swap_tier=False)),
+             dict(params=jparams, cfg=jcfg)),
             (obs, ForecastEngine, Request,
              dict(params=params, cfg=cfg, device="cpu"))):
         mod.reset()

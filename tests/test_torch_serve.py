@@ -101,8 +101,7 @@ def test_trace_matches_reference_launcher(dense):
 def test_engine_greedy_matches_jax_engine(dense):
     jcfg, jparams, cfg, params = dense
     trace = _trace(cfg)
-    jeng = JaxEngine(jcfg, jparams, num_slots=4, cache_len=CACHE_LEN,
-                     swap_tier=False)
+    jeng = JaxEngine(jcfg, jparams, num_slots=4, cache_len=CACHE_LEN)
     for r in trace:
         jeng.submit(JaxRequest(id=r["id"], prompt=r["prompt"],
                                max_new_tokens=r["max_new_tokens"],
@@ -252,12 +251,14 @@ def test_failed_prefill_raises(dense, monkeypatch):
 
 
 def test_unported_engine_options_raise(dense, tmp_path):
-    """The swap tier is the one engine option still refused; the
-    fault-tolerance options and request SLOs are taken (a non-positive SLO
-    is a caller error, as in the reference)."""
+    """Every engine option is taken: the swap tier (refused, as in the
+    reference, without a paged pool), the fault-tolerance options and
+    request SLOs (a non-positive SLO is a caller error, as in the
+    reference)."""
     _, _, cfg, params = dense
-    with pytest.raises(NotImplementedError):
-        ForecastEngine(cfg, params, device="cpu", swap_tier=True)
+    assert ForecastEngine(cfg, params, device="cpu", swap_tier=True).swap_tier
+    with pytest.raises(ValueError, match="paged"):
+        ForecastEngine(cfg, params, device="cpu", paged=False, swap_tier=True)
     for kw in (dict(journal=str(tmp_path / "j.log")), dict(max_queue=4),
                dict(default_deadline_s=1.0), dict(default_ttft_slo_s=0.5)):
         eng = ForecastEngine(cfg, params, device="cpu", **kw)

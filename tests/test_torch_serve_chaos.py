@@ -15,8 +15,8 @@ the port to the reference:
   * journals replay to equal states (the two files are not
     interchangeable: the reference writes msgpack, the port JSON).
 
-The reference runs with its swap tier off, the port's eviction path.
-Greedy decoding only: the two samplers draw from different generators.
+Both engines run their defaults, the swap tier on.  Greedy decoding
+only: the two samplers draw from different generators.
 
 A resume (a journal replay here) is admitted differently: the reference
 prefills the prompt and the generated tokens at once, the port prefills
@@ -87,7 +87,7 @@ def sides():
         name="reference", cfg=jcfg, params=jparams, Engine=JaxEngine,
         Request=JaxRequest, Sampling=JaxSamplingParams,
         Clock=JaxVirtualClock, Journal=JaxJournal,
-        replay=jax_replay_journal, kw=dict(swap_tier=False))
+        replay=jax_replay_journal, kw={})
     port = SimpleNamespace(
         name="port", cfg=cfg, params=params, Engine=ForecastEngine,
         Request=Request, Sampling=SamplingParams, Clock=VirtualClock,
