@@ -94,6 +94,20 @@ Phases, each printing its numbers beside the card's name and power limit:
      DPO loss (policy = reference) within 1e-6 of ln 2, every loss finite,
      test MSE/MAE finite, hop launches equal to uploads (counted from 0),
      peak device memory under 80 GB, the wall time of each phase;
+  5c. ``federated_fit`` with its fault options at the same widths (4
+     clients a round, 3 rounds, the first K-means centre fixed at client 0
+     for a 4/4 split): run A on the int8 wire under a plan of one client
+     each of crash, hang, transient retry, corrupt, byzantine and a delay
+     past a 2 s deadline (virtual), with snapshots and ``fleet_out``: the
+     ledger exactly as the plan dictates, no corrupt or byzantine upload
+     aggregated, the late upload buffered and applied a round later,
+     fleet.json's per-cluster bytes = uploads x the wire's price, hop
+     launches = uploads through the wire; a resume from the snapshot after
+     round 1, cluster 0 equal to run A bit for bit (adapters, losses,
+     ledger); run B, secure int8 aggregation with a crash dropout, each
+     unmasked code sum equal to the survivors' plain code sum; the wall
+     time of each round, the host ms of encode, mask and unmask, snapshot
+     bytes and ms, peak device memory under 80 GB;
   6. check the model path on the card against the plain path on the CPU at
      the smoke configs in f32: prefill + teacher-forced decode (ring and
      paged) of qwen3-0.6b and of fedtime-llama2-7b (G = 1), and a 2-round
@@ -1715,13 +1729,14 @@ class _Stopwatch:
     """Wraps ``module.name`` during a run and sums the wall time of its
     calls, each closed by ``torch.cuda.synchronize()`` so that the device
     work they queued is inside; ``first`` is when the first call began,
-    ``laps`` each call's (start, end)."""
+    ``laps`` each call's (start, end).  ``keep(args, kwargs, result)``, if
+    given, sees every call."""
 
-    def __init__(self, module, name: str):
+    def __init__(self, module, name: str, keep=None):
         self.module, self.name = module, name
         self.real = getattr(module, name)
         self.seconds, self.calls, self.first = 0.0, 0, None
-        self.laps = []
+        self.laps, self.keep = [], keep
 
     def __enter__(self):
         setattr(self.module, self.name, self)
@@ -1740,6 +1755,8 @@ class _Stopwatch:
         self.laps.append((t0, time.perf_counter()))
         self.seconds += self.laps[-1][1] - t0
         self.calls += 1
+        if self.keep is not None:
+            self.keep(args, kw, out)
         return out
 
 
@@ -1949,6 +1966,296 @@ def phase_two_phase(card: str, device="cuda") -> dict:
     return {"wire_hop_int8": n["wire_hop_int8"]}
 
 
+# Phase 5c: the fault-tolerant fit on phase 5's widths.  The schedule is
+# phase 5's cut raised as far as the faults need room: 4 clients a round
+# (every member of a cluster: the first K-means centre is fixed at client 0,
+# which splits the 8 clients 4/4 as {0, 2, 3, 6} and {1, 4, 5, 7}) and 3
+# rounds, so that a late upload can be buffered in round 0 and drained in
+# round 1, and each cluster keeps a majority of honest on-time uploads (the
+# byzantine screen compares a norm with the cohort's median).
+FAULT_FIT_SCHEDULE = dict(FIT_SCHEDULE, clients_per_round=4)
+FAULT_FIT = dict(rounds=3, batch_size=4, kmeans_first=0)
+FAULT_DEADLINE_S = 2.0
+FAULT_BASE_S = 0.5
+# client -> its fault in run A (cluster 0: crash, transient, corrupt, late;
+# cluster 1: byzantine, hang, two honest)
+FAULT_CLIENTS = dict(crash=0, transient=2, corrupt=3, delay=6, byzantine=1,
+                     hang=4)
+
+
+def _fault_plan():
+    from repro_torch.fault import Fault, FaultPlan
+    c = FAULT_CLIENTS
+    return FaultPlan({
+        c["crash"]: [Fault("crash")], c["hang"]: [Fault("hang")],
+        c["transient"]: [Fault("transient", fails=1, backoff_s=0.25)],
+        c["corrupt"]: [Fault("corrupt", mode="nan")],
+        c["byzantine"]: [Fault("byzantine", scale=1e3)],
+        # arrives at 4.0 s, past round 0's window [0, 2]; cluster 0's round
+        # 1 window [4, 6] drains it, 1 round stale
+        c["delay"]: [Fault("delay", delay_s=3.5, rounds=frozenset({0}))],
+    }, base_fit_s=FAULT_BASE_S)
+
+
+def _expected_fault_ledger():
+    """(round, client, participated, reason or extras) of run A's ledger,
+    as the plan dictates, sorted."""
+    c = FAULT_CLIENTS
+    rows = []
+    for r in range(FAULT_FIT["rounds"]):
+        for s in range(8):
+            if s in (c["crash"], c["hang"], c["corrupt"], c["byzantine"]):
+                kind = next(k for k, v in c.items() if v == s)
+                rows.append((r, s, False, kind))
+            elif s == c["delay"] and r == 0:
+                rows.append((r, s, False, "deadline"))
+            else:
+                rows.append((r, s, True, None))
+    rows.append((1, c["delay"], True, "buffered_staleness=1"))
+    return sorted(rows, key=repr)
+
+
+def _ledger_rows(led):
+    out = []
+    for rec in led.records:
+        extra = dict(rec.extra or {})
+        why = extra.pop("reason", None)
+        if "buffered_staleness" in extra:
+            why = f"buffered_staleness={extra['buffered_staleness']}"
+        out.append((rec.round, rec.client, rec.participated, why))
+    return sorted(out, key=repr)
+
+
+def phase_fault_fit(card: str, cfg=None, cdata=None, device="cuda") -> dict:
+    """``federated_fit`` with its fault options at fedtime-llama2-7b's
+    widths (phase 5c): run A on the int8 wire under a fault plan, a
+    deadline, snapshots and ``fleet_out``; a resume from run A's snapshot
+    after round 1, cluster 0; run B, secure int8 aggregation with a crash
+    dropout.  The hop launch counts are set to 0 just before run A and
+    before the resume, and read just after each; returns their sum.  The
+    CPU rehearsal passes a smoke ``cfg`` and its ``cdata``."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch import tree as tree_util
+    from repro_torch.core import comm, secure_agg
+    from repro_torch.core.lora import count_params, lora_tree
+    from repro_torch.dist import fedcomm
+    from repro_torch.fault import Fault, FaultPlan
+    from repro_torch.kernels import wire_hop as wh
+    from repro_torch.train import checkpoint, fed_trainer
+    if cfg is None:
+        cfg = _fit_config()
+        cfg = cfg.replace(fedtime=dataclasses.replace(
+            cfg.fedtime, **FAULT_FIT_SCHEDULE))
+        cdata = _fit_data(cfg.fedtime)[0]
+    ft = cfg.fedtime
+    print(f"[{card}] phase 5c {cfg.name} ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, NF4 qblock {ft.qlora_block}, "
+          f"LoRA rank {ft.lora_rank}, {cfg.compute_dtype}); cut: clients 555 "
+          f"-> {ft.num_clients}, clusters 8 -> {ft.num_clusters}, clients a "
+          f"round 16 -> {ft.clients_per_round}, local steps 40 -> "
+          f"{ft.local_steps}, {FAULT_FIT['rounds']} rounds, batch "
+          f"{FAULT_FIT['batch_size']}, first K-means centre client 0; "
+          f"deadline {FAULT_DEADLINE_S} s, fits {FAULT_BASE_S} s (virtual); "
+          f"faults {FAULT_CLIENTS}")
+    work = tempfile.mkdtemp(prefix="fault_fit_")
+    snap, kept = os.path.join(work, "snap.ckpt"), os.path.join(work,
+                                                               "kept.ckpt")
+    fleet_path = os.path.join(work, "fleet.json")
+    windows = []
+
+    def progress(msg):
+        torch.cuda.synchronize()
+        windows.append((msg, time.perf_counter()))
+        if msg.startswith("round 1 cluster 0:"):
+            # a snapshot is its file and the directory of its parts
+            shutil.copy(snap, kept)
+            shutil.copytree(snap + ".d", kept + ".d")
+
+    snaps = []
+    kw = dict(FAULT_FIT, wire="int8", seed=0, device=device,
+              deadline_s=FAULT_DEADLINE_S, staleness_limit=2)
+    launches = 0
+    try:
+        # -- run A ------------------------------------------------------
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        wh.reset_launches()
+        t0 = time.perf_counter()
+        with _Stopwatch(fed_trainer, "_write_snapshot",
+                        keep=lambda a, k, n: snaps.append(n)) as writes, \
+                _Stopwatch(checkpoint, "_host_bytes") as to_host, \
+                _Stopwatch(fedcomm, "quantize_update") as wires:
+            res_a = fed_trainer.federated_fit(
+                cfg, cdata, fault_plan=_fault_plan(), snapshot_path=snap,
+                fleet_out=fleet_path, progress=progress, **kw)
+            torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t0
+        n_a = dict(wh.LAUNCHES)
+        peak_a = torch.cuda.max_memory_allocated() / 2 ** 30
+        led = res_a.fleet
+        got, want = _ledger_rows(led), _expected_fault_ledger()
+        _check(got == want, f"phase 5c run A: the ledger {got} is not what "
+               f"the plan dictates: {want}")
+        c = FAULT_CLIENTS
+        bad = [r for r in led.records if r.participated
+               and r.client in (c["corrupt"], c["byzantine"])]
+        _check(not bad, f"phase 5c run A: corrupt/byzantine aggregated {bad}")
+        finite = all(bool(torch.isfinite(l).all())
+                     for ad in res_a.adapters_per_cluster
+                     for l in tree_util.leaves(ad))
+        _check(finite, "phase 5c run A: non-finite adapters")
+        late = [r for r in led.records
+                if (r.extra or {}).get("buffered_staleness")
+                or (r.extra or {}).get("staleness_rejected")]
+        _check(len(late) >= 1, "phase 5c run A: no late upload was drained")
+        n_elems = count_params(lora_tree(res_a.base_params))
+        per_upload = comm.wire_payload_bytes(n_elems, "int8")
+        fleet = json.load(open(fleet_path))
+        for cl, info in fleet["clusters"].items():
+            ups = sum(1 for r in led.records
+                      if r.cluster == int(cl) and r.participated)
+            logged = sum(l.comm.bytes_up for l in res_a.logs
+                         if l.cluster == int(cl))
+            _check(info["wire_bytes"] == ups * per_upload == logged,
+                   f"phase 5c run A: cluster {cl} wire bytes "
+                   f"{info['wire_bytes']}, {ups} uploads x {per_upload}, "
+                   f"logs {logged}")
+        # every fit that reached the wire: all but crash/hang, the drained
+        # record of a buffered upload not counted twice
+        encoded = sum(1 for r in led.records
+                      if (r.extra or {}).get("reason") not in (
+                          "crash", "hang", "stale")
+                      and not (r.extra or {}).get("buffered_staleness"))
+        on_card = device == "cuda"       # a CPU rehearsal launches nothing
+        _check(wires.calls == encoded and n_a["wire_hop_bf16"] == 0
+               and n_a["wire_hop_int8"] == (encoded if on_card else 0),
+               f"phase 5c run A: {n_a} hop launches, {wires.calls} uploads "
+               f"through the wire, {encoded} fits encoded")
+        launches += n_a["wire_hop_int8"]
+        losses_a = [l.train_loss for l in res_a.logs]
+        _check(all(np.isfinite(losses_a)), f"phase 5c: losses {losses_a}")
+        _check(peak_a < 80, f"phase 5c run A: peak {peak_a:.2f} GiB")
+        state_b = os.path.getsize(snap) + sum(
+            os.path.getsize(os.path.join(snap + ".d", f))
+            for f in os.listdir(snap + ".d"))
+        per_round, prev = {}, t0
+        for msg, t in windows:
+            rnd = int(msg.split()[1])
+            per_round[rnd] = per_round.get(rnd, 0.0) + (t - prev)
+            prev = t
+        print(f"[{card}] phase 5c run A (int8 wire, plan, deadline, "
+              f"snapshots, fleet_out): ledger as planned "
+              f"({led.rejections_by_reason()}; client {c['delay']} "
+              f"buffered in round 0 and applied in round 1), round losses "
+              f"{[round(l, 4) for l in losses_a]}, adapters finite; "
+              f"fleet.json wire bytes "
+              f"{[v['wire_bytes'] for v in fleet['clusters'].values()]} = "
+              f"uploads x {per_upload}; {wires.calls} uploads = "
+              f"{n_a['wire_hop_int8']} hop launches; peak device memory "
+              f"{peak_a:.2f} GiB")
+        print(f"[{card}] phase 5c run A host clock: {wall_a:.2f} s in all, "
+              f"rounds (set-up in round 0) "
+              f"{[round(per_round[r], 2) for r in sorted(per_round)]} s; "
+              f"{len(snaps)} snapshots of {min(snaps)}-{max(snaps)} B "
+              f"(the round state and the parts the window changed: its "
+              f"server, its uploads' EF residuals; {to_host.calls} files in "
+              f"all; the whole state after the last is {state_b} B), "
+              f"{1e3 * writes.seconds / max(writes.calls, 1):.1f} ms each, "
+              f"of which the device-to-host copies "
+              f"{1e3 * to_host.seconds / max(writes.calls, 1):.1f} ms "
+              f"(the rest: CRC32, write, fsync, rename)")
+
+        # -- resume from the snapshot after round 1, cluster 0 -----------
+        _check(os.path.exists(kept), "phase 5c: no snapshot after (1, 0)")
+        wh.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res_r = fed_trainer.federated_fit(
+            cfg, cdata, fault_plan=_fault_plan(), snapshot_path=kept,
+            resume=True, **kw)
+        torch.cuda.synchronize()
+        wall_r = time.perf_counter() - t0
+        n_r = dict(wh.LAUNCHES)
+        same = all(torch.equal(a, b) for x, y in zip(
+            res_a.adapters_per_cluster, res_r.adapters_per_cluster)
+            for a, b in zip(tree_util.leaves(x), tree_util.leaves(y)))
+        _check(same, "phase 5c: the resumed adapters differ from run A's")
+        _check([l.train_loss for l in res_r.logs] == losses_a,
+               "phase 5c: the resumed round losses differ from run A's")
+        _check([r.to_dict() for r in res_r.fleet.records]
+               == [r.to_dict() for r in led.records],
+               "phase 5c: the resumed ledger differs from run A's")
+        launches += n_r["wire_hop_int8"]
+        peak_r = torch.cuda.max_memory_allocated() / 2 ** 30
+        _check(peak_r < 80, f"phase 5c resume: peak {peak_r:.2f} GiB")
+        print(f"[{card}] phase 5c resume from the snapshot after round 1 "
+              f"cluster 0: adapters, round losses and ledger equal to run "
+              f"A's bit for bit; {n_r['wire_hop_int8']} hop launches, "
+              f"{wall_r:.2f} s, peak {peak_r:.2f} GiB")
+        del res_r
+
+        # -- run B: secure int8 aggregation with a crash dropout -----------
+        pending, sums = [], []
+
+        def keep_codes(args, kw_, out):
+            pending.append(out[0].copy())
+
+        def check_sum(args, kw_, out):
+            masked, survivors = args[0], args[1]
+            codes, pending[:] = pending[:], []
+            _check(len(codes) == len(survivors), "phase 5c run B: encodes "
+                   f"{len(codes)} for {len(survivors)} survivors")
+            plain = np.sum(np.stack(codes), axis=0, dtype=np.int64)
+            _check(np.array_equal(out.astype(np.int64), plain),
+                   "phase 5c run B: unmasked code sum differs from the "
+                   "survivors' plain sum")
+            sums.append((list(survivors), len(kw_["participants"])))
+
+        plan_b = FaultPlan({c["corrupt"]: [Fault("crash",
+                                                 rounds=frozenset({1}))]},
+                           base_fit_s=FAULT_BASE_S)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _Stopwatch(secure_agg, "secure_encode",
+                        keep=keep_codes) as enc, \
+                _Stopwatch(secure_agg, "mask_codes") as mask, \
+                _Stopwatch(secure_agg, "unmask_sum", keep=check_sum) as unm:
+            res_b = fed_trainer.federated_fit(
+                cfg, cdata, **dict(kw, rounds=2), fault_plan=plan_b,
+                secure_aggregation=True)
+            torch.cuda.synchronize()
+        wall_b = time.perf_counter() - t0
+        peak_b = torch.cuda.max_memory_allocated() / 2 ** 30
+        _check(len(sums) == 2 * ft.num_clusters, f"phase 5c run B: {sums}")
+        dropped = [(s, n) for s, n in sums if len(s) < n]
+        _check(len(dropped) == 1, f"phase 5c run B: dropouts {sums}")
+        _check(res_b.fleet.rejections_by_reason() == {"crash": 1},
+               f"phase 5c run B: {res_b.fleet.rejections_by_reason()}")
+        _check(all(bool(torch.isfinite(l).all())
+                   for ad in res_b.adapters_per_cluster
+                   for l in tree_util.leaves(ad)),
+               "phase 5c run B: non-finite adapters")
+        _check(peak_b < 80, f"phase 5c run B: peak {peak_b:.2f} GiB")
+        print(f"[{card}] phase 5c run B (secure int8, client "
+              f"{c['corrupt']} crashes in round 1): {len(sums)} unmasked code "
+              f"sums equal to the survivors' plain sums bit for bit (one "
+              f"with {dropped[0][1] - len(dropped[0][0])} dropout "
+              f"recovered), adapters finite, round losses "
+              f"{[round(l.train_loss, 4) for l in res_b.logs]}; host: "
+              f"{enc.calls} encodes {1e3 * enc.seconds:.1f} ms, {mask.calls} "
+              f"masks {1e3 * mask.seconds:.1f} ms, {unm.calls} unmasks "
+              f"{1e3 * unm.seconds:.1f} ms ({n_elems} elements each); "
+              f"{wall_b:.2f} s in all, peak {peak_b:.2f} GiB")
+        del res_a, res_b
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _fit_reference(card: str) -> None:
     """The smoke config in f32 on the int8 wire: the fit on the card (the
     hop kernel) against the fit on the CPU (its plain version), same seed:
@@ -2110,6 +2417,8 @@ def main() -> None:
     launches.update(phase_fit(card))
     rows["wire_hop_int8"]["two_phase_fit"] = {
         "launches": phase_two_phase(card)["wire_hop_int8"]}
+    rows["wire_hop_int8"]["fault_tolerant_fit"] = {
+        "launches": phase_fault_fit(card)}
     launches.update(ops_launches)
     torch.cuda.empty_cache()
 

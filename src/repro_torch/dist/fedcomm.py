@@ -32,8 +32,7 @@ def quantize_update(tree, residual=None, *, wire: str = None,
     qblock = qblock or wire_qblock()
     if wire == "f32":
         return tree, residual
-    leaves = tree_util.leaves(tree)
-    flat = torch.cat([l.reshape(-1).float() for l in leaves])
+    flat = tree_util.ravel(tree)
     padded = F.pad(flat, (0, -flat.numel() % qblock))
     res = (torch.zeros_like(padded) if residual is None
            else residual.float())
@@ -42,6 +41,4 @@ def quantize_update(tree, residual=None, *, wire: str = None,
     _, codes, scales, new_res = fused_hop(t, None, None, torch.zeros_like(t),
                                           wire=wire, qblock=qblock)
     deq = dequant_chunk(codes, scales, wire=wire, qblock=qblock)
-    parts = torch.split(deq[:flat.numel()], [l.numel() for l in leaves])
-    return tree_util.unflatten(tree, [p.reshape(l.shape).to(l.dtype)
-                                      for p, l in zip(parts, leaves)]), new_res
+    return tree_util.unravel(tree, deq), new_res

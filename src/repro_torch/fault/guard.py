@@ -11,9 +11,6 @@ Applied to every upload of a round's cohort:
 ``logits_finite`` is the serving mirror of the finite screen: the guarded
 serve step evaluates it on every decode step's logits, and the engine
 quarantines a lane that fails it.
-
-The reference's federated fault plans and snapshots are not ported yet;
-the delta screen runs on the plain path of every round.
 """
 
 from __future__ import annotations

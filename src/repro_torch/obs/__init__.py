@@ -1,9 +1,10 @@
 """``repro_torch.obs`` — the port's observability layer.
 
 One process-global structured tracer (``obs.trace``) threads through the
-serving engine and its launcher; mergeable quantile sketches live in
-``obs.sketch``, device-memory watermarks on the caching allocator in
-``obs.devmem``, and the crash-dump flight recorder in ``obs.flight``.
+serving engine, the federated fit and the launcher; mergeable quantile
+sketches live in ``obs.sketch``, the federated fit's per-client round
+ledger in ``obs.fleet``, device-memory watermarks on the caching allocator
+in ``obs.devmem``, and the crash-dump flight recorder in ``obs.flight``.
 Import this package, not the submodules, from instrumented code::
 
     from repro_torch import obs
@@ -20,13 +21,13 @@ keeps the last ``REPRO_FLIGHT_CAP`` events and ``REPRO_FLIGHT_OUT=f.json``
 arms post-mortem dumps (atexit / unhandled exception / engine distress);
 ``REPRO_FLIGHT=0`` disables that last layer too.
 
-The reference's ``fleet`` ledger (the federated fit's), ``bench_gate``
-(benchmark provenance) and its HLO scope costs are not part of the port's
-layer.
+The reference's ``bench_gate`` (benchmark provenance) and its HLO scope
+costs are not part of the port's layer.
 """
 
-from repro_torch.obs import devmem
+from repro_torch.obs import devmem, fleet
 from repro_torch.obs.devmem import memory_snapshot, peak_bytes, watermark
+from repro_torch.obs.fleet import ClientRecord, FleetLedger
 from repro_torch.obs.flight import (FlightRecorder, flight_enabled,
                                     get_flight,
                                     maybe_dump as flight_maybe_dump)
@@ -39,9 +40,10 @@ from repro_torch.obs.trace import (Histogram, Tracer, add_span, counter,
 enabled = trace_enabled
 
 __all__ = [
-    "FlightRecorder", "Histogram", "QuantileSketch", "Tracer", "add_span",
-    "counter", "counter_track", "devmem", "dump", "enabled",
-    "flight_enabled", "flight_maybe_dump", "gauge", "get_flight",
+    "ClientRecord", "FleetLedger", "FlightRecorder", "Histogram",
+    "QuantileSketch", "Tracer", "add_span", "counter", "counter_track",
+    "devmem", "dump", "enabled", "fleet", "flight_enabled",
+    "flight_maybe_dump", "gauge", "get_flight",
     "get_tracer", "hist", "instant", "memory_snapshot", "merge_all",
     "peak_bytes", "reset", "span", "span_count", "step_span",
     "trace_enabled", "watermark",

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 from typing import Callable, List
 
+import torch
+
 
 def leaves(tree) -> List:
     """The leaves of ``tree`` in sorted key order."""
@@ -41,3 +43,19 @@ def pick(tree, i: int):
     ``map_`` gives for a function with several results) into trees."""
     return {k: pick(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def ravel(tree) -> torch.Tensor:
+    """The leaves laid end to end as one f32 vector, in sorted key order
+    (the wire's payload layout)."""
+    return torch.cat([l.reshape(-1).float() for l in leaves(tree)])
+
+
+def unravel(like, flat: torch.Tensor):
+    """The inverse of ``ravel``: a tree shaped like ``like`` from the first
+    elements of ``flat``, each leaf cast to ``like``'s dtype."""
+    ls = leaves(like)
+    sizes = [l.numel() for l in ls]
+    parts = torch.split(flat[:sum(sizes)], sizes)
+    return unflatten(like, [p.reshape(l.shape).to(l.dtype)
+                            for p, l in zip(parts, ls)])

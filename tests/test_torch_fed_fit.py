@@ -209,17 +209,6 @@ def test_evaluate_forecaster_equals_reference(setup):
         assert got[name] == pytest.approx(want[name], rel=1e-5)
 
 
-@pytest.mark.parametrize("option", [
-    dict(secure_aggregation=True), dict(deadline_s=1.0),
-    dict(fault_plan=object()), dict(straggler_prob=0.5),
-    dict(snapshot_path="x"), dict(resume=True), dict(fleet_out="f.json"),
-    dict(slow_clients={0: 1.0})])
-def test_unported_options_are_refused(setup, option):
-    with pytest.raises(NotImplementedError):
-        fed_trainer.federated_fit(setup["cfg"], setup["cdata"], rounds=1,
-                                  device="cpu", **option)
-
-
 def test_upload_screen_matches_reference():
     """The plain path screens every upload: a non-finite delta is corrupt,
     one above 25x the cohort's median norm byzantine."""

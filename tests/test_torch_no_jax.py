@@ -1,7 +1,9 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
 neither jax nor anything of the JAX package ``repro``, and no module of
-the port imports ``msgpack`` (the card's machine lacks it; the port's
-request journal writes JSON)."""
+the port imports ``msgpack`` or ``zstandard`` (the card's machine lacks
+both; the port's request journal writes JSON, its checkpoints their own
+format).  Every entry point of the port runs on the card unless its
+caller asks for the CPU."""
 
 import os
 import re
@@ -46,6 +48,8 @@ SLICE_MODULES = {
     "repro_torch.obs.trace", "repro_torch.obs.sketch",
     "repro_torch.obs.flight", "repro_torch.obs.devmem",
     "repro_torch.serve.journal",
+    "repro_torch.core.secure_agg", "repro_torch.fault.snapshot",
+    "repro_torch.train.checkpoint", "repro_torch.obs.fleet",
 }
 
 
@@ -87,13 +91,21 @@ with RequestJournal(path) as j:
     j.log_submit(Request(id="a", prompt=[1, 2], max_new_tokens=2))
     j.log_token("a", 3)
 assert replay_journal(path).tokens == {{"a": [3]}}
-print(sorted(m for m in sys.modules if m.split(".")[0] == "msgpack"))
+import numpy as np, torch
+from repro_torch.fault import load_round_state, save_round_state
+snap = os.path.join(os.path.dirname(path), "s.ckpt")
+save_round_state(snap, {{"w": torch.ones(3)}},
+                 {{"rng": np.random.default_rng(0).bit_generator.state}})
+assert torch.equal(load_round_state(snap, "cpu")[1]["w"], torch.ones(3))
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("msgpack", "zstandard")))
 """
 
 
 def test_no_module_imports_msgpack():
-    """Neither an import line nor a run of the journal loads msgpack."""
-    pat = re.compile(r"^\s*(import|from)\s+msgpack(\.|\s|$)")
+    """Neither an import line nor a run of the journal or of a round-state
+    snapshot loads msgpack or zstandard."""
+    pat = re.compile(r"^\s*(import|from)\s+(msgpack|zstandard)(\.|\s|$)")
     files = sorted((SRC / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"]
     hits = [f"{f.relative_to(ROOT)}:{i}" for f in files
@@ -107,3 +119,40 @@ def test_no_module_imports_msgpack():
         capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
+
+
+_DEVICE_PROBE = """
+import importlib, inspect, pkgutil, sys
+sys.path[:0] = [{src!r}]
+import repro_torch
+out = []
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    mod = importlib.import_module(m.name)
+    for obj in vars(mod).values():
+        if getattr(obj, "__module__", None) != mod.__name__:
+            continue
+        fns = ([v for v in vars(obj).values() if inspect.isfunction(v)]
+               if inspect.isclass(obj) else [obj])
+        for fn in fns:
+            if not inspect.isfunction(fn):
+                continue
+            for name, p in inspect.signature(fn).parameters.items():
+                if name == "device" and isinstance(p.default, str):
+                    out.append((m.name, fn.__qualname__, p.default))
+print(sorted({{d for *_, d in out}}), len(out))
+print([o for o in out if o[2] != "cuda"])
+"""
+
+
+def test_entry_points_default_to_the_card():
+    """Every function of the port with a ``device`` keyword defaults it
+    to ``"cuda"``: the CPU is the caller's explicit choice."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", _DEVICE_PROBE.format(src=str(SRC))],
+        capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=120)
+    assert out.returncode == 0, out.stderr
+    kinds, cpu = out.stdout.strip().splitlines()
+    assert kinds.startswith("['cuda'] ") and int(kinds.split()[-1]) > 10, \
+        kinds
+    assert cpu == "[]", cpu
