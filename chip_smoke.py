@@ -108,14 +108,38 @@ Phases, each printing its numbers beside the card's name and power limit:
      unmasked code sum equal to the survivors' plain code sum; the wall
      time of each round, the host ms of encode, mask and unmask, snapshot
      bytes and ms, peak device memory under 80 GB;
+  7. the centralized path and the paper's comparisons (no kernel lies on
+     it; every launch count, set to 0 before, must read 0 after):
+     a. Fig. 3's centralized fine-tune: ``trainer.fit`` (AdamW under the
+        cosine schedule, every float leaf trained, no LoRA, no NF4) of
+        fedtime-llama2-7b at published widths, horizon 96, depth cut to
+        16 layers (full fine-tune state of 32 would not fit the card), 8
+        steps at batch 4 x 2 channels on pooled ETTh1 windows: losses,
+        parameters and test MSE/MAE finite, each step's wall, the peak
+        device memory beside the 12 B a parameter arithmetic (under 80
+        GB), one step profiled;
+     b. Table 2's models on ETTh1 at lookback 512, horizon 720, each
+        trained by ``trainer.fit`` at the reference's --full settings
+        (DLinear 400 steps, PatchTST d_model 128 x 3 layers x 16 heads of
+        8, 200 steps; FSLSTM at Table 3's width, 20 steps) and scored by
+        ``evaluate_forecaster`` beside persistence: losses finite, DLinear
+        and PatchTST lower their loss, each fit's wall;
+     c. Fig. 5's three strategies on phase 5's tree (its shapes rebuilt on
+        the meta device): ``fedtime_round`` on each wire,
+        ``fed_full_round`` and ``centralized_epoch``, each equal to its
+        closed form, FedTime's int8 and bf16 uploads equal to phase 5's
+        measured bytes per upload;
   6. check the model path on the card against the plain path on the CPU at
      the smoke configs in f32: prefill + teacher-forced decode (ring and
-     paged) of qwen3-0.6b and of fedtime-llama2-7b (G = 1), and a 2-round
-     fit on the int8 wire.
+     paged) of qwen3-0.6b and of fedtime-llama2-7b (G = 1), a 2-round fit
+     on the int8 wire, and 4 steps of ``trainer.fit`` of FedTime's smoke
+     config and of each Table 2 model at a small width (step losses within
+     TOL_FIT_LOSS).
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last three lines are the kernels' JSON summary, the card's name and
-power limit, and {"ok": true, "device": {...}}.  Without a CUDA device, or
+power limit, and {"ok": true, "device": {...}}; before them, the script's
+wall time.  Without a CUDA device, or
 without the repository beside it, it fails.
 """
 
@@ -1780,12 +1804,13 @@ def _fit_data(ft):
     return cdata, xte[..., :FIT_CHANNELS], yte[..., :FIT_CHANNELS]
 
 
-def phase_fit(card: str) -> dict:
+def phase_fit(card: str) -> tuple:
     """``federated_fit`` at fedtime-llama2-7b's widths (bf16, QLoRA on,
     synthetic ETTh1) once on the int8 wire and once on bf16, then
     ``evaluate_forecaster`` on the test windows.  Each run is one main
     path: the hop launch counts are set to 0 just before it and read just
-    after."""
+    after.  Returns those counts and each wire's measured bytes up per
+    upload."""
     from repro_torch.core import comm, fedtime
     from repro_torch.core.lora import count_params, lora_tree
     from repro_torch.dist import fedcomm
@@ -1806,7 +1831,7 @@ def phase_fit(card: str) -> dict:
           f"-> {ft.clients_per_round}, local steps 40 -> {ft.local_steps}, "
           f"{FIT['rounds']} rounds, batch {FIT['batch_size']}; "
           f"{len(xte)} test windows")
-    launches = {}
+    launches, per_upload = {}, {}
     for wire in ("int8", "bf16"):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1833,6 +1858,7 @@ def phase_fit(card: str) -> dict:
             f"wire_hop_{wire}"]
         _check(up == want_up, f"fit {wire}: {up} bytes up, the wire prices "
                f"{want_up}")
+        per_upload[wire] = up // n[f"wire_hop_{wire}"]
         losses = [l.train_loss for l in res.logs]
         _check(len(losses) > 0 and all(np.isfinite(losses)),
                f"fit {wire}: round losses {losses}")
@@ -1864,7 +1890,7 @@ def phase_fit(card: str) -> dict:
                       f"elements", args, w, got=out)
         _check(len(recorder.calls) > 0, f"fit {wire}: no hop recorded")
         del res, recorder
-    return launches
+    return launches, per_upload
 
 
 # Phase 5b: the paper's two-phase pipeline on phase 5's cut schedule.
@@ -2256,6 +2282,351 @@ def phase_fault_fit(card: str, cfg=None, cdata=None, device="cuda") -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the centralized path and the paper's comparisons at full width
+# ---------------------------------------------------------------------------
+
+# Phase 7a: Fig. 3's centralized arm (benchmarks/fig3_convergence.py:42-58):
+# FedTime's backbone on the pooled client windows, every float leaf trained
+# (no LoRA, no NF4), at fedtime-llama2-7b's published widths with the
+# benchmark's lookback 512 and horizon 96.  Depth cut 32 -> 16: full
+# fine-tune state is 12 B a parameter (bf16 weight 2, bf16 gradient 2, f32
+# moments 8), 78 GB for 32 layers before any activation, which does not fit
+# an 80 GB card; 16 layers hold 3.26e9 parameters, about 39 GB.  Steps cut
+# from the benchmark's 12 rounds x 64 to 8.
+CENTRAL = dict(layers=16, horizon=96, channels=2, batch=4, steps=8, lr=1e-3,
+               timesteps=8000)
+CARD_BYTES = 80e9
+# Phase 7b: Table 2's comparison models at the reference's --full settings
+# (benchmarks/table2_forecasting.py:27-70) on ETTh1 at its longest horizon,
+# data made as benchmarks/common.forecast_data makes it (train windows at
+# stride 2, test at stride 8).  FSLSTM at Table 3's width
+# (benchmarks/table3_federated.py:109); its steps cut from Table 3's 320
+# local steps to 20, since its Python loop over time runs 2 x 512 steps a
+# forward.
+TABLE2 = dict(dataset="etth1", timesteps=8000, lookback=512, horizon=720,
+              batch=64)
+TABLE2_FITS = {"dlinear": dict(steps=400, lr=5e-3),
+               "patchtst": dict(steps=200, lr=1e-3),
+               "fslstm": dict(steps=20, lr=1e-3)}
+PATCHTST_FULL = dict(d_model=128, num_layers=3, num_heads=16, d_ff=256,
+                     patch_len=8, stride=4)
+FSLSTM_WIDTH = dict(d_hidden=32, layers=2)
+
+
+def _kernel_modules():
+    """The kernels' wrapper modules, each with its ``LAUNCHES`` counts."""
+    from repro_torch.kernels import (flash_attention, flash_decode,
+                                     qlora_matmul, rmsnorm, wire_hop)
+    return flash_decode, wire_hop, qlora_matmul, flash_attention, rmsnorm
+
+
+def _central_config(layers: int = CENTRAL["layers"]):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config("fedtime-llama2-7b")
+    return cfg.replace(num_layers=layers, fedtime=dataclasses.replace(
+        cfg.fedtime, horizon=CENTRAL["horizon"]))
+
+
+def _pooled_windows(ft, timesteps: int, channels: int):
+    """fig3_convergence's data: 8 clients of ``channels`` channels, their
+    windows pooled; the test windows of the same series."""
+    from repro_torch.data.federated import client_windows, partition_clients
+    from repro_torch.data.timeseries import (DATASETS, generate,
+                                             make_windows, train_test_split)
+    tr, te = train_test_split(generate(DATASETS["etth1"],
+                                       timesteps=timesteps))
+    cdata = client_windows(partition_clients(tr, 8, seed=0,
+                                             channels_per_client=channels),
+                           ft.lookback, ft.horizon, max_windows=64)
+    xte, yte = make_windows(te, ft.lookback, ft.horizon, stride=8)
+    return (np.concatenate([x for x, _ in cdata]),
+            np.concatenate([y for _, y in cdata]),
+            xte[..., :channels], yte[..., :channels])
+
+
+def _draws(x, y, batch: int, seed: int = 0):
+    """Batches of ``batch`` windows drawn with replacement, as the
+    reference's benchmarks draw them; ``x``/``y`` may live on the card."""
+    rng = np.random.default_rng(seed)
+    while True:
+        s = rng.integers(0, len(x), batch)
+        if isinstance(x, torch.Tensor):
+            s = torch.from_numpy(s).to(x.device)
+        yield {"x": x[s], "y": y[s]}
+
+
+def _step_walls(logs) -> list:
+    """Each step's wall time from ``TrainLog.seconds`` (cumulative, read
+    after ``float(loss)``, which waits for the step's device work)."""
+    secs = [l.seconds for l in logs]
+    return [b - a for a, b in zip([0.0] + secs, secs)]
+
+
+def _profile_one_step(loss_fn, params, batches, top: int = 8):
+    """``tools/profile_fit.py``'s method on one step of ``fit`` (a fresh
+    fit: its moments are made inside): the step's wall, the device time of
+    its kernels, the busy share, kernel launches and the top operators."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train.trainer import fit
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fit(loss_fn, params, batches, steps=1)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del out
+    events = prof.key_averages()
+    dev_us = sum(e.self_device_time_total for e in events
+                 if e.device_type == DeviceType.CUDA)
+    launches = sum(e.count for e in events
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                "cudaLaunchKernelExC"))
+    ops = sorted((e for e in events if e.device_type != DeviceType.CUDA
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)[:top]
+    return wall, dev_us / 1e3, launches, [
+        (e.key, e.self_device_time_total / 1e3, e.count) for e in ops]
+
+
+def phase_centralized(card: str, cfg=None, device="cuda") -> None:
+    """Phase 7a: Fig. 3's centralized fine-tune through ``trainer.fit``
+    (AdamW under the cosine schedule, every float leaf trained), then
+    ``evaluate_forecaster`` on the test windows and one profiled step.
+    The CPU rehearsal passes a smoke ``cfg``."""
+    from repro_torch import tree as tree_util
+    from repro_torch.core import fedtime
+    from repro_torch.core.lora import count_params, tree_nbytes
+    from repro_torch.train.trainer import evaluate_forecaster, fit
+    cfg = cfg or _central_config()
+    ft = cfg.fedtime
+    C = CENTRAL["channels"]
+    x, y, xte, yte = _pooled_windows(ft, CENTRAL["timesteps"], C)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = fedtime.init(cfg, torch.Generator(device=device).manual_seed(0),
+                          num_channels=C, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = count_params(params)
+    N = (ft.lookback - ft.patch_len) // ft.patch_stride + 1
+    d = cfg.d_model
+    layer_n = 2 * d * (cfg.q_dim + cfg.kv_dim) + 3 * d * cfg.d_ff
+    want_n = (cfg.num_layers * (layer_n + 2 * d) + (ft.patch_len + N) * d
+              + d + N * d * ft.horizon + 2 * C)
+    _check(n == want_n, f"phase 7a: {n} parameters, not {want_n}")
+    state_gb = (tree_nbytes(params) * 2 + 8 * n) / 1e9
+    loss_fn = lambda p, b: fedtime.loss(p, cfg, b)  # noqa: E731
+    t0 = time.perf_counter()
+    params, logs, _ = fit(loss_fn, params, _draws(x, y, CENTRAL["batch"]),
+                          steps=CENTRAL["steps"], lr=CENTRAL["lr"])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [l.loss for l in logs]
+    _check(len(losses) == CENTRAL["steps"] and all(np.isfinite(losses)),
+           f"phase 7a: losses {losses}")
+    _check(all(bool(torch.isfinite(l).all())
+               for l in tree_util.leaves(params)),
+           "phase 7a: non-finite parameters")
+    t0 = time.perf_counter()
+    metrics = evaluate_forecaster(lambda p, xx: fedtime.forward(p, cfg, xx),
+                                  params, xte, yte)
+    eval_s = time.perf_counter() - t0
+    _check(all(np.isfinite(v) for v in metrics.values()),
+           f"phase 7a: metrics {metrics}")
+    _check(peak < CARD_BYTES, f"phase 7a: peak {peak / 1e9:.2f} GB")
+    walls = _step_walls(logs)
+    print(f"[{card}] phase 7a centralized fit {cfg.name}: widths as "
+          f"published (d_model {cfg.d_model}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+          f"{cfg.param_dtype}, lookback {ft.lookback}, patches "
+          f"{ft.patch_len}/{ft.patch_stride}, horizon {ft.horizon}); cut: "
+          f"layers 32 -> {cfg.num_layers}, steps 768 -> {CENTRAL['steps']};"
+          f" every float leaf trained, batch {CENTRAL['batch']} x {C} "
+          f"channels, lr {CENTRAL['lr']}, {len(x)} pooled windows")
+    print(f"[{card}] phase 7a memory: {n} parameters (= {cfg.num_layers} x "
+          f"{layer_n} + norms, patch and head) x 12 B (bf16 weight 2, "
+          f"bf16 gradient 2, f32 moments 8) = {state_gb:.2f} GB of state; "
+          f"peak device memory {peak / 1e9:.2f} GB ({peak / 2 ** 30:.2f} "
+          f"GiB), under the card's 80 GB")
+    print(f"[{card}] phase 7a losses {[round(l, 4) for l in losses]}; test "
+          f"MSE {metrics['mse']:.4f} MAE {metrics['mae']:.4f} over "
+          f"{len(xte)} windows; host clock (synchronized): init "
+          f"{init_s:.2f} s, step walls "
+          f"{[round(w, 4) for w in walls]} s (median of steps 2+ "
+          f"{float(np.median(walls[1:])):.4f} s), fit {fit_s:.2f} s, "
+          f"evaluation {eval_s:.2f} s")
+    if device == "cuda":
+        wall, dev_ms, launches, ops = _profile_one_step(
+            loss_fn, params, _draws(x, y, CENTRAL["batch"], seed=1))
+        step = float(np.median(walls[1:]))
+        print(f"[{card}] phase 7a one profiled step (a fresh fit, its "
+              f"moments made inside): device {dev_ms:.1f} ms, busy share "
+              f"{dev_ms / 1e3 / step:.3f} of the profiler-off step wall "
+              f"({wall:.2f} s under the profiler, its start-up included), "
+              f"{launches} kernel launches; top operators by device time: "
+              + "; ".join(f"{k} {ms:.1f} ms x{c}" for k, ms, c in ops))
+    del params
+    torch.cuda.empty_cache()
+
+
+def _table2_models(device, lookback, horizon, channels, patchtst_kw,
+                   fslstm_kw):
+    """name -> (params, loss_fn, forward_fn), each drawn from its own
+    seeded generator."""
+    from repro_torch.baselines import dlinear, fslstm, patchtst
+    g = lambda s: torch.Generator(device=device).manual_seed(s)  # noqa
+    pcfg = patchtst.make_config(lookback=lookback, horizon=horizon,
+                                **patchtst_kw)
+    return {
+        "dlinear": (dlinear.init(g(0), lookback, horizon, device=device),
+                    dlinear.loss, dlinear.forward),
+        "patchtst": (patchtst.init(pcfg, g(1), num_channels=channels,
+                                   device=device),
+                     lambda p, b: patchtst.loss(p, pcfg, b),
+                     lambda p, x: patchtst.forward(p, pcfg, x)),
+        "fslstm": (fslstm.init(g(2), channels=channels, horizon=horizon,
+                               device=device, **fslstm_kw),
+                   fslstm.loss, fslstm.forward),
+    }
+
+
+def phase_table2(card: str, device="cuda", fits=None) -> None:
+    """Phase 7b: persistence, DLinear, PatchTST and FSLSTM on ETTh1 at
+    lookback 512 and horizon 720, each trained by ``trainer.fit`` and
+    scored by ``evaluate_forecaster``.  No ranking is asked for: Table 2's
+    rests on pretrained weights the repository does not have."""
+    from repro_torch.data.timeseries import (DATASETS, generate,
+                                             make_windows, train_test_split)
+    from repro_torch.train.trainer import evaluate_forecaster, fit
+    fits = fits or TABLE2_FITS
+    L, T = TABLE2["lookback"], TABLE2["horizon"]
+    tr, te = train_test_split(generate(DATASETS[TABLE2["dataset"]],
+                                       timesteps=TABLE2["timesteps"]))
+    xtr, ytr = make_windows(tr, L, T, stride=2)
+    xte, yte = make_windows(te, L, T, stride=8)
+    M = xtr.shape[-1]
+    x_dev = torch.from_numpy(xtr).to(device)
+    y_dev = torch.from_numpy(ytr).to(device)
+    persist = np.repeat(xte[:, -1:, :], T, axis=1)
+    rows = {"persistence": {"mse": float(np.mean((persist - yte) ** 2)),
+                            "mae": float(np.mean(np.abs(persist - yte)))}}
+    print(f"[{card}] phase 7b Table 2 on {TABLE2['dataset']} "
+          f"({TABLE2['timesteps']} steps, {M} channels), lookback {L}, "
+          f"horizon {T}: {len(xtr)} train windows (stride 2), {len(xte)} "
+          f"test windows (stride 8), batch {TABLE2['batch']}; PatchTST "
+          f"{PATCHTST_FULL} (head dim "
+          f"{PATCHTST_FULL['d_model'] // PATCHTST_FULL['num_heads']}), "
+          f"FSLSTM {FSLSTM_WIDTH}; steps {fits} (FSLSTM cut from Table 3's "
+          f"320)")
+    models = _table2_models(device, L, T, M, PATCHTST_FULL, FSLSTM_WIDTH)
+    for name, (params, loss_fn, fwd) in models.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, logs, _ = fit(loss_fn, params,
+                              _draws(x_dev, y_dev, TABLE2["batch"]),
+                              **fits[name])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        losses = [l.loss for l in logs]
+        _check(all(np.isfinite(losses)), f"phase 7b {name}: losses "
+               f"{losses}")
+        first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+        if name != "fslstm":
+            _check(last < first, f"phase 7b {name}: the loss did not fall "
+                   f"(first 10 steps {first:.4f}, last 10 {last:.4f})")
+        m = evaluate_forecaster(fwd, params, xte, yte)
+        _check(all(np.isfinite(v) for v in m.values()),
+               f"phase 7b {name}: metrics {m}")
+        walls = _step_walls(logs)
+        rows[name] = m
+        print(f"[{card}] phase 7b {name}: {len(losses)} steps, loss "
+              f"{first:.4f} over the first 10 -> {last:.4f} over the last "
+              f"10; test MSE {m['mse']:.4f} MAE {m['mae']:.4f}; fit "
+              f"{fit_s:.2f} s (host clock, synchronized), median step "
+              f"{float(np.median(walls[1:])) * 1e3:.2f} ms")
+    print(f"[{card}] phase 7b test MSE / MAE: " + "; ".join(
+        f"{k} {v['mse']:.4f} / {v['mae']:.4f}" for k, v in rows.items()))
+
+
+def phase_fig5(card: str, up_per_upload: dict) -> None:
+    """Phase 7c: Fig. 5's three strategies on phase 5's tree
+    (fedtime-llama2-7b, 32 layers, NF4 base, LoRA rank 8), its shapes
+    rebuilt on the meta device: ``fedtime_round`` on each wire,
+    ``fed_full_round`` and ``centralized_epoch`` for phase 5's client
+    windows, each held to its closed form; FedTime's upload on the int8
+    and bf16 wires held to phase 5's measured bytes up per upload."""
+    import math
+    from repro_torch.core import comm, fedtime
+    from repro_torch.core.lora import (attach_lora, count_params, lora_tree,
+                                       quantize_base)
+    cfg = _fit_config()
+    ft = cfg.fedtime
+    g = torch.Generator()
+    tree = quantize_base(attach_lora(
+        fedtime.init(cfg, g, num_channels=FIT_CHANNELS, device="meta"), g,
+        rank=ft.lora_rank, alpha=ft.lora_alpha), qblock=ft.qlora_block)
+    cdata, _, _ = _fit_data(ft)
+    L, d, dff, r = cfg.num_layers, cfg.d_model, cfg.d_ff, ft.lora_rank
+    N = (ft.lookback - ft.patch_len) // ft.patch_stride + 1
+    E = L * 4 * (d * r + r * d)
+    _check(count_params(lora_tree(tree)) == E == HOP_ELEMS,
+           "phase 7c: adapter elements")
+    cpr, k = ft.clients_per_round, ft.num_clusters
+    code = {"f32": 4, "bf16": 2, "int8": 1}
+    rounds = {}
+    for wire in ("f32", "bf16", "int8"):
+        st = comm.fedtime_round(tree, clients_per_round=cpr, num_clusters=k,
+                                wire=wire)
+        pay = E * code[wire] + (4 * math.ceil(E / HOP_QBLOCK)
+                                if wire == "int8" else 0)
+        _check((st.bytes_up, st.bytes_down, st.messages) ==
+               (pay * cpr, pay * cpr, 2 * cpr + k),
+               f"phase 7c: fedtime_round {wire} {st}")
+        if wire in up_per_upload:
+            _check(pay == up_per_upload[wire], f"phase 7c: {wire} upload "
+                   f"priced {pay} B, phase 5 measured "
+                   f"{up_per_upload[wire]} B")
+        rounds[f"fedtime {wire}"] = st
+    # every leaf in its dtype: NF4 attention (codes + one f32 scale a block
+    # of 64), f32 adapters and scales, bf16 MLP, patch and head, f32 norms
+    layer = (4 * (d * d // 2 + d * d // ft.qlora_block * 4 + 2 * d * r * 4
+                  + 4) + 3 * d * dff * 2 + 2 * d * 4)
+    full_bytes = (L * layer + (ft.patch_len + N) * d * 2 + N * d *
+                  ft.horizon * 2 + d * 4 + 2 * FIT_CHANNELS * 4)
+    st = comm.fed_full_round(tree, clients_per_round=cpr, num_clusters=k)
+    _check((st.bytes_up, st.bytes_down, st.messages) ==
+           (full_bytes * cpr, full_bytes * cpr, 2 * cpr + k),
+           f"phase 7c: fed_full_round {st}, closed form {full_bytes} B a "
+           f"payload")
+    rounds["fed_full"] = st
+    samples = sum(len(x) for x, _ in cdata)
+    st = comm.centralized_epoch(samples, ft.lookback, ft.horizon,
+                                FIT_CHANNELS, num_clients=ft.num_clients)
+    _check((st.bytes_up, st.bytes_down, st.messages) ==
+           (samples * (ft.lookback + ft.horizon) * FIT_CHANNELS * 4, 0,
+            ft.num_clients), f"phase 7c: centralized_epoch {st}")
+    rounds["centralized"] = st
+    print(f"[{card}] phase 7c Fig. 5 on phase 5's tree ({L} layers, NF4 "
+          f"base, LoRA rank {r}: {E} adapter elements, {full_bytes} B of "
+          f"weights), {cpr} clients a round, {k} clusters, {samples} pooled "
+          f"windows of {ft.lookback}+{ft.horizon} steps x {FIT_CHANNELS} "
+          f"channels; each count equal to its closed form, the int8 and "
+          f"bf16 uploads to phase 5's measured bytes: " + "; ".join(
+              f"{name} {s.bytes_up + s.bytes_down} B ({s.megabytes:.2f} MB, "
+              f"{s.messages} messages, {s.time_s:.2f} s modelled)"
+              for name, s in rounds.items()))
+    full = rounds["fed_full"].bytes_up
+    print(f"[{card}] phase 7c full / FedTime bytes a round: "
+          f"{full / rounds['fedtime f32'].bytes_up:.1f}x on the f32 wire, "
+          f"{full / rounds['fedtime int8'].bytes_up:.1f}x on int8")
+
+
 def _fit_reference(card: str) -> None:
     """The smoke config in f32 on the int8 wire: the fit on the card (the
     hop kernel) against the fit on the CPU (its plain version), same seed:
@@ -2297,13 +2668,59 @@ def _fit_reference(card: str) -> None:
           f"{len(a.logs)} cluster rounds, clusters and bytes equal")
 
 
+def _centralized_reference(card: str, device="cuda") -> None:
+    """Phase 6's check of phase 7's path: ``trainer.fit`` on the card
+    against the CPU at small sizes in f32, the same weights and batches:
+    FedTime's smoke config (Fig. 3's centralized arm) and each Table 2
+    model at a small width, 4 steps each, every step's loss within
+    TOL_FIT_LOSS (relative)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import fedtime
+    from repro_torch.data.timeseries import (DATASETS, generate,
+                                             make_windows)
+    from repro_torch.train.trainer import fit
+    cfg = get_smoke_config("fedtime-llama2-7b")
+    x, y, _, _ = _pooled_windows(cfg.fedtime, 1200, 2)
+    xb, yb = make_windows(generate(DATASETS["etth1"], timesteps=400)[:, :3],
+                          32, 8, stride=4)
+    cases = {"fedtime smoke": (
+        fedtime.init(cfg, torch.Generator().manual_seed(0), num_channels=2,
+                     device="cpu"),
+        lambda p, b: fedtime.loss(p, cfg, b), x, y, 1e-3)}
+    small = _table2_models("cpu", 32, 8, 3, dict(
+        d_model=16, num_layers=2, num_heads=4, d_ff=32, patch_len=8,
+        stride=4), dict(d_hidden=8))
+    for name, (params, loss_fn, _) in small.items():
+        cases[name] = (params, loss_fn, xb, yb, TABLE2_FITS[name]["lr"])
+    errs = {}
+    for name, (params, loss_fn, xs, ys, lr) in cases.items():
+        losses = {}
+        for dev in ("cpu", device):
+            _, logs, _ = fit(loss_fn, _to(params, dev), _draws(xs, ys, 4),
+                             steps=4, lr=lr)
+            losses[dev] = [l.loss for l in logs]
+        err = max(abs(a - b) / abs(b)
+                  for a, b in zip(losses[device], losses["cpu"]))
+        _check(err <= TOL_FIT_LOSS, f"reference centralized {name}: card "
+               f"vs CPU step losses differ by {err} (relative) > "
+               f"{TOL_FIT_LOSS}")
+        errs[name] = err
+    print(f"[{card}] reference centralized fits f32, 4 steps of "
+          f"trainer.fit: card vs CPU step losses max rel err " + ", ".join(
+              f"{k} {v:.3g}" for k, v in errs.items()) +
+          f" (tol {TOL_FIT_LOSS})")
+
+
 # ---------------------------------------------------------------------------
 # phase 6: small-input reference
 # ---------------------------------------------------------------------------
 
 def _to(tree, dev):
-    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
-            for k, v in tree.items()}
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, dev) for v in tree)
+    return tree.to(dev)
 
 
 def phase_reference(card: str, arch: str) -> None:
@@ -2371,6 +2788,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
                          "the card only")
+    t_start = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "src"))
     from repro_torch.kernels import build
@@ -2414,7 +2832,8 @@ def main() -> None:
         rows[name]["swap_tier_engine"] = {
             "launches": extras["swap_tier_engine"][name]}
 
-    launches.update(phase_fit(card))
+    fit_launches, per_upload = phase_fit(card)
+    launches.update(fit_launches)
     rows["wire_hop_int8"]["two_phase_fit"] = {
         "launches": phase_two_phase(card)["wire_hop_int8"]}
     rows["wire_hop_int8"]["fault_tolerant_fit"] = {
@@ -2422,9 +2841,24 @@ def main() -> None:
     launches.update(ops_launches)
     torch.cuda.empty_cache()
 
+    t7 = time.perf_counter()
+    for mod in _kernel_modules():
+        mod.reset_launches()
+    phase_centralized(card)
+    phase_table2(card)
+    phase_fig5(card, per_upload)
+    launches_7 = {k: v for mod in _kernel_modules()
+                  for k, v in mod.LAUNCHES.items()}
+    _check(not any(launches_7.values()), f"phase 7: a kernel launched on "
+           f"the centralized path, which reaches none: {launches_7}")
+    print(f"[{card}] phase 7 wall {time.perf_counter() - t7:.1f} s "
+          f"(host clock); kernel launches on its path: {launches_7}")
+    torch.cuda.empty_cache()
+
     for arch in SERVED:
         phase_reference(card, arch)
     _fit_reference(card)
+    _centralized_reference(card)
 
     src = {"flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
                             "src/repro/kernels/flash_decode.py:299"),
@@ -2445,6 +2879,8 @@ def main() -> None:
     kernels = [{"name": name, "route": "cuda", "source": src[name][0],
                 "replaces": src[name][1], "launches": launches[name],
                 **rows[name]} for name in src]
+    print(f"[{card}] chip_smoke wall {time.perf_counter() - t_start:.1f} s "
+          f"(host clock)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -33,8 +33,12 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def _map(tree, fn):
-    return {k: _map(v, fn) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
+    """``fn`` on every leaf of a tree of dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(v, fn) for v in tree)
+    return fn(tree)
 
 
 def tree_to_torch(tree, device="cuda"):

@@ -137,6 +137,23 @@ def lora_mask(params):
     return rec(params)
 
 
+def materialize_lora(params):
+    """Fold adapters into base weights, W' = W + s·A·B (the deploy path
+    after federation).  Quantized sites keep their adapters: they cannot
+    be folded into NF4 codes losslessly.  A stacked site's scale (L,)
+    scales each layer's product."""
+    if not isinstance(params, dict):
+        return params
+    if "lora_a" in params and "w" in params and \
+            not isinstance(params["w"], dict):
+        w, s = params["w"], params["lora_scale"]
+        delta = (params["lora_a"] @ params["lora_b"] *
+                 s.reshape(s.shape + (1, 1))).to(w.dtype)
+        return {"w": w + delta}
+    return {k: materialize_lora(v) if isinstance(v, dict) else v
+            for k, v in params.items()}
+
+
 def tree_nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_util.leaves(tree))
 

@@ -62,3 +62,16 @@ def nf4_dequant(w_nf4: torch.Tensor, absmax: torch.Tensor) -> torch.Tensor:
     idx = torch.stack([w_nf4 >> 4, w_nf4 & 0xF], dim=-1).long()
     vals = code_book(w_nf4.device)[idx].reshape(*lead, nb, qblock)
     return (vals * absmax[..., None]).reshape(*lead, din, dout)
+
+
+def quant_error(w: torch.Tensor, qblock: int = 64) -> float:
+    """Relative L2 round-trip error (used by tests/benchmarks)."""
+    q, a = nf4_quantize(w, qblock)
+    wd = nf4_dequant(q, a)
+    return float(torch.linalg.norm(wd - w) /
+                 torch.clamp(torch.linalg.norm(w), min=1e-12))
+
+
+def nbytes_nf4(w_shape, qblock: int = 64) -> int:
+    n = int(np.prod(w_shape))
+    return n // 2 + (n // qblock) * 4

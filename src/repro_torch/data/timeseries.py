@@ -9,7 +9,7 @@ same seed gives the same arrays in both packages.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -71,6 +71,12 @@ def generate(spec: DatasetSpec, *, seed: int = 0,
     return (x + eps).astype(np.float32)
 
 
+def load_csv(path: str) -> np.ndarray:
+    """Real-data entry point: CSV of shape (T, M) (header allowed)."""
+    return np.genfromtxt(path, delimiter=",", skip_header=1,
+                         dtype=np.float32)
+
+
 def train_test_split(series: np.ndarray,
                      train_frac: float = 0.8) -> Tuple[np.ndarray, np.ndarray]:
     """Paper §4.1: 80% / 20% chronological split."""
@@ -90,3 +96,23 @@ def make_windows(series: np.ndarray, lookback: int, horizon: int,
     x = np.stack([series[i:i + lookback] for i in idx])
     y = np.stack([series[i + lookback:i + lookback + horizon] for i in idx])
     return x, y
+
+
+def batches(x: np.ndarray, y: np.ndarray, batch_size: int, *,
+            seed: int = 0, drop_last: bool = True
+            ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """One pass over the windows in a seeded random order."""
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(len(x))
+    end = len(x) - (len(x) % batch_size if drop_last else 0)
+    for i in range(0, end, batch_size):
+        sel = order[i:i + batch_size]
+        yield x[sel], y[sel]
+
+
+def sample_batch(x: np.ndarray, y: np.ndarray, batch_size: int, *,
+                 seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """``batch_size`` windows drawn with replacement."""
+    rng = np.random.default_rng(seed)
+    sel = rng.integers(0, len(x), batch_size)
+    return x[sel], y[sel]

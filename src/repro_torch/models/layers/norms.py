@@ -1,4 +1,4 @@
-"""RMSNorm (f32 inside, cast back)."""
+"""RMSNorm and LayerNorm (f32 inside, cast back)."""
 
 from __future__ import annotations
 
@@ -20,4 +20,18 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6, *,
     y = x32 * (var + eps) ** -0.5
     scale = params["scale"].float()
     y = y * (1.0 + scale) if gemma_style else y * scale
+    return y.to(x.dtype)
+
+
+def init_layernorm(dim: int, *, dtype=torch.float32, device=None):
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+            "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def layernorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * (var + eps) ** -0.5
+    y = y * params["scale"].float() + params["bias"].float()
     return y.to(x.dtype)

@@ -60,7 +60,8 @@ def init_blocks(cfg: ModelConfig, generator: torch.Generator,
         "attn_norm": init_rmsnorm(cfg.d_model, layers=L, device=device),
         "attn": init_attention(generator, cfg, **kw),
         "mlp_norm": init_rmsnorm(cfg.d_model, layers=L, device=device),
-        "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, **kw),
+        "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.activation,
+                        **kw),
     }
 
 

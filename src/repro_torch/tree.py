@@ -1,7 +1,9 @@
-"""Nested-dict parameter trees: the reference's pytrees of arrays become
-dicts of tensors with the same keys.  Leaves are visited in sorted key
-order, as ``jax.tree.leaves`` visits a dict, so flat layouts (the wire's
-payload vector, its error-feedback residual) line up with the reference's."""
+"""Parameter trees: the reference's pytrees of arrays become dicts (and
+lists or tuples, as FSLSTM's stack of layers) of tensors with the same
+keys.  Leaves are visited as ``jax.tree.leaves`` visits them: a dict's in
+sorted key order, a list's or tuple's in index order, so flat layouts (the
+wire's payload vector, its error-feedback residual) line up with the
+reference's."""
 
 from __future__ import annotations
 
@@ -9,11 +11,15 @@ from typing import Callable, List
 
 import torch
 
+_SEQ = (list, tuple)
+
 
 def leaves(tree) -> List:
-    """The leaves of ``tree`` in sorted key order."""
+    """The leaves of ``tree`` in the reference's order."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, _SEQ):
+        return [x for v in tree for x in leaves(v)]
     return [tree]
 
 
@@ -22,32 +28,31 @@ def map_(fn: Callable, tree, *rest):
     if isinstance(tree, dict):
         return {k: map_(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, _SEQ):
+        return type(tree)(map_(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
     return fn(tree, *rest)
 
 
 def unflatten(like, values):
-    """A tree shaped like ``like`` whose leaves are ``values``, taken in
-    sorted key order (the inverse of ``leaves``)."""
+    """A tree shaped like ``like`` whose leaves are ``values``, taken in the
+    order of ``leaves`` (its inverse)."""
     it = iter(values)
 
     def build(node):
         if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        if isinstance(node, _SEQ):
+            return type(node)(build(v) for v in node)
         return next(it)
 
     return build(like)
 
 
-def pick(tree, i: int):
-    """Element ``i`` of every tuple leaf: splits a tree of tuples (what
-    ``map_`` gives for a function with several results) into trees."""
-    return {k: pick(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
-
-
 def ravel(tree) -> torch.Tensor:
-    """The leaves laid end to end as one f32 vector, in sorted key order
-    (the wire's payload layout)."""
+    """The leaves laid end to end as one f32 vector, in the order of
+    ``leaves`` (the wire's payload layout)."""
     return torch.cat([l.reshape(-1).float() for l in leaves(tree)])
 
 

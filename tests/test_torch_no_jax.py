@@ -50,6 +50,8 @@ SLICE_MODULES = {
     "repro_torch.serve.journal",
     "repro_torch.core.secure_agg", "repro_torch.fault.snapshot",
     "repro_torch.train.checkpoint", "repro_torch.obs.fleet",
+    "repro_torch.optim.schedules", "repro_torch.baselines.dlinear",
+    "repro_torch.baselines.patchtst", "repro_torch.baselines.fslstm",
 }
 
 
