@@ -129,6 +129,33 @@ Phases, each printing its numbers beside the card's name and power limit:
         ``fed_full_round`` and ``centralized_epoch``, each equal to its
         closed form, FedTime's int8 and bf16 uploads equal to phase 5's
         measured bytes per upload;
+  8. the mesh path (after 7, before 6), every rank a process on the one
+     card, joined by ``launch.mesh.spawn_local`` over gloo (NCCL refuses
+     two ranks on one GPU; ``dist.collectives`` stages sends and gathers
+     through the host):
+     a. 8 ranks: ``fedcomm.ring_aggregate`` over fedtime-llama2-7b's
+        adapter payload (8,388,608 f32 elements a member, its LoRA tree's
+        shapes), 16 members, on (data 8, model 1) and (pod 2, data 2,
+        model 2), each wire one-shot and two rounds with state: the ring
+        on the card equal bit for bit to the same ring on host tensors in
+        the same ranks (the plain hop), outputs and residuals; within the
+        reference's tolerances of the exact weighted sum, unit weights
+        exact; bytes a rank per axis = the chunk plan =
+        ``fed.expected_collective_bytes`` = ``collective_bytes_per_round``;
+        2·n hop launches a rank per axis a round on the quantized wires;
+        8 int8 rounds carrying state debiased under 0.35x the one-shot
+        bias, beside a planted fault (the residual dropped); the wall of a
+        round and each rank's peak memory;
+     b. 4 ranks on (data 1, model 4): ``dist.decode.sharded_flash_decode``
+        with each served config's heads (B 4, S 4096; bf16 and int8;
+        causal, window, prefix; a striped pool with shared blocks, -1
+        entries and an inactive lane) against the whole cache through the
+        kernel, beside a planted fault (one stripe dropped); one
+        flash-decode launch a rank a call;
+     c. the same 4 ranks: three steps of ``adamw_update_zero1`` on
+        qwen3-0.6b's whole tree at published widths and on
+        fedtime-llama2-7b's adapter tree, on (data 4) and (data 2, model
+        2), equal to ``adamw_update`` bit for bit;
   6. check the model path on the card against the plain path on the CPU at
      the smoke configs in f32: prefill + teacher-forced decode (ring and
      paged) of qwen3-0.6b and of fedtime-llama2-7b (G = 1), a 2-round fit
@@ -297,7 +324,7 @@ def _quant(x):
 
 
 def _decode_case(rows, S: int, int8: bool, paged: bool, *, n_blocks=0,
-                 Hk=8, G=2, D=128, bs=16, seed=0):
+                 Hk=8, G=2, D=128, bs=16, seed=0, device="cuda"):
     """Inputs of one decode call with Hk KV heads of D and G queries each:
     one row per entry of ``rows`` (its position; -1 is an idle lane, which
     must come out 0).
@@ -305,7 +332,7 @@ def _decode_case(rows, S: int, int8: bool, paged: bool, *, n_blocks=0,
     (``n_blocks`` blocks of ``bs``) shares its first two blocks between all
     active rows, and leaves the table entries past each row's position,
     and every entry of an idle lane, ungranted (-1)."""
-    dev = "cuda"
+    dev = device
     B = len(rows)
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((B, 1, Hk * G, D), generator=g, device=dev)
@@ -2712,6 +2739,567 @@ def _centralized_reference(card: str, device="cuda") -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the mesh path, 8 and 4 ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+
+# 8a: the ring over fedtime-llama2-7b's adapter payload (HOP_ELEMS a member,
+# its LoRA tree's shapes), 16 members, on both meshes and every wire.
+MESH_RING = dict(members=16, state_rounds=2, ef_rounds=8, seed=0,
+                 meshes=(((8, 1), ("data", "model")),
+                         ((2, 2, 2), ("pod", "data", "model"))))
+MESH_WIRES = ("f32", "bf16", "int8")
+# the reference's tolerances against the exact weighted sum
+# (tests/test_ring_collective.py); error feedback's limit on the
+# time-average's bias as a share of the one-shot bias
+MESH_TOL = {"f32": 1e-6, "bf16": 5e-2, "int8": 0.3}
+EF_LIMIT = 0.35
+# bytes a device a round of an n-way ring over HOP_ELEMS (the chunk plan)
+MESH_RING_BYTES = {
+    8: {"f32": 58_720_256, "bf16": 29_360_128, "int8": 15_138_816},
+    2: {"f32": 33_554_432, "bf16": 16_777_216, "int8": 8_650_752}}
+# 8b: the sequence-sharded decode on (data 1, model 4), each served
+# config's heads; 8c: ZeRO-1 on (data 4) and (data 2, model 2)
+MESH_DECODE = dict(mesh=((1, 4), ("data", "model")), B=4, S=4096,
+                   window=1000, int8_tol=3e-2)
+MESH_ZERO1 = dict(meshes=(((4,), ("data",)), ((2, 2), ("data", "model"))),
+                  steps=3, lr=1e-3, weight_decay=0.01)
+MESH_TIMEOUT_S = 300
+
+
+def _adapter_shapes(cfg=None):
+    """{path: shape} of one member's federated payload: fedtime-llama2-7b's
+    LoRA tree at full width (phase 5's), its shapes from the meta device."""
+    from repro_torch.core import fedtime
+    from repro_torch.core.lora import attach_lora, lora_tree
+    cfg = cfg or _fit_config()
+    ft = cfg.fedtime
+    g = torch.Generator()
+    tree = lora_tree(attach_lora(fedtime.init(
+        cfg, g, num_channels=FIT_CHANNELS, device="meta"), g,
+        rank=ft.lora_rank, alpha=ft.lora_alpha))
+
+    def shapes(node):
+        if isinstance(node, dict):
+            return {k: shapes(v) for k, v in node.items()}
+        return tuple(node.shape)
+    return shapes(tree)
+
+
+def _tree_of(shapes, make):
+    if isinstance(shapes, dict):
+        return {k: _tree_of(shapes[k], make) for k in sorted(shapes)}
+    return make(shapes)
+
+
+def _sync(device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed(device: str, fn, *args, **kw):
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    _sync(device)
+    return out, time.perf_counter() - t0
+
+
+def _peak_gib(device: str) -> float:
+    return (torch.cuda.max_memory_allocated() / 2 ** 30
+            if device == "cuda" else 0.0)
+
+
+def _bits_equal(a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def _mesh_ring_rank(shapes, device="cuda"):
+    """8a in one rank: the ring on each mesh and wire, on the device (the
+    hop kernel) and on the host (its plain version) in the same rank."""
+    import torch.distributed as dist
+    from repro_torch import tree as tree_util
+    from repro_torch.core import comm
+    from repro_torch.dist import collectives, fed, fedcomm
+    from repro_torch.kernels import wire_hop as wh
+    from repro_torch.launch.mesh import make_mesh
+    for k in ("REPRO_FED_WIRE", "REPRO_FED_QBLOCK", "REPRO_FED_RING"):
+        os.environ.pop(k, None)
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    n = MESH_RING["members"]
+    g = torch.Generator(device=device).manual_seed(MESH_RING["seed"])
+    # integers in eighths, |x| <= 1 (the reference test's -8..8, over 8):
+    # a sum of them is exact in f32 in any order, and the f32 rounding of
+    # a weighted sum stays well under 1e-6 over 8.4M elements (at -8..8 it
+    # reaches 9.4e-7)
+    members = _tree_of(shapes, lambda s: torch.randint(
+        -8, 9, (n,) + s, generator=g, device=device).float() / 8)
+    host = tree_util.map_(lambda t: t.cpu(), members)
+    wf = torch.rand(n, generator=torch.Generator().manual_seed(1))
+    wf = wf / wf.sum()
+    ones = torch.ones(n)
+    like = _tree_of(shapes, lambda s: torch.empty(s, device="meta"))
+    elems = sum(t.numel() for t in tree_util.leaves(like))
+
+    def exact(w):
+        w = w.double().to(device)
+        return torch.cat([torch.tensordot(w, t.double(), dims=1).reshape(-1)
+                          for t in tree_util.leaves(members)])
+
+    exact_w, exact_1 = exact(wf), exact(ones)
+    wh.reset_launches()
+    out = {"rank": dist.get_rank(), "meshes": {}}
+    meshes = []
+    with _HopRecorder(wh, keep=3) as rec:
+        for shape, names in MESH_RING["meshes"]:
+            mesh = make_mesh(shape, names, device_type=device)
+            meshes.append(mesh)
+            sizes = {ax: collectives.axis_size(mesh, ax)
+                     for ax in fed.aggregation_axes(mesh)}
+            label = " x ".join(f"{a} {s}" for a, s in zip(names, shape))
+            o, _ = _timed(device, fedcomm.ring_aggregate, members, ones,
+                          mesh, wire="f32")
+            _check(torch.equal(tree_util.ravel(o).double(), exact_1),
+                   f"8a {label}: the f32 ring of integer payloads is not the "
+                   f"exact sum bit for bit")
+            got = {"sizes": sizes}
+            for wire in MESH_WIRES:
+                before = sum(wh.LAUNCHES.values())
+                ledger = []
+                o, wall = _timed(device, fedcomm.ring_aggregate, members, wf,
+                                 mesh, wire=wire, byte_ledger=ledger)
+                hops = sum(wh.LAUNCHES.values()) - before
+                per_axis = {}
+                for ax, nbytes in ledger:
+                    per_axis[ax] = per_axis.get(ax, 0) + nbytes
+                expected = fed.expected_collective_bytes(like, mesh, wire)
+                accounted = comm.collective_bytes_per_round(like, mesh, wire)
+                for ax, size in sizes.items():
+                    want = comm.ring_wire_plan(elems, size,
+                                               wire).per_device_bytes
+                    _check(per_axis[ax] == want == expected[ax] ==
+                           accounted[ax], f"8a {label} {wire}: {ax} bytes "
+                           f"{per_axis[ax]}, plan {want}, expected "
+                           f"{expected[ax]}, accounted {accounted[ax]}")
+                    if elems == HOP_ELEMS:
+                        _check(per_axis[ax] == MESH_RING_BYTES[size][wire],
+                               f"8a {label} {wire}: {ax} bytes "
+                               f"{per_axis[ax]}")
+                want_hops = (0 if wire == "f32" or not cuda
+                             else sum(2 * s for s in sizes.values()))
+                _check(hops == want_hops, f"8a {label} {wire}: {hops} hop "
+                       f"launches a round, not {want_hops}")
+                flat = tree_util.ravel(o)
+                err = float((flat.double() - exact_w).abs().max())
+                _check(err <= MESH_TOL[wire], f"8a {label} {wire}: max err "
+                       f"{err} against the exact sum > {MESH_TOL[wire]}")
+                st = fedcomm.init_state(members, mesh, wire=wire)
+                outs = [flat]
+                for _ in range(MESH_RING["state_rounds"]):
+                    (o, st), _ = _timed(device, fedcomm.ring_aggregate,
+                                        members, wf, mesh, wire=wire,
+                                        state=st)
+                    outs.append(tree_util.ravel(o))
+                # the same ring on the host in this rank: the plain hop
+                plain = [tree_util.ravel(fedcomm.ring_aggregate(
+                    host, wf, mesh, wire=wire))]
+                sth = fedcomm.init_state(host, mesh, wire=wire)
+                for _ in range(MESH_RING["state_rounds"]):
+                    o, sth = fedcomm.ring_aggregate(host, wf, mesh,
+                                                    wire=wire, state=sth)
+                    plain.append(tree_util.ravel(o))
+                for i, (a, b) in enumerate(zip(outs, plain)):
+                    _check(_bits_equal(a.cpu(), b), f"8a {label} {wire}: "
+                           f"round {i} on the device differs from the "
+                           f"host's ring")
+                for ax in st:
+                    _check(_bits_equal(st[ax].cpu(), sth[ax]),
+                           f"8a {label} {wire}: {ax} residual differs from "
+                           f"the host's ring")
+                got[wire] = dict(bytes=per_axis, hops=hops, err=err,
+                                 wall=wall, transfers=len(ledger),
+                                 fingerprint=int(flat.view(torch.int32)
+                                                 .long().sum()))
+            out["meshes"][label] = got
+        mesh = meshes[0]
+        one, _ = _timed(device, fedcomm.ring_aggregate, members, wf, mesh,
+                        wire="int8")
+        bias_one = float((tree_util.ravel(one).double() - exact_w).abs()
+                         .mean())
+        rounds = MESH_RING["ef_rounds"]
+        for carry in (True, False):
+            st = fedcomm.init_state(members, mesh, wire="int8")
+            total = torch.zeros_like(exact_w)
+            for _ in range(rounds):
+                if not carry:            # the planted fault: residual dropped
+                    st = fedcomm.init_state(members, mesh, wire="int8")
+                (o, st), _ = _timed(device, fedcomm.ring_aggregate, members,
+                                    wf, mesh, wire="int8", state=st)
+                total += tree_util.ravel(o).double()
+            bias = float((total / rounds - exact_w).abs().mean())
+            out["ef" if carry else "ef_fault"] = bias / bias_one
+        out["bias_one"] = bias_one
+        _check(out["ef"] < EF_LIMIT, f"8a error feedback: {rounds} int8 "
+               f"rounds' bias {out['ef']:.3g}x the one-shot, not under "
+               f"{EF_LIMIT}")
+        _check(out["ef_fault"] >= EF_LIMIT, f"8a error feedback: the "
+               f"residual dropped between rounds reads {out['ef_fault']:.3g}"
+               f"x, inside the limit {EF_LIMIT}")
+    for wire, qblock, args, outs in rec.calls:
+        want = wh.fused_hop_ref(*(None if a is None else a
+                                  for a in args), wire=wire, qblock=qblock)
+        for a, b in zip(outs, want):
+            _check((a is None) == (b is None) and
+                   (a is None or _bits_equal(a, b)),
+                   f"8a: a {wire} hop of the ring differs from the plain hop")
+    out["held_hops"] = len(rec.calls)
+    out["launches"] = dict(wh.LAUNCHES)
+    out["peak_gib"] = _peak_gib(device)
+    return out
+
+
+def _decode_kinds(args, kw, S: int, device: str):
+    """The ring's three kinds on one case: (name, args, kw)."""
+    q, k, v, kv_pos, q_pos = args
+    full = torch.arange(S, dtype=torch.int32, device=device).expand(
+        q.shape[0], S).contiguous()
+    plen = torch.tensor([S, 3 * S // 4 + 300, S // 40, S // 2 + 600],
+                        dtype=torch.int32, device=device)[:q.shape[0]]
+    return (("causal", args, dict(kw)),
+            ("window", args, dict(kw, window=MESH_DECODE["window"])),
+            ("prefix", (q, k, v, full, q_pos),
+             dict(kw, kind="prefix", prefix_len=plen)))
+
+
+def _unsharded(args, kw, device: str):
+    """The whole cache through the kernel (a comparison launch, not
+    counted) or, on the CPU, the plain version."""
+    from repro_torch.kernels import flash_decode as fd
+    if device != "cuda":
+        return fd.flash_decode_ref(*args, **kw)
+    launch, out = fd.flash_decode_launcher(*args, **kw)
+    launch()
+    return out
+
+
+def _drop_last_stripe(args, kw, ways: int):
+    """The planted fault: the last model rank's stripe masked out (its
+    partials would then weigh 0 in the combine).  The last stripe holds
+    the newest slots of the longest rows, which every kind attends to."""
+    q, k, v, kv_pos, q_pos = args
+    kv_pos = kv_pos.clone()
+    if kw.get("block_tables") is None:
+        kv_pos[:, -(kv_pos.shape[1] // ways):] = -1
+    else:
+        kv_pos[-(kv_pos.shape[0] // ways):] = -1
+    return (q, k, v, kv_pos, q_pos)
+
+
+def _mesh_decode(mesh, geoms, S: int, device: str) -> dict:
+    """8b in one rank: every case through ``sharded_flash_decode`` against
+    the whole cache through the kernel."""
+    from repro_torch.dist.collectives import axis_size
+    from repro_torch.dist.decode import sharded_flash_decode
+    from repro_torch.kernels import flash_decode as fd
+    B, ways = MESH_DECODE["B"], axis_size(mesh, "model")
+    rows = [S - 1, S - 100, 3 * S // 4, S // 2 + 5][:B]
+    paged_rows = [S - 1, S - 100, -1, S // 2 + 5][:B]
+    n_blocks = B * S // 16 + 8
+    kept, calls, got = [], {"ring": 0, "paged": 0}, {}
+    fd.reset_launches()
+
+    def keep(a, kw, o):
+        if len(kept) < 4:
+            kept.append((tuple(x.clone() if torch.is_tensor(x) else x
+                               for x in a),
+                         {k: x.clone() if torch.is_tensor(x) else x
+                          for k, x in kw.items()},
+                         tuple(x.clone() for x in o)))
+
+    spy = (_Stopwatch(fd, "flash_decode_cuda", keep=keep)
+           if device == "cuda" else contextlib.nullcontext())
+    with spy:
+        for arch, hw in geoms.items():
+            for int8 in (False, True):
+                tol = MESH_DECODE["int8_tol"] if int8 else TOL_F32_OUT
+                dtype = "int8" if int8 else "bf16"
+                args, kw = _decode_case(rows, S, int8, False, device=device,
+                                        **hw)
+                q32 = args[0].float()
+                for kind, a, k in _decode_kinds(args, kw, S, device):
+                    a = (q32,) + a[1:]
+                    o = sharded_flash_decode(*a, mesh, **k)
+                    calls["ring"] += 1
+                    want = _unsharded(a, k, device)
+                    fault = _unsharded(_drop_last_stripe(a, k, ways), k,
+                                       device)
+                    err = float((o - want).abs().max())
+                    planted = float((fault - want).abs().max())
+                    _check(err <= tol and planted > tol, f"8b {arch} ring "
+                           f"{dtype} {kind}: max err {err} (tol {tol}), a "
+                           f"dropped stripe reads {planted}")
+                    got[f"{arch} ring {dtype} {kind}"] = (err, planted, tol)
+                # the main path's own type: bf16 queries and output
+                o = sharded_flash_decode(*args, mesh, **kw)
+                calls["ring"] += 1
+                want = _unsharded(args, kw, device)
+                g, w = o.float(), want.float()
+                over = float(((g - w).abs() - BF16_HALF_STEP *
+                              (g.abs() + w.abs()) - TOL_F32_OUT).max())
+                _check(over <= 0, f"8b {arch} ring {dtype} bf16 queries: "
+                       f"off by more than bf16 rounding ({over} over)")
+                args, kw = _decode_case(paged_rows, S, int8, True,
+                                        n_blocks=n_blocks, device=device,
+                                        **hw)
+                a = (args[0].float(),) + args[1:]
+                o = sharded_flash_decode(*a, mesh, **kw)
+                calls["paged"] += 1
+                want = _unsharded(a, kw, device)
+                fault = _unsharded(_drop_last_stripe(a, kw, ways), kw,
+                                   device)
+                err = float((o - want).abs().max())
+                planted = float((fault - want).abs().max())
+                _check(err <= tol and planted > tol, f"8b {arch} paged "
+                       f"{dtype}: max err {err} (tol {tol}), a dropped "
+                       f"stripe reads {planted}")
+                idle = [b for b, p in enumerate(paged_rows) if p < 0]
+                _check(torch.count_nonzero(o[idle]) == 0,
+                       f"8b {arch} paged {dtype}: the inactive lane is not "
+                       f"exactly 0")
+                got[f"{arch} paged {dtype}"] = (err, planted, tol)
+    launches = dict(fd.LAUNCHES)
+    if device == "cuda":
+        _check(launches["flash_decode"] == calls["ring"] and
+               launches["flash_decode_paged"] == calls["paged"],
+               f"8b: {launches} flash-decode launches for {calls} sharded "
+               f"calls: not one a call")
+        for a, k, o in kept:             # the path's own calls, held
+            m, l, acc = fd.flash_decode_ref(*a, **k)
+            err = float((o[2] / torch.clamp(o[1], min=1e-30)
+                         - acc / torch.clamp(l, min=1e-30)).abs().max())
+            _check(err <= TOL_F32_OUT, f"8b: a stripe's partials off the "
+                   f"plain version's by {err}")
+    return {"cases": got, "calls": calls, "launches": launches,
+            "held_stripes": len(kept)}
+
+
+def _zero1_trees(qwen_cfg, adapter_shapes, device: str):
+    """(name, params, gather): qwen3-0.6b's whole tree and
+    fedtime-llama2-7b's adapter tree, every leaf trained; ``gather`` says
+    whether the moments are also gathered whole to be held (the adapters';
+    qwen3's are held block by block on every rank, which covers every
+    block)."""
+    from repro_torch.models.registry import get_model
+    g = torch.Generator(device=device).manual_seed(3)
+    qwen = get_model(qwen_cfg).init(qwen_cfg, g, device=device)
+    adapters = _tree_of(adapter_shapes, lambda s: torch.randn(
+        s, generator=g, device=device) * 0.01)
+    return (("qwen3-0.6b", qwen, False),
+            ("fedtime-llama2-7b adapters", adapters, True))
+
+
+def _grad_leaf(p, step: int, i: int, device: str):
+    """Leaf ``i``'s gradient at ``step``: its own seeded draw, so that one
+    leaf's gradients can be drawn without the rest of the tree's."""
+    g = torch.Generator(device=device).manual_seed(100_000 * step + i)
+    return (torch.randn(p.shape, generator=g, device=device) * 0.01).to(
+        p.dtype)
+
+
+def _grads(params, step: int, device: str):
+    from repro_torch import tree as tree_util
+    return tree_util.unflatten(params, [
+        _grad_leaf(p, step, i, device)
+        for i, p in enumerate(tree_util.leaves(params))])
+
+
+def _mesh_zero1(meshes, trees, device: str) -> dict:
+    """8c in one rank: three steps of ``adamw_update_zero1`` against three
+    of ``adamw_update`` on the same gradients.  ``adamw_update`` runs one
+    leaf at a time (AdamW updates each leaf alone, so this is the whole
+    tree's update), which keeps one leaf's whole moments on the card at
+    once instead of the tree's, four ranks over."""
+    from repro_torch import tree as tree_util
+    from repro_torch.optim import adamw
+    hp = dict(lr=MESH_ZERO1["lr"], weight_decay=MESH_ZERO1["weight_decay"])
+    steps = range(1, MESH_ZERO1["steps"] + 1)
+    got = {}
+    for name, params, gather in trees:
+        for (shape, names), mesh in meshes:
+            label = f"{name} on " + " x ".join(
+                f"{a} {s}" for a, s in zip(names, shape))
+            p, st = params, adamw.zero1_init(params, mesh)
+            walls = []
+            for step in steps:
+                g = _grads(params, step, device)
+                (p, st), wall = _timed(device, adamw.adamw_update_zero1, p,
+                                       g, st, step, mesh=mesh, **hp)
+                walls.append(wall)
+                del g
+            plan = adamw._zero1_plan(params, mesh)
+            whole = {"mu": [], "nu": []}
+            for i, (x, xz, wi) in enumerate(zip(
+                    tree_util.leaves(params), tree_util.leaves(p), plan)):
+                lp, lst = {"w": x}, adamw.adamw_init({"w": x})
+                for step in steps:
+                    lp, lst = adamw.adamw_update(
+                        lp, {"w": _grad_leaf(x, step, i, device)}, lst, step,
+                        **hp)
+                _check(_bits_equal(xz, lp["w"]), f"8c {label}: leaf {i}'s "
+                       f"parameters differ from adamw_update")
+                for m in ("mu", "nu"):
+                    _check(_bits_equal(tree_util.leaves(st[m])[i],
+                                       adamw._block(lst[m]["w"], wi, mesh)),
+                           f"8c {label}: this rank's block of leaf {i}'s "
+                           f"{m} differs from adamw_update's")
+                    if gather:
+                        whole[m].append(lst[m]["w"])
+                del lp, lst
+            if gather:
+                full = adamw.zero1_gather(st, params, mesh)
+                _check(all(_bits_equal(a, b) for m in ("mu", "nu") for a, b
+                           in zip(tree_util.leaves(full[m]), whole[m])),
+                       f"8c {label}: the gathered moments differ from "
+                       f"adamw_update's")
+            got[label] = dict(
+                moment_bytes=sum(x.numel() * 4 for x in
+                                 tree_util.leaves(st)),
+                whole_bytes=2 * sum(x.numel() * 4 for x in
+                                    tree_util.leaves(params)),
+                walls=walls)
+            del p, st, whole
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    return got
+
+
+def _mesh_rest_rank(geoms, S, qwen_cfg, adapter_shapes, device="cuda"):
+    """8b and 8c in one rank of the 4-rank world."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    os.environ.pop("REPRO_ZERO1_SCATTER", None)
+    os.environ.pop("REPRO_CACHE_SHARD", None)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mesh = make_mesh(*MESH_DECODE["mesh"], device_type=device)
+    out = {"rank": dist.get_rank(),
+           "decode": _mesh_decode(mesh, geoms, S, device)}
+    out["decode_s"] = time.perf_counter() - t0
+    out["decode_peak_gib"] = _peak_gib(device)
+    _sync(device)
+    if device == "cuda":          # four ranks share the card: hand back
+        torch.cuda.empty_cache()  # what 8b cached
+    t0 = time.perf_counter()
+    meshes = [((shape, names), make_mesh(shape, names, device_type=device))
+              for shape, names in MESH_ZERO1["meshes"]]
+    out["zero1"] = _mesh_zero1(
+        meshes, _zero1_trees(qwen_cfg, adapter_shapes, device), device)
+    out["zero1_s"] = time.perf_counter() - t0
+    out["peak_gib"] = _peak_gib(device)
+    return out
+
+
+def phase_mesh(card: str, device="cuda", shapes=None, geoms=None, S=None,
+               qwen_cfg=None) -> dict:
+    """Phase 8: the mesh path through ``launch.mesh.spawn_local``, every
+    rank on the one card over gloo: 8a the ring (8 ranks), 8b the
+    sequence-sharded decode and 8c ZeRO-1 (4 ranks).  The other arguments
+    cut it to a rehearsal's size on the CPU.  Returns each mesh path's
+    kernel launches, summed over the ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn_local
+    t_start = time.perf_counter()
+    shapes = shapes or _adapter_shapes()
+    if geoms is None:
+        geoms = {arch: dict(Hk=Hk, G=G, D=D)
+                 for arch, (_, Hk, G, D) in _served_heads().items()}
+    S = S or MESH_DECODE["S"]
+    qwen_cfg = qwen_cfg or get_config(SERVED[0])
+    ring = spawn_local(8, _mesh_ring_rank, shapes, device, device_type=device,
+                       timeout_s=MESH_TIMEOUT_S)
+    t_ring = time.perf_counter() - t_start
+    first = ring[0]
+    print(f"[{card}] phase 8a ring over fedtime-llama2-7b's adapter payload "
+          f"({HOP_ELEMS} f32 elements a member, {MESH_RING['members']} "
+          f"members, integers in eighths), 8 ranks on one card over gloo; "
+          f"device ring == host ring (plain hop) bit for bit in every rank, "
+          f"f32 ring of unit weights == exact sum bit for bit; "
+          f"{first['held_hops']} of its hop calls held to the plain hop bit "
+          f"for bit in each rank")
+    for label, got in first["meshes"].items():
+        for wire in MESH_WIRES:
+            r = got[wire]
+            prints = {rk["meshes"][label][wire]["fingerprint"]
+                      for rk in ring}
+            _check(len(prints) == 1, f"8a {label} {wire}: ranks hold "
+                   f"different outputs")
+            wall = max(rk["meshes"][label][wire]["wall"] for rk in ring)
+            print(f"  {label} {wire}: bytes a rank a round "
+                  + ", ".join(f"{ax} {b}" for ax, b in r["bytes"].items())
+                  + f" (= plan = expected = accounted), {r['transfers']} "
+                  f"transfers, {r['hops']} hop launches a rank, max err "
+                  f"{r['err']:.3g} vs exact (tol {MESH_TOL[wire]}); round "
+                  f"wall {wall * 1e3:.1f} ms (host clock, slowest rank; "
+                  f"gloo through the host on one card, not a collective's "
+                  f"speed)")
+    print(f"[{card}] phase 8a error feedback, {MESH_RING['ef_rounds']} int8 "
+          f"rounds on data 8: time-average bias {first['ef']:.4f}x the "
+          f"one-shot's ({first['bias_one']:.4g}; limit {EF_LIMIT}); planted "
+          f"fault, the residual dropped between rounds: "
+          f"{first['ef_fault']:.4f}x")
+    print(f"[{card}] phase 8a peak device memory a rank (GiB): "
+          + ", ".join(f"{rk['peak_gib']:.2f}" for rk in ring)
+          + f"; wall {t_ring:.1f} s with the world's start")
+    rest = spawn_local(4, _mesh_rest_rank, geoms, S, qwen_cfg, shapes,
+                       device, device_type=device, timeout_s=MESH_TIMEOUT_S)
+    first = rest[0]
+    dec = first["decode"]
+    print(f"[{card}] phase 8b sequence-sharded flash-decode, 4 ranks on "
+          f"(data 1, model 4), B {MESH_DECODE['B']}, S {S}; sharded vs the "
+          f"whole cache through the kernel (f32 queries), a dropped stripe "
+          f"beside; {dec['calls']} sharded calls a rank, flash-decode "
+          f"launches {dec['launches']} a rank, {dec['held_stripes']} "
+          f"stripes' partials held to the plain version:")
+    for case, (err, planted, tol) in dec["cases"].items():
+        worst = max(rk["decode"]["cases"][case][0] for rk in rest)
+        print(f"  {case}: max_abs_err {worst:.3g} (tol {tol}); dropped "
+              f"stripe {planted:.3g}")
+    print(f"[{card}] phase 8b wall {first['decode_s']:.1f} s, peak device "
+          f"memory a rank (GiB): "
+          + ", ".join(f"{rk['decode_peak_gib']:.2f}" for rk in rest))
+    for label, z in first["zero1"].items():
+        walls = [max(rk["zero1"][label]["walls"][i] for rk in rest)
+                 for i in range(MESH_ZERO1["steps"])]
+        print(f"[{card}] phase 8c ZeRO-1 {label}: {MESH_ZERO1['steps']} "
+              f"steps == adamw_update bit for bit (parameters; moment "
+              f"blocks); moments a rank {z['moment_bytes'] / 1e9:.3f} GB of "
+              f"{z['whole_bytes'] / 1e9:.3f}; step walls "
+              + ", ".join(f"{w:.2f}" for w in walls)
+              + " s (host clock, slowest rank; the gather goes through the "
+              "host)")
+    print(f"[{card}] phase 8c wall {first['zero1_s']:.1f} s; peak device "
+          f"memory a rank (GiB): "
+          + ", ".join(f"{rk['peak_gib']:.2f}" for rk in rest))
+    launches = {
+        "wire_hop_int8": sum(rk["launches"]["wire_hop_int8"] for rk in ring),
+        "wire_hop_bf16": sum(rk["launches"]["wire_hop_bf16"] for rk in ring),
+        "flash_decode": sum(rk["decode"]["launches"]["flash_decode"]
+                            for rk in rest),
+        "flash_decode_paged": sum(
+            rk["decode"]["launches"]["flash_decode_paged"] for rk in rest)}
+    if device == "cuda":
+        _check(all(launches.values()), f"phase 8: a kernel of the mesh path "
+               f"was never launched: {launches}")
+    print(f"[{card}] phase 8 kernel launches on the mesh paths (all ranks): "
+          f"{launches}; wall {time.perf_counter() - t_start:.1f} s (host "
+          f"clock)")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 6: small-input reference
 # ---------------------------------------------------------------------------
 
@@ -2854,6 +3442,13 @@ def main() -> None:
     print(f"[{card}] phase 7 wall {time.perf_counter() - t7:.1f} s "
           f"(host clock); kernel launches on its path: {launches_7}")
     torch.cuda.empty_cache()
+
+    mesh_launches = phase_mesh(card)
+    for name, path in (("wire_hop_int8", "ring_aggregate"),
+                       ("wire_hop_bf16", "ring_aggregate"),
+                       ("flash_decode", "sharded_flash_decode"),
+                       ("flash_decode_paged", "sharded_flash_decode")):
+        rows[name][path] = {"launches": mesh_launches[name]}
 
     for arch in SERVED:
         phase_reference(card, arch)

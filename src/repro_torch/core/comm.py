@@ -12,8 +12,9 @@ Wire formats (``REPRO_FED_WIRE``, read on every call as the reference
 reads it): the payload crosses the wire as f32, bf16, or int8 codes with
 one f32 absmax scale per ``REPRO_FED_QBLOCK`` values (default 128).
 ``ring_wire_plan`` is the chunk geometry and per-hop transfer size of the
-bidirectional ring all-reduce that aggregates across chips; the ring
-itself is not ported yet.  Byte counts equal the reference's exactly.
+bidirectional ring all-reduce that aggregates across ranks
+(``repro_torch.kernels.ring_allreduce``).  Byte counts equal the
+reference's exactly.
 """
 
 from __future__ import annotations
@@ -166,13 +167,18 @@ def centralized_epoch(num_samples: int, lookback: int, horizon: int,
     return RoundStats(up, 0, msgs, t)
 
 
-def collective_bytes_per_round(params, mesh_shape: dict,
+def collective_bytes_per_round(params, mesh_shape,
                                wire: str = None) -> dict:
     """Per-device bytes crossing each mesh axis for one aggregation round
     when the federation is mapped onto a mesh (clients -> ``data``, sites
     -> ``pod``), in the ``wire`` encoding: the ring plan of
     ``ring_wire_plan`` over the adapter payload.  ``mesh_shape`` is a
-    ``{axis: size}`` dict; a missing axis has size 1."""
+    ``{axis: size}`` dict or a mesh (a ``DeviceMesh``, or anything whose
+    ``.shape`` is such a dict); a missing axis has size 1.  The ring's
+    byte ledger and ``dist.fed.expected_collective_bytes`` give the same
+    numbers."""
+    from repro_torch.dist.sharding import _mesh_shape
+    shape = _mesh_shape(mesh_shape)
     elems = count_params(lora_tree(params))
-    return {axis: ring_wire_bytes(elems, mesh_shape.get(axis, 1), wire)
+    return {axis: ring_wire_bytes(elems, shape.get(axis, 1), wire)
             for axis in ("data", "pod")}

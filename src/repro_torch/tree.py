@@ -34,20 +34,22 @@ def map_(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def _build(node, it):
+    if isinstance(node, dict):
+        built = {k: _build(node[k], it) for k in sorted(node)}
+        return {k: built[k] for k in node}
+    if isinstance(node, _SEQ):
+        return type(node)(_build(v, it) for v in node)
+    return next(it)
+
+
 def unflatten(like, values):
     """A tree shaped like ``like`` whose leaves are ``values``, taken in the
-    order of ``leaves`` (its inverse)."""
-    it = iter(values)
-
-    def build(node):
-        if isinstance(node, dict):
-            built = {k: build(node[k]) for k in sorted(node)}
-            return {k: built[k] for k in node}
-        if isinstance(node, _SEQ):
-            return type(node)(build(v) for v in node)
-        return next(it)
-
-    return build(like)
+    order of ``leaves`` (its inverse).  A module-level recursion, not a
+    nested one: a nested function that calls itself is a reference cycle,
+    which would keep ``values`` (and every tensor in it) alive until the
+    garbage collector's next cycle pass."""
+    return _build(like, iter(values))
 
 
 def ravel(tree) -> torch.Tensor:

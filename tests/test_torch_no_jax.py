@@ -52,6 +52,9 @@ SLICE_MODULES = {
     "repro_torch.train.checkpoint", "repro_torch.obs.fleet",
     "repro_torch.optim.schedules", "repro_torch.baselines.dlinear",
     "repro_torch.baselines.patchtst", "repro_torch.baselines.fslstm",
+    "repro_torch.launch.mesh", "repro_torch.dist.collectives",
+    "repro_torch.dist.sharding", "repro_torch.kernels.ring_allreduce",
+    "repro_torch.dist.fed", "repro_torch.dist.decode",
 }
 
 
@@ -139,7 +142,8 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
             if not inspect.isfunction(fn):
                 continue
             for name, p in inspect.signature(fn).parameters.items():
-                if name == "device" and isinstance(p.default, str):
+                if name in ("device", "device_type") and \
+                        isinstance(p.default, str):
                     out.append((m.name, fn.__qualname__, p.default))
 print(sorted({{d for *_, d in out}}), len(out))
 print([o for o in out if o[2] != "cuda"])
@@ -147,8 +151,9 @@ print([o for o in out if o[2] != "cuda"])
 
 
 def test_entry_points_default_to_the_card():
-    """Every function of the port with a ``device`` keyword defaults it
-    to ``"cuda"``: the CPU is the caller's explicit choice."""
+    """Every function of the port with a ``device`` or ``device_type``
+    keyword defaults it to ``"cuda"``: the CPU is the caller's explicit
+    choice."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
         [sys.executable, "-c", _DEVICE_PROBE.format(src=str(SRC))],
