@@ -156,6 +156,26 @@ Phases, each printing its numbers beside the card's name and power limit:
         qwen3-0.6b's whole tree at published widths and on
         fedtime-llama2-7b's adapter tree, on (data 4) and (data 2, model
         2), equal to ``adamw_update`` bit for bit;
+  9. sharded serving (after 8, before 6), 4 ranks of one world on the one
+     card over gloo, the same weights drawn from one seed on every rank
+     (checked by a checksum); each rank holds only its rows and its
+     stripe of the cache (``launch.steps.make_prefill_step`` and
+     ``make_serve_step`` under ``dist.sharding.use_mesh``):
+     a. qwen3-0.6b at full width and depth on (data 2, model 2): B 4, a
+        960-token prompt, a 1024-slot ring (512 slots a model rank, 2 rows
+        a data rank), 64 greedy steps; bf16, int8 (``REPRO_KV_INT8=1``)
+        and ragged (lane 1 inactive from step 10);
+     b. a paged pool of its width striped over (data 1, model 4): a
+        shared block, a -1 entry, lane 1 inactive from step 5, 32 steps;
+     c. fedtime-llama2-7b's backbone at full width and depth (Hk 32, G 1,
+        D 128) on (data 1, model 4), 32 steps;
+     each held at every step to the unsharded run of the whole batch fed
+     the same tokens (logits within SHARD_LOGIT_TOL, each differing
+     greedy choice printed with both runs' leads), beside a planted fault
+     (the first stripe's partials dropped); cache bytes a rank = the whole
+     cache's / (batch ways x model ways); one flash-decode launch a rank a
+     layer a step; the inactive lane's attention output exactly 0; prefill
+     and decode walls and each rank's peak memory;
   6. check the model path on the card against the plain path on the CPU at
      the smoke configs in f32: prefill + teacher-forced decode (ring and
      paged) of qwen3-0.6b and of fedtime-llama2-7b (G = 1), a 2-round fit
@@ -174,6 +194,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import shutil
@@ -427,20 +448,31 @@ def _f32_outs(args, kw):
     return got, acc / torch.clamp(l, min=1e-30)
 
 
-def _device_ops_per_call(fn, calls: int = 4) -> float:
+def _device_ops_per_call(fn, calls: int = 4, tries: int = 3) -> float:
     """Kernels (and copies or fills) one call of ``fn`` puts on the device,
-    counted by ``torch.profiler`` over ``calls`` calls after a warm one."""
+    counted by ``torch.profiler`` over ``calls`` calls after a warm one.
+    Now and then the profiler hands back no device activity at all (seen
+    once on the card, in a profile of one of a run's many calls): a fill
+    of a marker tensor beside the calls tells such a profile apart from a
+    wrapper that launched nothing, and the profile is taken again."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    marker = torch.zeros(1, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / calls
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            marker.fill_(1.0)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ops = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+        if ops:                                   # the marker's fill seen
+            return (ops - 1) / calls
+    raise SystemExit(f"chip_smoke: FAILED: {tries} profiles saw no device "
+                     f"activity, not even the marker's fill")
 
 
 def _hold_to_plain(label: str, args, kw, got=None) -> float:
@@ -3300,6 +3332,608 @@ def phase_mesh(card: str, device="cuda", shapes=None, geoms=None, S=None,
 
 
 # ---------------------------------------------------------------------------
+# phase 9: sharded serving, 4 ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+
+# 9a: qwen3-0.6b on (data 2, model 2): B 4, a 960-token prompt, a ring of
+# 1024 slots (512 a model rank, 2 rows a data rank); bf16, int8 and ragged
+# (lane 1 inactive from step 10).  9b: a paged pool of qwen3-0.6b's width
+# striped over (data 1, model 4).  9c: fedtime-llama2-7b's backbone at full
+# width on (data 1, model 4).
+SHARD = dict(B=4, prompt=960, ring=1024, seed=0, idle_lane=1, idle_from=10,
+             block=16, paged_idle_from=5, shared=(2, 0, 10), ungranted=(3, 20))
+SHARD_RUNS = {
+    "9a": dict(arch="qwen3-0.6b", mesh=((2, 2), ("data", "model")),
+               steps=64, runs=("bf16", "int8", "ragged")),
+    "9b": dict(arch="qwen3-0.6b", mesh=((1, 4), ("data", "model")),
+               steps=32, runs=("paged",)),
+    "9c": dict(arch="fedtime-llama2-7b", mesh=((1, 4), ("data", "model")),
+               steps=32, runs=("bf16",)),
+}
+SHARD_WORLD = 4
+SHARD_TIMEOUT_S = 420
+# Logits, sharded vs the unsharded run fed the same tokens, at every step
+# (bf16 logits): the combine rounds in f32 in another order than the
+# kernel's own split merge (and 9a's GEMMs run at half the rows), so a bf16
+# attention output or activation can land one step away and ride on
+# through the layers: a few bf16 steps of the logits, 2**-5 at |logits|
+# 4-8.  The limit is four such steps; a dropped stripe reads far over it.
+# Greedy tokens cannot be held bit for bit: with random weights the
+# unsharded logits hold exact bf16 ties at top-1 (6-22 row-steps a run),
+# which any change in the last bit decides.  A choice may differ only at
+# a near-tie: where each run's choice leads the other's by at most
+# SHARD_TIE_STEPS bf16 steps at the two logits' magnitude, the same four
+# steps a logit may drift by under SHARD_LOGIT_TOL; each is printed with
+# both runs' leads.
+SHARD_LOGIT_TOL = 0.125
+SHARD_TIE_STEPS = 4
+
+
+def _shard_positions(run: str, i: int, B: int, P: int, device: str):
+    """Step ``i``'s positions: an int for the synchronous runs, (B,) int32
+    for ragged and paged (the idle lane -1 from its step on)."""
+    if run in ("bf16", "int8"):
+        return P + i
+    idle_from = SHARD["idle_from" if run == "ragged" else "paged_idle_from"]
+    pos = torch.full((B,), P + i, dtype=torch.int32, device=device)
+    if i >= idle_from:
+        pos[SHARD["idle_lane"]] = -1
+    return pos
+
+
+def _shard_pool(ring, B: int, device: str):
+    """A paged pool of ``ring``'s rows (layer-stacked leaves (L, B, R,
+    ...)): its blocks shuffled over the pool, row ``shared[0]``'s entry
+    ``shared[2]`` pointing at row ``shared[1]``'s block (copy-on-write
+    sharing: both rows read that one tile), row ``ungranted[0]``'s entry
+    ``ungranted[1]`` -1.  Returns (pool, table)."""
+    bs = SHARD["block"]
+    R = ring["k"].shape[2]
+    T = R // bs
+    n_blocks = B * T
+    g = torch.Generator().manual_seed(SHARD["seed"])
+    table = torch.randperm(n_blocks, generator=g).reshape(B, T).to(
+        torch.int32)
+    pool = {}
+    for name, leaf in ring.items():
+        tiles = leaf.reshape((leaf.shape[0], B * T, bs) + leaf.shape[3:])
+        out = torch.empty_like(tiles)
+        out[:, table.reshape(-1).long().to(device)] = tiles
+        pool[name] = out
+    a, b, j = SHARD["shared"]
+    table[a, j] = table[b, j]
+    r, j = SHARD["ungranted"]
+    table[r, j] = -1
+    return pool, table.to(device)
+
+
+@contextlib.contextmanager
+def _wrapping(module, name: str, fn):
+    """Inside, ``module.name`` is ``fn(real, *args, **kw)``, where ``real``
+    is what it was before."""
+    real = getattr(module, name)
+    setattr(module, name, lambda *a, **kw: fn(real, *a, **kw))
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def _drop_first_stripe(mesh):
+    """The planted fault, for ``_wrapping`` the flash-decode entry that
+    ``dist.decode.stripe_flash_decode`` calls: on the first model rank (the
+    oldest slots, the prompt's start) the kernel's partials come back as a
+    stripe with nothing in it (m -1e30, l and acc 0), so the real combine
+    weighs that stripe 0."""
+    from repro_torch.dist import collectives
+    first = collectives.axis_index(mesh, "model") == 0
+
+    def faulty(real, *args, **kw):
+        m, l, acc = real(*args, **kw)
+        if first:
+            m = torch.full_like(m, -1e30)
+            l, acc = torch.zeros_like(l), torch.zeros_like(acc)
+        return m, l, acc
+    return faulty
+
+
+def _drop_tile(args, kw):
+    """The planted fault of a held stripe call: ``args`` with 128 valid
+    slots (a ring) or one granted block (a pool) of its first active row
+    masked out, or None where no active row holds anything."""
+    q, k, v, kv_pos, q_pos = args
+    kv_pos = kv_pos.clone()
+    tbl = kw.get("block_tables")
+    for b in (q_pos >= 0).nonzero().flatten().tolist():
+        if tbl is None:
+            valid = (kv_pos[b] >= 0).nonzero().flatten()[:128]
+            if len(valid):
+                kv_pos[b, valid] = -1
+                return (q, k, v, kv_pos, q_pos)
+            continue
+        for pb in tbl[b].tolist():
+            if pb >= 0 and bool((kv_pos[pb] >= 0).any()):
+                kv_pos[pb] = -1
+                return (q, k, v, kv_pos, q_pos)
+    return None
+
+
+def _hold_stripes(held, mesh) -> list:
+    """Hold the kernel calls recorded on the sharded path (a copy of each
+    one's inputs and its (m, l, acc) partials) against the plain version's
+    partials of the same inputs, on every rank at once: each stripe's own
+    output acc / l, both sets of partials combined over ``model`` as
+    ``stripe_flash_decode`` combines them, the stripe's empty lanes (l 0:
+    an inactive row, or no valid slot on the stripe) exactly 0 in l and acc
+    for the kernel too, and a planted fault (the plain partials with one
+    tile of an active row dropped).  Returns one reading a call."""
+    from repro_torch.dist import collectives
+    from repro_torch.kernels import flash_decode as fd
+
+    def out(m, l, acc, combine):
+        if combine:
+            m_g = collectives.pmax(m, mesh, "model")
+            w = torch.exp(m - m_g)
+            l = collectives.psum(l * w, mesh, "model")
+            acc = collectives.psum(acc * w, mesh, "model")
+        return acc / torch.clamp(l, min=1e-30)
+
+    readings = []
+    for label, args, kw, (m, l, acc) in held:
+        rm, rl, racc = fd.flash_decode_ref(*args, **kw)
+        empty = rl == 0
+        planted = None
+        cut = _drop_tile(args, kw)
+        if cut is not None:
+            planted = float((out(*fd.flash_decode_ref(*cut, **kw), False)
+                             - out(rm, rl, racc, False)).abs().max())
+        readings.append(dict(
+            call=label,
+            shapes=f"q {tuple(args[0].shape)} {args[0].dtype}, k "
+                   f"{tuple(args[1].shape)} {args[1].dtype}"
+                   + (", a localized table" if kw.get("block_tables")
+                      is not None else ""),
+            err=float((out(m, l, acc, False)
+                       - out(rm, rl, racc, False)).abs().max()),
+            combined=float((out(m, l, acc, True)
+                            - out(rm, rl, racc, True)).abs().max()),
+            empty=int(empty.sum()),
+            empty_exact=bool(torch.count_nonzero(l[empty]) == 0 and
+                             torch.count_nonzero(acc[empty[..., 0]]) == 0),
+            planted=planted))
+    return readings
+
+
+def _checksum(params) -> tuple:
+    """(integer sum of the bit patterns, f64 sum) over every leaf, in
+    chunks of 2**24 elements (a whole 7B leaf widened to 64 bits would not
+    fit beside the weights): equal on every rank that drew the same
+    weights."""
+    from repro_torch import tree as tree_util
+    bits = {2: torch.int16, 4: torch.int32}
+    isum = fsum = 0
+    for t in tree_util.leaves(params):
+        flat = t.contiguous().reshape(-1)
+        for part in flat.split(1 << 24):
+            isum += int(part.view(bits[part.element_size()]).sum(
+                dtype=torch.int64))
+            fsum += float(part.sum(dtype=torch.float64))
+    return isum, fsum
+
+
+def _shard_run(cfg, params, tokens, run: str, steps: int, mesh, device,
+               forced=None) -> dict:
+    """One serving run: ``make_prefill_step`` then ``steps`` greedy steps
+    of ``make_serve_step``; under ``mesh`` on this rank's rows and stripe
+    (the whole batch and cache without one).  With ``forced`` ((B, steps +
+    1) tokens) each step is fed the forced token instead of its own
+    (teacher forcing).  Returns this rank's rows' tokens (and the whole
+    batch's, gathered), each step's last-position logits (a device tensor,
+    (steps + 1, B_loc, V), the prefill's first), the cache's bytes after
+    the prefill, the walls, the flash-decode launches of the steps, the
+    idle lane's attention outputs and, under ``mesh``, three of the steps'
+    own kernel calls held against the plain version (``_hold_stripes``)
+    and a planted fault's reading: one more step with the first model
+    rank's partials dropped (``_drop_first_stripe``), against the same
+    step whole."""
+    from repro_torch.dist import collectives, sharding
+    from repro_torch.dist import decode as dist_decode
+    from repro_torch.dist.decode import pool_specs
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import attention
+    from repro_torch.models.registry import get_model
+    B, P = tokens.shape
+    os.environ["REPRO_KV_INT8"] = "1" if run == "int8" else "0"
+    ctx = ((lambda: sharding.use_mesh(mesh)) if mesh is not None
+           else contextlib.nullcontext)
+    batch = {"tokens": tokens}
+    rows = torch.arange(B, device=device)
+    bax = None
+    if mesh is not None:
+        specs = sharding.data_specs(batch, mesh)
+        bax = specs["tokens"][0] if specs["tokens"] else None
+        rows = sharding.local_shard(rows, specs["tokens"][:1], mesh)
+        if run != "paged":
+            batch = sharding.local_shard(batch, specs, mesh)
+    prefill = make_prefill_step(cfg, cache_len=SHARD["ring"])
+    step = make_serve_step(cfg)
+    extra = {}
+    _sync(device)
+    t0 = time.perf_counter()
+    if run == "paged":
+        ring, lg = prefill(params, batch)         # the whole batch's rings
+        cache, table = _shard_pool(ring, B, device)
+        del ring
+        if mesh is not None:
+            cache = sharding.local_shard(cache, pool_specs(cache, mesh),
+                                         mesh)
+        lg = lg[rows]
+        extra = {"block_tbl": table[rows].contiguous(),
+                 "ring_len": SHARD["ring"]}
+    else:
+        with ctx():
+            cache, lg = prefill(params, batch)
+    _sync(device)
+    prefill_s = time.perf_counter() - t0
+    cache_bytes = sum(t.nbytes for t in cache.values())
+    idle, real = [], attention.stripe_flash_decode
+    logits, real_logits = [lg[:, -1].clone()], transformer.logits_fn
+
+    def spy(q, k, v, kv_pos, q_pos, mesh, **kw):
+        o = real(q, k, v, kv_pos, q_pos, mesh, **kw)
+        if torch.is_tensor(q_pos) and q_pos.ndim == 1:
+            idle.append(torch.where(q_pos[:, None, None, None] < 0, o.abs(),
+                                    torch.zeros_like(o)).amax())
+        return o
+
+    def logits_spy(*args):
+        out = real_logits(*args)
+        logits.append(out[:, -1].clone())
+        return out
+    attention.stripe_flash_decode = spy
+    transformer.logits_fn = logits_spy
+    tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+    toks = [tok]
+    if forced is not None:
+        forced = torch.as_tensor(forced, device=device)[rows]
+    # the sharded path's own kernel calls kept (inputs and partials
+    # copied): the first, one mid-run, the last
+    n_calls, held = [0], []
+    keep_at = {0, (steps // 2) * cfg.num_layers + cfg.num_layers // 2,
+               steps * cfg.num_layers - 1}
+
+    def record(real_fd, *args, **kw):
+        out = real_fd(*args, **kw)
+        if n_calls[0] in keep_at:
+            copy = lambda x: x.clone() if torch.is_tensor(x) else x
+            step_i, layer_i = divmod(n_calls[0], cfg.num_layers)
+            held.append((f"call {n_calls[0]} (step {step_i}, layer "
+                         f"{layer_i})", tuple(copy(a) for a in args),
+                         {k: copy(a) for k, a in kw.items()},
+                         tuple(copy(o) for o in out)))
+        n_calls[0] += 1
+        return out
+    recorder = (_wrapping(dist_decode.ops, "flash_decode", record)
+                if mesh is not None else contextlib.nullcontext())
+    fd.reset_launches()
+    _sync(device)
+    t0 = time.perf_counter()
+    try:
+        with recorder:
+            for i in range(steps):
+                pos = _shard_positions(run, i, B, P, device)
+                if torch.is_tensor(pos):
+                    pos = pos[rows]
+                feed = tok if forced is None else forced[:, i:i + 1]
+                with ctx():
+                    tok, cache = step(params, cache,
+                                      {"token": feed, "pos": pos, **extra})
+                toks.append(tok)
+            _sync(device)
+        step_s = (time.perf_counter() - t0) / steps
+        launches = dict(fd.LAUNCHES)
+        planted = None
+        if mesh is not None:
+            transformer.logits_fn = real_logits
+            pos = _shard_positions(run, steps, B, P, device)
+            if torch.is_tensor(pos):
+                pos = pos[rows]
+            b = {"token": tok, "pos": pos, **extra}
+            saved = {n: t.clone() for n, t in cache.items()}
+            with ctx():
+                last, _ = get_model(cfg).decode_step(params, cfg, cache, b)
+            with ctx(), _wrapping(dist_decode.ops, "flash_decode",
+                                  _drop_first_stripe(mesh)):
+                bad, _ = get_model(cfg).decode_step(params, cfg, saved, b)
+            planted = float((bad.float() - last.float()).abs().max())
+            del saved
+    finally:
+        attention.stripe_flash_decode = real
+        transformer.logits_fn = real_logits
+    stripes = _hold_stripes(held, mesh) if mesh is not None else []
+    del held
+    out_toks = torch.cat(toks, 1)
+    gathered = out_toks
+    if bax is not None:
+        gathered = collectives.all_gather(out_toks, mesh, bax, dim=0)
+    idle_max = (float(torch.stack(idle).max()) if idle else None)
+    # numpy, not tensors, for what goes back to the parent: a tensor a rank
+    # returns would be shared memory that dies with the rank
+    return {"tokens": out_toks.cpu().numpy(),
+            "gathered": gathered.cpu().numpy(), "rows": rows.cpu().numpy(),
+            "logits": torch.stack(logits[:steps + 1]),
+            "cache_bytes": cache_bytes, "prefill_s": prefill_s,
+            "step_s": step_s, "launches": launches, "idle": idle_max,
+            "idle_calls": len(idle), "planted": planted,
+            "stripes": stripes}
+
+
+def _bf16_step(x: float) -> float:
+    """The spacing of bf16 numbers at magnitude ``x`` (8 significant
+    bits)."""
+    return math.ldexp(1.0, math.frexp(x)[1] - 8) if x else 0.0
+
+
+def _teacher_check(cfg, params, tokens, run: str, steps: int, sharded: dict,
+                   device) -> dict:
+    """The unsharded run of the whole batch fed the sharded run's gathered
+    tokens (teacher forcing), held step by step to the sharded logits of
+    this rank's rows: the largest difference, and each row-step where the
+    two greedy choices differ, with the lead each run's choice has over
+    the other's in that run's logits."""
+    plain = _shard_run(cfg, params, tokens, run, steps, None, device,
+                       forced=sharded["gathered"])
+    rows = torch.as_tensor(sharded["rows"], device=device)
+    a = sharded["logits"].float()                    # (steps + 1, B_loc, V)
+    b = plain["logits"][:, rows].float()
+    err = float((a - b).abs().max())
+    want = plain["tokens"][sharded["rows"]]          # unsharded choices
+    got = sharded["tokens"]
+    flips = []
+    for r, s in np.argwhere(got != want):
+        t_s, t_u = int(got[r, s]), int(want[r, s])
+        mag = max(abs(float(x[s, r, t])) for x in (a, b) for t in (t_u, t_s))
+        flips.append(dict(
+            row=int(sharded["rows"][r]), step=int(s), logit=mag,
+            bf16_step=_bf16_step(mag),
+            plain_lead=float(b[s, r, t_u] - b[s, r, t_s]),
+            sharded_lead=float(a[s, r, t_s] - a[s, r, t_u])))
+    top = b.topk(2, dim=-1).values
+    return {"err": err, "flips": flips, "row_steps": int(got.size),
+            "ties": int(((top[..., 0] - top[..., 1]) == 0).sum()),
+            "logit_max": float(b.abs().max()),
+            "cache_bytes": plain["cache_bytes"],
+            "prefill_s": plain["prefill_s"], "step_s": plain["step_s"]}
+
+
+def _shard_rank(device="cuda", cfgs=None, prompt=None):
+    """Phase 9 in one rank of the 4-rank world: 9a, 9b and 9c, each run
+    sharded on its mesh by every rank; then the first model rank of each
+    data group holds its rows to the unsharded run (the whole batch and
+    cache, no mesh) fed the same tokens.  ``cfgs`` ({sub-phase: config})
+    and ``prompt`` cut a rehearsal: only those sub-phases, with those
+    configs."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import get_model
+    for k in ("REPRO_CACHE_SHARD", "REPRO_KV_INT8"):
+        os.environ.pop(k, None)
+    rank = dist.get_rank()
+    meshes = {}
+    for name, spec in SHARD_RUNS.items():
+        if spec["mesh"] not in meshes:
+            meshes[spec["mesh"]] = make_mesh(*spec["mesh"],
+                                             device_type=device)
+    out = {"rank": rank, "phases": {}}
+    params, arch = None, None
+    for name, spec in SHARD_RUNS.items():
+        t_phase = time.perf_counter()
+        if cfgs is not None and name not in cfgs:
+            continue
+        if spec["arch"] != arch:
+            params = None
+            if device == "cuda":
+                torch.cuda.empty_cache()
+            cfg = cfgs[name] if cfgs else get_config(spec["arch"])
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            for r in range(SHARD_WORLD):         # one rank draws at a time
+                if r == rank:
+                    params = get_model(cfg).init(
+                        cfg, torch.Generator(device=device).manual_seed(
+                            SHARD["seed"]), device=device)
+                    _sync(device)
+                    if device == "cuda":         # the draw's f32 transients
+                        torch.cuda.empty_cache()
+                dist.barrier()
+            arch = spec["arch"]
+            init_peak = _peak_gib(device)
+        mesh = meshes[spec["mesh"]]
+        g = torch.Generator().manual_seed(SHARD["seed"] + 1)
+        tokens = torch.randint(0, cfg.vocab_size,
+                               (SHARD["B"], prompt or SHARD["prompt"]),
+                               generator=g).to(device)
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        got = {"checksum": _checksum(params), "init_peak_gib": init_peak,
+               "layers": cfg.num_layers, "runs": {}, "teacher": {}}
+        kept = {}
+        for run in spec["runs"]:
+            r = _shard_run(cfg, params, tokens, run, spec["steps"], mesh,
+                           device)
+            kept[run] = r
+            got["runs"][run] = {k: v for k, v in r.items() if k != "logits"}
+        got["peak_gib"] = _peak_gib(device)
+        if mesh.get_local_rank("model") == 0:
+            for run in spec["runs"]:
+                got["teacher"][run] = _teacher_check(
+                    cfg, params, tokens, run, spec["steps"], kept[run],
+                    device)
+        del kept
+        dist.barrier()
+        got["wall_s"] = time.perf_counter() - t_phase
+        os.environ.pop("REPRO_KV_INT8", None)
+        out["phases"][name] = got
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_serve(card: str, device="cuda", cfgs=None,
+                        prompt=None) -> dict:
+    """Phase 9: sharded serving through ``launch.mesh.spawn_local``, four
+    ranks on the one card over gloo (9a qwen3-0.6b on (data 2, model 2),
+    9b its paged pool and 9c fedtime-llama2-7b's backbone on (data 1,
+    model 4)), each run held step by step to the unsharded run fed the
+    same tokens.  ``cfgs`` ({sub-phase: config}) and ``prompt`` cut it to
+    a rehearsal's size on the CPU.  Returns the flash-decode launches of
+    the sharded steps, summed over the ranks."""
+    from repro_torch.launch.mesh import spawn_local
+    t_start = time.perf_counter()
+    failures = []
+
+    def fail(msg):
+        print(f"  FAILED: {msg}")
+        failures.append(msg)
+    ranks = spawn_local(SHARD_WORLD, _shard_rank, device, cfgs, prompt,
+                        device_type=device, timeout_s=SHARD_TIMEOUT_S)
+    launches = {"flash_decode": 0, "flash_decode_paged": 0}
+    first = ranks[0]["phases"]
+    for name, spec in SHARD_RUNS.items():
+        if name not in first:
+            continue
+        shape, names = spec["mesh"]
+        label = " x ".join(f"{a} {s}" for a, s in zip(names, shape))
+        ph = [rk["phases"][name] for rk in ranks]
+        L = ph[0]["layers"]
+        if len({p["checksum"] for p in ph}) != 1:
+            fail(f"{name}: the ranks' weights differ: "
+                 f"{[p['checksum'] for p in ph]}")
+        B, P = SHARD["B"], prompt or SHARD["prompt"]
+        print(f"[{card}] phase {name} {spec['arch']} ({L} layers), 4 ranks "
+              f"on ({label}) over gloo, B {B}, a {P}-token prompt, a ring "
+              f"of {SHARD['ring']} slots, {spec['steps']} greedy steps; "
+              f"weights checksum equal on every rank (bit patterns summed: "
+              f"{ph[0]['checksum'][0]}); drawn one rank at a time, peak "
+              f"{max(p['init_peak_gib'] for p in ph):.2f} GiB a rank while "
+              f"drawing")
+        for run in spec["runs"]:
+            rs = [p["runs"][run] for p in ph]
+            tf = [p["teacher"][run] for p in ph if run in p["teacher"]]
+            if len({r["gathered"].tobytes() for r in rs}) != 1:
+                fail(f"{name} {run}: the ranks gathered different tokens")
+            err = max(t["err"] for t in tf)
+            if err > SHARD_LOGIT_TOL:
+                fail(f"{name} {run}: logits {err} off the unsharded run's "
+                     f"fed the same tokens (tol {SHARD_LOGIT_TOL})")
+            flips = [f for t in tf for f in t["flips"]]
+            in_steps = [sorted({f[k] / f["bf16_step"] for f in flips
+                                if f["bf16_step"]})
+                        for k in ("plain_lead", "sharded_lead")]
+            n = sum(t["row_steps"] for t in tf)
+            wide = [f for f in flips
+                    if max(f["plain_lead"], f["sharded_lead"])
+                    > SHARD_TIE_STEPS * f["bf16_step"]]
+            if wide:
+                fail(f"{name} {run}: greedy choices differ where one run's "
+                     f"choice leads by more than {SHARD_TIE_STEPS} bf16 "
+                     f"steps: {wide}")
+            ways = B // len(rs[0]["rows"]) * shape[1]
+            if run == "paged":                  # replicated over data
+                ways = shape[1]
+            whole = tf[0]["cache_bytes"]
+            for r in rs:
+                if r["cache_bytes"] * ways != whole:
+                    fail(f"{name} {run}: a rank holds {r['cache_bytes']} "
+                         f"cache bytes, not the whole cache's {whole} / "
+                         f"{ways}")
+            kind = "flash_decode_paged" if run == "paged" else "flash_decode"
+            for r in rs:
+                k = r["launches"][kind]
+                if device == "cuda" and k != L * spec["steps"]:
+                    fail(f"{name} {run}: {k} {kind} launches a rank, not "
+                         f"one a layer a step ({L * spec['steps']})")
+                launches[kind] += k
+            if run in ("ragged", "paged") and not all(
+                    r["idle_calls"] > 0 and r["idle"] == 0.0 for r in rs):
+                fail(f"{name} {run}: the inactive lane's attention output "
+                     f"is {[r['idle'] for r in rs]}, not exactly 0")
+            planted = [r["planted"] for r in rs]
+            least = min((p for p in planted if p is not None),
+                        default=float("nan"))
+            if None in planted or min(planted) <= SHARD_LOGIT_TOL:
+                fail(f"{name} {run}: the logit limit does not catch a "
+                     f"dropped stripe ({planted})")
+            held = [h for r in rs for h in r["stripes"]]
+            bad = [h for h in held
+                   if not (h["err"] <= TOL_F32_OUT and
+                           h["combined"] <= TOL_F32_OUT and h["empty_exact"]
+                           and h["planted"] is not None and
+                           h["planted"] > TOL_F32_OUT)]
+            if len(held) != 3 * len(rs) or bad:
+                fail(f"{name} {run}: {len(held)} of the path's own kernel "
+                     f"calls held, off the plain version's partials: {bad}")
+            print(f"  {run}: logits vs the unsharded run fed the same "
+                  f"tokens, every step: max_abs_err {err:.4g} (tol "
+                  f"{SHARD_LOGIT_TOL}; |logits| up to "
+                  f"{max(t['logit_max'] for t in tf):.3g})"
+                  + f"; planted fault (the first model rank's partials "
+                  f"dropped from one step's combine) "
+                  f"{least:.4g} or more"
+                  + f"; greedy choices equal at {n - len(flips)} of {n} "
+                  f"row-steps; {sum(t['ties'] for t in tf)} row-steps are "
+                  f"exact bf16 ties in the unsharded logits"
+                  + (f"; where they differ the unsharded choice leads by "
+                     f"{sorted({f['plain_lead'] for f in flips})} and the "
+                     f"sharded by {sorted({f['sharded_lead'] for f in flips})}"
+                     f", in bf16 steps at the logits' magnitude "
+                     f"{in_steps[0]} and {in_steps[1]}"
+                     f" (limit {SHARD_TIE_STEPS}; |logits| "
+                     f"{min(f['logit'] for f in flips):.3g}-"
+                     f"{max(f['logit'] for f in flips):.3g})"
+                     if flips else ""))
+            if held:
+                print(f"  {run}: the path's own kernel calls, 3 a rank "
+                      f"({'; '.join(sorted({h['shapes'] for h in held}))})"
+                      f", held against the plain version's partials: a "
+                      f"stripe's acc / l max_abs_err "
+                      f"{max(h['err'] for h in held):.3g}, combined over "
+                      f"model {max(h['combined'] for h in held):.3g} (tol "
+                      f"{TOL_F32_OUT}); one tile dropped reads "
+                      f"{min(h['planted'] or 0 for h in held):.3g} or more; "
+                      f"{sum(h['empty'] for h in held)} empty (row, head) "
+                      f"lanes exactly 0 in l and acc")
+            print(f"  {run}: cache a rank {rs[0]['cache_bytes']} B = whole "
+                  f"{whole} B / {ways}; {rs[0]['launches'][kind]} {kind} "
+                  f"launches a rank (= {L} layers x {spec['steps']} steps)"
+                  + (f"; idle lane's attention output exactly 0 in "
+                     f"{rs[0]['idle_calls']} calls"
+                     if run in ("ragged", "paged") else ""))
+            print(f"  {run} host clock (gloo through the host on one card, "
+                  f"not a collective's speed): prefill "
+                  f"{max(r['prefill_s'] for r in rs):.3f} s sharded "
+                  f"(slowest rank), {tf[0]['prefill_s']:.3f} s unsharded; "
+                  f"decode {max(r['step_s'] for r in rs) * 1e3:.1f} ms a "
+                  f"step sharded, {tf[0]['step_s'] * 1e3:.1f} ms "
+                  f"unsharded")
+        print(f"[{card}] phase {name} peak device memory a rank (GiB): "
+              + ", ".join(f"{p['peak_gib']:.2f}" for p in ph)
+              + f"; wall {max(p['wall_s'] for p in ph):.1f} s")
+    _check(not failures, "phase 9: " + "; ".join(failures))
+    if device == "cuda":
+        _check(all(launches.values()), f"phase 9: a kernel of the sharded "
+               f"path was never launched: {launches}")
+    print(f"[{card}] phase 9 flash-decode launches on the sharded serve "
+          f"steps (all ranks): {launches}; wall "
+          f"{time.perf_counter() - t_start:.1f} s (host clock, with the "
+          f"world's start)")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 6: small-input reference
 # ---------------------------------------------------------------------------
 
@@ -3449,6 +4083,11 @@ def main() -> None:
                        ("flash_decode", "sharded_flash_decode"),
                        ("flash_decode_paged", "sharded_flash_decode")):
         rows[name][path] = {"launches": mesh_launches[name]}
+
+    torch.cuda.empty_cache()
+    shard_launches = phase_sharded_serve(card)
+    for name in ("flash_decode", "flash_decode_paged"):
+        rows[name]["sharded_serve_step"] = {"launches": shard_launches[name]}
 
     for arch in SERVED:
         phase_reference(card, arch)

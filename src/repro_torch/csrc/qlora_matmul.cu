@@ -27,13 +27,14 @@
 //     in shared memory, times the row's absmax, into two bf16 tiles w_hi =
 //     bf16(w) and w_lo = bf16(w - w_hi) (w to about 17 bits);
 //   * mma.sync m16n8k16 (bf16 in, f32 accumulate) runs x . w_hi + x . w_lo
-//     into one f32 accumulator, fragments by ldmatrix (.trans for w) from
-//     XOR-swizzled tiles; a warp's 16 x . w_hi products come before its 16
-//     x . w_lo ones, so that no MMA waits on the one before it;
+//     of each 16-deep slice into zeroed partials, which are added into the
+//     f32 accumulators rounded to nearest (the tensor cores truncate as
+//     they accumulate: one chain over K = 11,008 missed the limit);
+//     fragments by ldmatrix (.trans for w) from XOR-swizzled tiles;
 //   * the LoRA bypass x . A runs on the same x tile with A split into three
 //     bf16 parts whose sum is A exactly: every product is the f32 product
 //     and the sums are f32, as the reference's (r <= 64; 3 r / 8 MMAs a
-//     16-deep slice beside the 32 of x . w).
+//     16-deep slice beside the 32 of x . w), into zeroed partials too.
 // The warps have roles.  Eight MMA warps (2 x 4, each a 64 x 32 tile) run
 // the MMAs of step kt from decoded stage kt % 2 and issue the cp.async of
 // step kt + 3's x tile; four decode warps issue the cp.async of step
@@ -432,9 +433,14 @@ qlora_mma_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
     for (int q = 0; q < 4; ++q) xa[j][q] = 0.0f;
 
-  // The MMAs of one 16-deep slice kk of step kt: x . w_hi for the warp's
-  // 16 (m16, n8) tiles, then x . w_lo (each accumulator's two products 16
-  // MMAs apart), with x . A's three parts in between.
+  // The MMAs of one 16-deep slice kk of step kt, each m16 tile's x . w_hi
+  // and x . w_lo into zeroed partials p that are then added into acc, and
+  // x . A's three parts into zeroed partials px added into xa: the tensor
+  // cores truncate as they accumulate, and one chain of MMAs over K =
+  // 11,008 (fedtime-llama2-7b's w_down) drifts past the limit, the LoRA
+  // chain the most (tests/test_torch_kernel_designs.py emulates both).  A
+  // tile's four x . w_lo MMAs follow its four x . w_hi ones, with one of
+  // x . A's parts between them in the first three tiles.
   auto mma_slice = [&](int kt, int kk) {
     const __nv_bfloat16* xt = xs(kt);
     const int arow = (lane & 7) + ((lane >> 3) & 1) * 8;
@@ -451,32 +457,46 @@ qlora_mma_kernel(const __nv_bfloat16* __restrict__ x,
     }
     ldmatrix_x4(xf, xt + swz_x(warp * 16 + arow, ach));
     const __nv_bfloat16* a0 = ap(kt) + gr * kApad + kk * 16 + 2 * tig;
+    float px[RP / 8][4];
+#pragma unroll
+    for (int jt = 0; jt < RP / 8; ++jt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) px[jt][q] = 0.0f;
     auto lora = [&](int part) {
 #pragma unroll
       for (int jt = 0; jt < RP / 8; ++jt) {
         const __nv_bfloat16* b = a0 + (part * RP + jt * 8) * kApad;
-        mma_bf16(xa[jt], xf, *reinterpret_cast<const uint32_t*>(b),
+        mma_bf16(px[jt], xf, *reinterpret_cast<const uint32_t*>(b),
                  *reinterpret_cast<const uint32_t*>(b + 8));
       }
     };
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        mma_bf16(acc[mt][2 * np], af[mt], bh[np][0], bh[np][1]);
-        mma_bf16(acc[mt][2 * np + 1], af[mt], bh[np][2], bh[np][3]);
-      }
-    lora(0);
-#pragma unroll
     for (int mt = 0; mt < 4; ++mt) {
+      float p[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) p[j][q] = 0.0f;
 #pragma unroll
       for (int np = 0; np < 2; ++np) {
-        mma_bf16(acc[mt][2 * np], af[mt], bl[np][0], bl[np][1]);
-        mma_bf16(acc[mt][2 * np + 1], af[mt], bl[np][2], bl[np][3]);
+        mma_bf16(p[2 * np], af[mt], bh[np][0], bh[np][1]);
+        mma_bf16(p[2 * np + 1], af[mt], bh[np][2], bh[np][3]);
       }
-      if (mt == 1) lora(1);
+      if (mt < 3) lora(mt);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        mma_bf16(p[2 * np], af[mt], bl[np][0], bl[np][1]);
+        mma_bf16(p[2 * np + 1], af[mt], bl[np][2], bl[np][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mt][j][q] += p[j][q];
     }
-    lora(2);
+#pragma unroll
+    for (int jt = 0; jt < RP / 8; ++jt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) xa[jt][q] += px[jt][q];
   };
 
   const int nk = (K + TK - 1) / TK;

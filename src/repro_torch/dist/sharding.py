@@ -20,15 +20,27 @@ Layout summary
               the first still-replicated dim that divides, so the f32 AdamW
               moments never cost more a device than the bf16 params
               (``repro_torch.optim.adamw.adamw_update_zero1``).
+  caches    — ``REPRO_CACHE_SHARD=seq`` (default): batch -> data axes,
+              ring slots -> ``model`` (the sequence-sharded decode's
+              layout).  ``REPRO_CACHE_SHARD=heads``: batch -> data axes, KV
+              heads -> ``model``, falling through to the head dim.
+  batches   — the leading batch dim over the combined (``pod``, ``data``)
+              axes, then ``data`` alone, then replicated.
 
-The reference's cache, batch and residual-stream rules (``cache_specs``,
-``data_specs``, ``to_shardings``, ``residual_constraint``) are consumed by
-its launch stack, which the port has not reached yet.
+Placed on a mesh, a tree is each rank's own piece of every leaf, a plain
+tensor (``local_shard``): the port's counterpart of a global array under a
+``NamedSharding``.  The serving path holds its cache that way
+(``repro_torch.launch.steps``); parameters stay replicated, since
+tensor-parallel projections are not ported.  A paged pool is laid out by
+the decode's own spec, not by ``cache_specs`` (``dist.decode.pool_specs``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
+import os
+from typing import NamedTuple, Optional
 
 _MESHES: list = []
 
@@ -178,6 +190,209 @@ def opt_state_specs(params, mesh):
 
 
 # ---------------------------------------------------------------------------
+# KV caches
+# ---------------------------------------------------------------------------
+
+# Cache leaf layouts as offsets from the END of the shape: leading dims are
+# layer stacks, so negative indexing stays stable across families.
+_CACHE_DIMS = {
+    # attention ring buffers: (..., B, S, Hk, dh)
+    "k":       {"batch": -4, "seq": -3, "heads": -2, "dh": -1},
+    "v":       {"batch": -4, "seq": -3, "heads": -2, "dh": -1},
+    "mem_k":   {"batch": -4, "seq": -3, "heads": -2, "dh": -1},
+    "mem_v":   {"batch": -4, "seq": -3, "heads": -2, "dh": -1},
+    # int8-KV absmax scales: (..., B, S, Hk, 1), the trailing dim never shards
+    "k_scale": {"batch": -4, "seq": -3, "heads": -2},
+    "v_scale": {"batch": -4, "seq": -3, "heads": -2},
+    # slot-position maps: (..., B, S)
+    "kv_pos":  {"batch": -2, "seq": -1},
+    "mem_pos": {"batch": -2, "seq": -1},
+    # Mamba2: state (..., B, H, P, N), conv tail (..., B, W-1, channels)
+    "ssm_state": {"batch": -4, "heads": -3, "dh": -2},
+    "conv_buf":  {"batch": -3, "dh": -1},
+    # mLSTM: C (..., B, H, dh, dh), n (..., B, H, dh), m (..., B, H)
+    "C": {"batch": -4, "heads": -3, "dh": -1},
+    "n": {"batch": -3, "heads": -2, "dh": -1},
+    "m": {"batch": -2, "heads": -1},
+}
+
+# sLSTM's scalar-memory state is (..., B, d); its "n"/"m" leaves collide
+# with mLSTM's names, so the enclosing subtree selects the table.
+_SLSTM_CACHE_DIMS = {
+    name: {"batch": -2, "dh": -1} for name in ("c", "n", "m", "h")
+}
+
+
+def cache_specs(cache, mesh, mode: Optional[str] = None):
+    """Partition specs for a KV/SSM cache tree (the reference's rule).
+
+    ``mode`` (default from ``REPRO_CACHE_SHARD``, then "seq"):
+      seq   — batch -> data axes, ring slots -> ``model``;
+      heads — batch -> data axes, KV heads -> ``model``, falling through to
+              the head dim when the head count does not divide.
+    A leaf without the preferred dim, or whose dim does not divide, falls
+    through the same chain; what cannot shard replicates.
+
+    The table reads a leaf by its name and rank only: a paged pool's
+    ``(L, n_blocks, bs, Hk, D)`` reads as if ``n_blocks`` were the batch and
+    ``bs`` the slots, exactly as in the reference.  The port lays a pool out
+    by the decode's spec instead (``repro_torch.dist.decode.pool_specs``).
+    """
+    shape = _mesh_shape(mesh)
+    model = shape.get("model", 1)
+    mode = mode or os.environ.get("REPRO_CACHE_SHARD", "seq")
+    order = ("seq", "heads", "dh") if mode == "seq" else ("heads", "dh")
+
+    def spec(path, leaf):
+        parts = [p for p in path.split("/") if p]
+        table = _SLSTM_CACHE_DIMS if "slstm" in parts else _CACHE_DIMS
+        dims = table.get(parts[-1])
+        nd = len(leaf.shape)
+        if dims is None or nd == 0:
+            return ()
+
+        def dim_at(key):
+            off = dims.get(key)
+            return None if off is None or nd + off < 0 else nd + off
+
+        entries = [None] * nd
+        b = dim_at("batch")
+        if b is not None:
+            entries[b] = _batch_axes(leaf.shape[b], shape)
+        if model > 1:
+            for key in order:
+                d = dim_at(key)
+                if d is not None and entries[d] is None and \
+                        _div(leaf.shape[d], model):
+                    entries[d] = "model"
+                    break
+        return _maybe_spec(entries)
+
+    return _map_with_path(cache, spec)
+
+
+# ---------------------------------------------------------------------------
+# Input batches
+# ---------------------------------------------------------------------------
+
+def _leading(leaf):
+    """The leaf's shape: a tensor's, a list's length (sampling's per-row
+    generators), or ``()`` for a Python number."""
+    if isinstance(leaf, (list, tuple)):
+        return (len(leaf),)
+    return tuple(getattr(leaf, "shape", ()))
+
+
+def data_specs(batch, mesh):
+    """Shard the leading batch dim of every input leaf over the combined
+    (``pod``, ``data``) axes, falling back to ``data`` alone, then to
+    replication (scalars such as ``pos``, and a batch of one).  A list leaf
+    shards by its length; a Python number replicates."""
+    shape = _mesh_shape(mesh)
+
+    def spec(path, leaf):
+        dims = _leading(leaf)
+        if not dims:
+            return ()
+        ax = _batch_axes(dims[0], shape)
+        if ax is None:
+            return ()
+        return (ax, *([None] * (len(dims) - 1)))
+
+    return _map_with_path(batch, spec)
+
+
+# ---------------------------------------------------------------------------
+# Placement: each rank's own piece
+# ---------------------------------------------------------------------------
+
+class Placement(NamedTuple):
+    """Where a leaf lives on a mesh: its spec, the mesh and its global
+    shape (None when only the spec was given).  The port's counterpart of
+    the reference's ``NamedSharding``."""
+    spec: tuple
+    mesh: object
+    shape: Optional[tuple] = None
+
+    def local_shape(self) -> tuple:
+        """The shape of each rank's piece."""
+        sizes = _mesh_shape(self.mesh)
+        return tuple(n // _ways(e, sizes) for n, e in
+                     zip(self.shape, _entries(self.spec, len(self.shape))))
+
+
+def _zip_map(fn, specs, tree):
+    if isinstance(specs, dict):
+        return {k: _zip_map(fn, specs[k], None if tree is None else tree[k])
+                for k in specs}
+    return fn(specs, tree)
+
+
+def to_shardings(specs, mesh, like=None):
+    """Spec tree -> ``Placement`` tree on ``mesh``; ``like`` (a tree of
+    shaped leaves) adds each leaf's global shape."""
+    return _zip_map(lambda s, leaf: Placement(
+        s, mesh, None if leaf is None else _leading(leaf)), specs, like)
+
+
+def _entries(spec, nd: int) -> tuple:
+    return tuple(spec) + (None,) * (nd - len(spec))
+
+
+def _ways(entry, sizes: dict) -> int:
+    if entry is None:
+        return 1
+    axes = (entry,) if isinstance(entry, str) else entry
+    return math.prod(sizes.get(ax, 1) for ax in axes)
+
+
+def _coords(mesh) -> dict:
+    """This rank's coordinate on each axis of a ``DeviceMesh``."""
+    return {ax: mesh.get_local_rank(ax) for ax in mesh.mesh_dim_names}
+
+
+def _block(entry, sizes: dict, coords: dict) -> int:
+    """The block index over ``entry``'s axes, major axis first (as
+    ``dist.collectives.block_index``)."""
+    axes = (entry,) if isinstance(entry, str) else entry
+    idx = 0
+    for ax in axes:
+        idx = idx * sizes.get(ax, 1) + coords.get(ax, 0)
+    return idx
+
+
+def local_shard(tree, specs, mesh, coords: Optional[dict] = None):
+    """Each leaf's piece at this rank's coordinates on ``mesh`` (a
+    ``DeviceMesh``), or at ``coords`` (``{axis: index}``, with ``mesh`` any
+    mesh or a plain ``{axis: size}``): along every dim its spec shards,
+    block ``i`` of the dim's ``ways`` equal blocks, ``i`` read major axis
+    first.  A sharded tensor leaf comes back as its own copy, so the whole
+    leaf can be freed; a replicated leaf comes back as it is.  A list leaf
+    is cut along its length."""
+    sizes = _mesh_shape(mesh)
+    coords = _coords(mesh) if coords is None else coords
+
+    def piece(spec, leaf):
+        cut = False
+        nd = len(_leading(leaf))
+        for d, e in enumerate(_entries(spec, nd)):
+            ways = _ways(e, sizes)
+            if ways == 1:
+                continue
+            n = _leading(leaf)[d]
+            if n % ways:
+                raise ValueError(f"dim {d} of {n} does not split {ways} ways")
+            size, i = n // ways, _block(e, sizes, coords)
+            if isinstance(leaf, (list, tuple)):
+                leaf = leaf[i * size:(i + 1) * size]
+            else:
+                leaf, cut = leaf.narrow(d, i * size, size), True
+        return leaf.clone() if cut else leaf
+
+    return _zip_map(piece, specs, tree)
+
+
+# ---------------------------------------------------------------------------
 # The ambient mesh
 # ---------------------------------------------------------------------------
 
@@ -194,3 +409,13 @@ def use_mesh(mesh):
         yield mesh
     finally:
         _MESHES.pop()
+
+
+def residual_constraint(x, *, decode: bool = False):
+    """The reference pins the residual stream to (batch -> data axes, seq ->
+    ``model``) between blocks when a mesh is active, an XLA layout hint.
+    In the port each rank already computes exactly its own rows, with no
+    layout for a compiler to choose, so ``x`` comes back unchanged, under a
+    mesh or not."""
+    del decode
+    return x

@@ -158,6 +158,17 @@ def spawn_local(world: int, fn: Callable, *args, device_type: str = "cuda",
                     out[rank] = payload
                 else:
                     failed = f"rank {rank} raised:\n{payload}"
+            # a rank that raised closes its group first, so its peers may
+            # report their broken connections before it reports its cause:
+            # keep what the others say for a moment
+            grace = time.monotonic() + 2.0
+            while failed is not None and time.monotonic() < grace:
+                try:
+                    rank, ok, payload = results.get(timeout=0.2)
+                except queue.Empty:
+                    continue
+                if not ok:
+                    failed += f"\nrank {rank} raised:\n{payload}"
         finally:
             if failed is None:
                 for p in procs:

@@ -1,5 +1,22 @@
-"""Serve step: one-token decode against the cache, through the flash-decode
-kernels (``repro_torch.kernels.ops.flash_decode``)."""
+"""Step functions of the serving path (the reference's
+``src/repro/launch/steps.py``).
+
+  prefill_step — full forward building the KV cache + last logits
+  serve_step   — one-token decode against the cache, through the
+                 flash-decode kernels (``repro_torch.kernels.ops
+                 .flash_decode``; a cache sharded over ``model`` combines
+                 each rank's partials through ``repro_torch.dist.decode``)
+
+Under a mesh (``repro_torch.dist.sharding.use_mesh``) each rank runs the
+step on its own pieces: its rows of the batch
+(``local_shard(batch, data_specs(batch, mesh), mesh)``), its stripe of the
+cache, and the replicated parameters.  What a step returns is the rank's
+own too: its stripe of the cache, its rows' logits and tokens.  A caller
+that wants every row gathers them with ``dist.collectives.all_gather``
+over the axes ``data_specs`` gives the batch's leading dim.
+
+The reference's train and federated train steps are not ported yet.
+"""
 
 from __future__ import annotations
 
@@ -9,6 +26,22 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.fault.guard import logits_finite
 from repro_torch.models.registry import get_model
 from repro_torch.serve.sampling import sample_vec
+
+
+def make_prefill_step(cfg: ModelConfig, *, force_window: int = 0,
+                      cache_len: int = 0):
+    """``prefill_step(params, batch) -> (cache, last logits (B, 1, V))``
+    for ``{"tokens": (B, S)}``.  ``cache_len`` (the port's addition; the
+    reference's step leaves it at 0) sizes the ring past the prompt for the
+    tokens a decode will add.  Under a mesh ``tokens`` are the rank's rows
+    and the cache comes back as the rank's stripe."""
+    api = get_model(cfg)
+
+    def prefill_step(params, batch):
+        return api.prefill(params, cfg, batch, force_window=force_window,
+                           cache_len=cache_len)
+
+    return prefill_step
 
 
 def make_serve_step(cfg: ModelConfig, *, force_window: int = 0,
@@ -30,6 +63,11 @@ def make_serve_step(cfg: ModelConfig, *, force_window: int = 0,
     ((B,) tensors) and ``generators`` (a list of B ``torch.Generator`` or
     None; None rows decode greedily), routing logits through
     ``repro_torch.serve.sampling.sample_vec``.
+
+    Under a mesh the step takes and returns this rank's rows (the batch
+    placed by ``data_specs``) and its stripe of the cache, for every layout
+    and with ``sampling`` or ``guard`` alike; the ranks of a ``model``
+    group hold the same rows and return the same tokens.
 
     ``guard=True`` (the fault-tolerant engine's step) also reads a (B,)
     bool ``poison`` row, always in the batch: the chaos NaN injector, which
@@ -69,3 +107,13 @@ def make_serve_step(cfg: ModelConfig, *, force_window: int = 0,
         return next_token, cache
 
     return serve_step
+
+
+def decode_force_window(cfg: ModelConfig, seq_len: int) -> int:
+    """The reference's long_500k policy: a pure full-attention model
+    decodes 262,144 tokens or more under its sliding-window variant;
+    windowed and recurrent models run as they are."""
+    if seq_len >= 262_144 and cfg.sliding_window == 0 and \
+            cfg.family not in ("ssm", "hybrid"):
+        return cfg.decode_sliding_window or 4096
+    return 0

@@ -18,6 +18,9 @@ import os
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.decode import (cache_stripe, model_ways,
+                                     stripe_flash_decode)
+from repro_torch.dist.sharding import current_mesh
 from repro_torch.kernels import ops
 from repro_torch.models.layers.embeddings import apply_rope
 from repro_torch.models.layers.linear import dense, init_dense
@@ -309,6 +312,17 @@ def attn_decode(params, cfg, x_t, cache, pos, *, window: int = 0,
 
     Attention over the cache goes through ``ops.flash_decode``: the CUDA
     kernel on the card, its plain version on the CPU.
+
+    Under an ambient mesh (``dist.sharding.use_mesh``) whose ``model`` axis
+    is real, the cache this layer receives is this rank's own stripe and
+    ``x_t``/``pos`` are this rank's rows: a ring stripe holds global slots
+    ``[lo, lo + S_loc)`` of ``S_loc * model``, a pool stripe blocks ``[lo,
+    lo + n_loc)`` (the table stays global).  Only the rank whose stripe
+    holds a row's slot writes it; then the kernel runs on the stripe and
+    the partials are combined over ``model``
+    (``dist.decode.stripe_flash_decode``).  A layout with ``model`` on the
+    heads (``REPRO_CACHE_SHARD=heads``) needs tensor-parallel projections,
+    which are not ported: it raises ``NotImplementedError``.
     """
     B = x_t.shape[0]
     dev = x_t.device
@@ -329,31 +343,37 @@ def attn_decode(params, cfg, x_t, cache, pos, *, window: int = 0,
     else:
         new["k"], new["v"] = k_t[:, 0], v_t[:, 0]
 
+    ways = model_ways(current_mesh())
+    mesh, lo, _ = cache_stripe(cache["k"].shape[0 if paged else 1] * ways)
+
     if paged:
         n_blocks, bs = cache["k"].shape[:2]
         slot = torch.remainder(pos.clamp(min=0), ring_len)
         rows = torch.arange(B, device=dev)
-        pb = block_tbl[rows, slot // bs].long()            # physical block
-        keep = (pos >= 0) & (pb >= 0)
+        pb = block_tbl[rows, slot // bs].long() - lo       # physical block
+        keep = (pos >= 0) & (pb >= 0) & (pb < n_blocks)
         idx = pb * bs + slot % bs
         for name, val in new.items():
             buf = cache[name]
             _write_rows(buf.view((n_blocks * bs,) + buf.shape[2:]), idx,
                         keep, val.to(buf.dtype))
         _write_rows(cache["kv_pos"].view(-1), idx, keep, pos)
-    elif ragged:
-        # every row writes its own lane: inactive rows rewrite the old slot
+    elif ragged or mesh is not None:
+        # every row writes its own lane: inactive rows, and rows whose slot
+        # lies on another rank's stripe, rewrite the old slot
         cache_len = cache["k"].shape[1]
-        active = pos >= 0
-        slots = torch.remainder(pos.clamp(min=0), cache_len).long()
+        pos_r = pos if ragged else pos.reshape(1).expand(B)
+        slots = torch.remainder(pos_r.clamp(min=0), cache_len * ways) - lo
+        keep_r = (pos_r >= 0) & (slots >= 0) & (slots < cache_len)
+        slots = slots.clamp(0, cache_len - 1).long()
         rows = torch.arange(B, device=dev)
         for name, val in new.items():
             buf = cache[name]
-            keep = active.reshape((B,) + (1,) * (val.ndim - 1))
+            keep = keep_r.reshape((B,) + (1,) * (val.ndim - 1))
             buf[rows, slots] = torch.where(keep, val.to(buf.dtype),
                                            buf[rows, slots])
         kvp = cache["kv_pos"]
-        kvp[rows, slots] = torch.where(active, pos, kvp[rows, slots])
+        kvp[rows, slots] = torch.where(keep_r, pos_r, kvp[rows, slots])
     else:
         cache_len = cache["k"].shape[1]
         slot = torch.remainder(pos, cache_len).reshape(1).long()
@@ -362,10 +382,14 @@ def attn_decode(params, cfg, x_t, cache, pos, *, window: int = 0,
             buf.index_copy_(1, slot, val[:, None].to(buf.dtype))
         cache["kv_pos"].index_copy_(1, slot, pos_b)
 
-    o = ops.flash_decode(
-        q.contiguous(), cache["k"], cache["v"], cache["kv_pos"], pos,
-        k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
-        kind=kind, window=window, prefix_len=prefix_len,
-        softcap=cfg.attn_logit_softcap, block_tables=block_tbl)
+    kw = dict(k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+              kind=kind, window=window, prefix_len=prefix_len,
+              softcap=cfg.attn_logit_softcap, block_tables=block_tbl)
+    if mesh is not None:
+        o = stripe_flash_decode(q, cache["k"], cache["v"], cache["kv_pos"],
+                                pos, mesh, **kw)
+    else:
+        o = ops.flash_decode(q.contiguous(), cache["k"], cache["v"],
+                             cache["kv_pos"], pos, **kw)
     y = dense(params["wo"], o.reshape(B, 1, -1))
     return y, cache

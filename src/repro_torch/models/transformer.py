@@ -13,6 +13,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.decode import cache_stripe
+from repro_torch.dist.sharding import residual_constraint
 from repro_torch.models.layers.attention import (_quant_kv, attention,
                                                  attn_decode, init_attention,
                                                  init_attn_cache,
@@ -118,10 +120,11 @@ def forward_hidden(params, cfg: ModelConfig, x, *, positions,
                    prefix_len=None, kind: str = "causal"):
     """Embedded input (B, S, d) -> final hidden (B, S, d)."""
     kind = "prefix" if prefix_len is not None else kind
+    x = residual_constraint(x)
     for i in range(cfg.num_layers):
-        x = _block(layer(params["layers"], i), cfg, x, positions=positions,
-                   window=cfg.sliding_window, kind=kind,
-                   prefix_len=prefix_len)
+        x = residual_constraint(_block(
+            layer(params["layers"], i), cfg, x, positions=positions,
+            window=cfg.sliding_window, kind=kind, prefix_len=prefix_len))
     return rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
@@ -193,22 +196,33 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos, *,
 # Prefill: full forward capturing KV into ring caches + last-token logits
 # ---------------------------------------------------------------------------
 
-def _scatter_ring(k, v, positions, cache_len: int):
+def _scatter_ring(k, v, positions, cache_len: int, lo: int = 0,
+                  size: int = 0):
     """k, v: (B, S, Hk, dh) post-RoPE -> ring cache of ``cache_len`` slots
-    holding the last ``cache_len`` positions (int8 when REPRO_KV_INT8)."""
+    holding the last ``cache_len`` positions (int8 when REPRO_KV_INT8).
+    With ``size`` < ``cache_len`` only the stripe of global slots ``[lo, lo
+    + size)`` is built (a rank's own piece of a ring sharded over
+    ``model``)."""
     B, S = k.shape[:2]
     take = min(S, cache_len)
     pos_tail = positions[-take:]
     slots = torch.remainder(pos_tail, cache_len).long()
+    if 0 < size < cache_len:
+        src = torch.arange(S - take, S, device=k.device)
+        mine = (slots >= lo) & (slots < lo + size)
+        slots, src, pos_tail = slots[mine] - lo, src[mine], pos_tail[mine]
+        k, v, cache_len = k[:, src], v[:, src], size
+    else:
+        k, v = k[:, S - take:], v[:, S - take:]
 
     def scatter(val):
         out = torch.zeros((B, cache_len) + tuple(val.shape[2:]),
                           dtype=val.dtype, device=val.device)
-        out[:, slots] = val[:, -take:]
+        out[:, slots] = val
         return out
 
     cp = torch.full((B, cache_len), -1, dtype=torch.int32, device=k.device)
-    cp[:, slots] = pos_tail[None].expand(B, take)
+    cp[:, slots] = pos_tail[None].expand(B, pos_tail.shape[0])
     if kv_cache_int8():
         kq, ks = _quant_kv(k)
         vq, vs = _quant_kv(v)
@@ -241,13 +255,20 @@ def prefill(params, cfg: ModelConfig, tokens, *, force_window: int = 0,
 
     Runs the trunk layer by layer, capturing each layer's (k, v) into its
     ring buffer (layer-stacked leaves (L, B, ring, ...)).  ``true_len`` (B,)
-    marks rows right-padded to a bucket length."""
+    marks rows right-padded to a bucket length.
+
+    Under an ambient mesh with a real ``model`` axis, ``tokens`` are this
+    rank's rows and each layer's (k, v) goes straight into this rank's
+    stripe of the ring (``dist.sharding.cache_specs``' seq layout), so a
+    rank never holds more than one layer's whole ring, and that only
+    transiently."""
     check_ported(cfg)
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
-    x = embed_tokens(params, cfg, tokens)
+    x = residual_constraint(embed_tokens(params, cfg, tokens))
     kind = "prefix" if prefix_len is not None else "causal"
     ring = ring_length(cfg, max(S, cache_len), force_window=force_window)
+    _, lo, size = cache_stripe(ring)
     w = force_window or cfg.sliding_window
     cache_dtype = dtype_of(cfg.compute_dtype)
     rings = []
@@ -255,9 +276,11 @@ def prefill(params, cfg: ModelConfig, tokens, *, force_window: int = 0,
         kv = []
         x = _block(layer(params["layers"], i), cfg, x, positions=positions,
                    window=w, kind=kind, prefix_len=prefix_len, capture=kv)
+        x = residual_constraint(x)
         k, v = kv[0]
         rings.append(_scatter_ring(k.to(cache_dtype), v.to(cache_dtype),
-                                   positions, ring))
+                                   positions, ring, lo, size))
+        del kv, k, v
     cache = {name: torch.stack([r[name] for r in rings])
              for name in rings[0]}
     return _finalize_prefill(params, cfg, x, cache, true_len)

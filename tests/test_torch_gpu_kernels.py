@@ -727,6 +727,33 @@ def test_f32_attention_kernel_matches_plain(cuda, B, H, S, D, causal):
     _allclose(ops.flash_attention(q, k, v, causal=causal), want, 2e-5)
 
 
+@pytest.mark.parametrize("M", [504, 37], ids=["fit", "ragged"])
+def test_bf16_qlora_kernel_at_the_longest_k(cuda, M):
+    """bf16 qlora_matmul at fedtime-llama2-7b's ``w_down`` (K = 11,008, the
+    longest K a ported model gives it), held to its plain version at the
+    bf16 limit above: one K loop of 344 32-deep steps on the tensor
+    cores."""
+    from repro_torch.kernels import qlora_matmul as qm
+    args = _qlora_case(cuda, M, 11_008, 4096, 8, 64, torch.bfloat16)
+    got = ops.qlora_matmul(*args, 2.0)
+    assert got.dtype == torch.bfloat16 and got.shape == (M, 4096)
+    _allclose(got, qm.qlora_matmul_ref(*args, 2.0), 1e-4, 2.0 ** -7)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_f32_attention_kernel_at_4096(cuda, causal):
+    """f32 flash attention (3xTF32) at S = 4096, the blockwise prefill's
+    threshold, held to its plain version at the f32 limit (2e-5): one
+    chain of 64 key tiles a row block."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device="cpu").manual_seed(4096)
+    q, k, v = (torch.randn((1, 8, 4096, 128), generator=g).to(cuda)
+               for _ in range(3))
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    _allclose(got, fa.flash_attention_ref(q, k, v, causal), 2e-5)
+
+
 def test_ops_kernels_refuse_what_they_do_not_take(cuda):
     from repro_torch.core.quant import nf4_quantize
     q = torch.zeros((1, 2, 8, 96), device=cuda)

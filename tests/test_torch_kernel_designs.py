@@ -37,10 +37,16 @@ held on the CPU before any card run.
   ``qlora_mma_kernel``), emulated in plain torch: x in bf16 (exact), the
   dequantized weight ``w = code[q] * absmax`` (f32) split into ``w_hi =
   bf16(w)`` and ``w_lo = bf16(w - w_hi)``, f32 sums of exact products taken
-  one 32-deep K tile at a time in the kernel's order (``x·w_hi + x·w_lo``
-  into one accumulator), the LoRA bypass ``x·A`` from A split exactly into
-  three bf16 parts (every product exact: the f32 product), and the f32
-  epilogue ``acc + s·(x·A)·B``, rounded once to bf16.  It is held to the
+  one 16-deep MMA slice at a time in the kernel's order (``x·w_hi +
+  x·w_lo``), the LoRA bypass ``x·A`` from A split exactly into three bf16
+  parts (every product exact: the f32 product), each MMA modelled as the
+  tensor cores add (the exact products and the accumulator summed, then
+  truncated to f32), each slice's MMAs into zeroed partials added into
+  f32 sums rounded to nearest, and the f32 epilogue ``acc + s·(x·A)·B``,
+  rounded once to bf16.  One chain of MMAs over all of K stays inside the
+  limit at K = 4096 and misses it at K = 11,008 (fedtime-llama2-7b's
+  ``w_down``), as the card's kernel did before its partials; the LoRA
+  chain alone flushed, or the main one alone, still misses it there.  It is held to the
   plain version (``qlora_matmul_ref``) and to the JAX package's oracle
   (``repro.kernels.ref.qlora_matmul_ref``) on the same numpy-drawn inputs,
   within the card's unchanged limit: ``atol 1e-4``, ``rtol 1e-4 + 2**-7``.
@@ -569,6 +575,7 @@ def test_f32_attention_arithmetic_keeps_the_limit(shape, causal):
 # ---------------------------------------------------------------------------
 
 K_TILE = 32                                   # the kernel's K step
+MMA_K = 16                                    # an m16n8k16 MMA's depth
 
 
 def _bf16(t):
@@ -582,25 +589,36 @@ def _split3(a):
     return hi, mid, _bf16(a - hi - mid)
 
 
-def _qlora_mma_arithmetic(x, wq, am, a, b, s, split_w: bool = True):
+def _qlora_mma_arithmetic(x, wq, am, a, b, s, split_w: bool = True,
+                          flush=("w", "a")):
     """The bf16 kernel's arithmetic on bf16 x (M, K): returns (the f32
-    output before its cast, the bf16 output)."""
+    output before its cast, the bf16 output).  Each m16n8k16 MMA is
+    modelled as the tensor cores add: the exact products and the
+    accumulator summed, then truncated to f32 (``_rz``).  ``flush`` names
+    the chains (x . w: "w", x . A: "a") whose slice MMAs run into zeroed
+    partials added into f32 sums rounded to nearest, as the kernel does;
+    a chain not named accumulates over all of K in one."""
     M, K = x.shape
     w = nf4_dequant(wq, am.reshape(-1))               # code * absmax, f32
     w_hi = _bf16(w)
     w_lo = _bf16(w - w_hi)
     a_parts = _split3(a)
     assert torch.equal(a_parts[0] + a_parts[1] + a_parts[2], a)
-    xf = x.float()
+    xd = x.double()
+    w_parts = [t.double() for t in ((w_hi, w_lo) if split_w else (w_hi,))]
+    a_parts = [t.double() for t in a_parts]
     acc = torch.zeros((M, w.shape[1]))
     xa = torch.zeros((M, a.shape[1]))
-    for k0 in range(0, K, K_TILE):               # one K step at a time
-        xt = xf[:, k0:k0 + K_TILE]
-        acc = acc + xt @ w_hi[k0:k0 + K_TILE]
-        if split_w:
-            acc = acc + xt @ w_lo[k0:k0 + K_TILE]
+    for k0 in range(0, K, MMA_K):                # one 16-deep slice a time
+        xt = xd[:, k0:k0 + MMA_K]
+        pa = torch.zeros_like(acc) if "w" in flush else acc
+        px = torch.zeros_like(xa) if "a" in flush else xa
+        for part in w_parts:
+            pa = _rz(pa.double() + xt @ part[k0:k0 + MMA_K])
         for part in a_parts:
-            xa = xa + xt @ part[k0:k0 + K_TILE]
+            px = _rz(px.double() + xt @ part[k0:k0 + MMA_K])
+        acc = acc + pa if "w" in flush else pa
+        xa = xa + px if "a" in flush else px
     out = acc + s * (xa @ b)
     return out, out.to(torch.bfloat16)
 
@@ -724,6 +742,28 @@ def test_f32_qlora_arithmetic_keeps_the_limit(M, K, N, r, qb):
         for label, products in QLORA_VARIANTS.items():
             fewer = _qlora_tf32_arithmetic(x, wq, am, a, b, s, products)
             assert _within(fewer, want, 1e-4, 1e-4) > 0.0, label
+
+
+def test_bf16_qlora_accumulation_flushes_each_slice():
+    """At K = 11,008 (fedtime-llama2-7b's ``w_down``; M and N cut to a 64 x
+    128 tile) one chain of MMAs over all of K misses the bf16 limit, as
+    does flushing only x . w or only x . A; the kernel's partials, both
+    chains flushed each 16-deep slice, keep it.  At K = 4096 even one
+    chain kept it, which is why the fit's ``wq`` shape never showed the
+    drift."""
+    x, wq, am, a, b, s = _qlora_inputs(64, 11_008, 128, 8, 64, seed=3)
+    want = qm.qlora_matmul_ref(x, wq, am, a, b, s)
+
+    def over(flush):
+        got = _qlora_mma_arithmetic(x, wq, am, a, b, s, flush=flush)[1]
+        return _within(got, want, QLORA_ATOL, QLORA_RTOL)
+    assert over(("w", "a")) <= 0.0
+    for flush in ((), ("w",), ("a",)):
+        assert over(flush) > 0.0, flush
+    x, wq, am, a, b, s = _qlora_inputs(64, 4096, 128, 8, 64, seed=3)
+    got = _qlora_mma_arithmetic(x, wq, am, a, b, s, flush=())[1]
+    assert _within(got, qm.qlora_matmul_ref(x, wq, am, a, b, s),
+                   QLORA_ATOL, QLORA_RTOL) <= 0.0
 
 
 def test_f32_qlora_accumulation_flushes_each_step():

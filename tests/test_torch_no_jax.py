@@ -55,6 +55,8 @@ SLICE_MODULES = {
     "repro_torch.launch.mesh", "repro_torch.dist.collectives",
     "repro_torch.dist.sharding", "repro_torch.kernels.ring_allreduce",
     "repro_torch.dist.fed", "repro_torch.dist.decode",
+    "repro_torch.launch.steps", "repro_torch.models.transformer",
+    "repro_torch.models.layers.attention",
 }
 
 
