@@ -176,6 +176,28 @@ Phases, each printing its numbers beside the card's name and power limit:
      cache's / (batch ways x model ways); one flash-decode launch a rank a
      layer a step; the inactive lane's attention output exactly 0; prefill
      and decode walls and each rank's peak memory;
+  10. the training launcher (after 9, before 6), which reaches no kernel
+     (every launch count, set to 0 before, reads 0 after, in each rank of
+     10c too), at ``launch.train``'s defaults (batch 8 x 256, lr 3e-4,
+     Markov tokens):
+     a. ``launch.train.run`` of a full fine-tune of qwen3-0.6b at published
+        widths and depth (bf16), 20 steps: every loss finite, the mean of
+        the last 5 under the first; each step's wall, tok/s, peak memory;
+        then qwen3-0.6b's f32 smoke config, 3 steps on the card against
+        the same weights and batches on the CPU, beside a planted fault
+        (a quarter of one row's labels dropped);
+     b. ``--fed`` on fedtime-llama2-7b at published widths and depth
+        (bf16, LoRA rank 4), 10 steps: every base leaf's checksum
+        unchanged, every adapter leaf moved, the moments exactly twice
+        the adapters' f32 bytes; walls, tok/s, peak memory;
+     c. 4 ranks on the one card over gloo: ``make_train_step`` on (data 2,
+        model 2) and ``make_fed_train_step`` on (data 4, model 1) at
+        qwen3-0.6b's width in f32, 4 layers, 3 steps with -1 labels on
+        data rank 0's rows, each held to the one-rank step on the global
+        batch beside a planted fault (per-rank means averaged); a rank's
+        moments exactly the whole's / data ways; the federated step's
+        psum the adapter payload (+ count and loss) and its gather the
+        payload; every rank alike;
   6. check the model path on the card against the plain path on the CPU at
      the smoke configs in f32: prefill + teacher-forced decode (ring and
      paged) of qwen3-0.6b and of fedtime-llama2-7b (G = 1), a 2-round fit
@@ -3504,21 +3526,25 @@ def _hold_stripes(held, mesh) -> list:
     return readings
 
 
-def _checksum(params) -> tuple:
-    """(integer sum of the bit patterns, f64 sum) over every leaf, in
-    chunks of 2**24 elements (a whole 7B leaf widened to 64 bits would not
-    fit beside the weights): equal on every rank that drew the same
-    weights."""
-    from repro_torch import tree as tree_util
+def _leaf_checksum(t) -> tuple:
+    """(integer sum of the bit patterns, f64 sum) of one leaf, in chunks
+    of 2**24 elements (a whole 7B leaf widened to 64 bits would not fit
+    beside the weights)."""
     bits = {2: torch.int16, 4: torch.int32}
     isum = fsum = 0
-    for t in tree_util.leaves(params):
-        flat = t.contiguous().reshape(-1)
-        for part in flat.split(1 << 24):
-            isum += int(part.view(bits[part.element_size()]).sum(
-                dtype=torch.int64))
-            fsum += float(part.sum(dtype=torch.float64))
+    for part in t.contiguous().reshape(-1).split(1 << 24):
+        isum += int(part.view(bits[part.element_size()]).sum(
+            dtype=torch.int64))
+        fsum += float(part.sum(dtype=torch.float64))
     return isum, fsum
+
+
+def _checksum(params) -> tuple:
+    """``_leaf_checksum`` summed over every leaf: equal on every rank that
+    drew the same weights."""
+    from repro_torch import tree as tree_util
+    sums = [_leaf_checksum(t) for t in tree_util.leaves(params)]
+    return sum(i for i, _ in sums), sum(f for _, f in sums)
 
 
 def _shard_run(cfg, params, tokens, run: str, steps: int, mesh, device,
@@ -3937,6 +3963,453 @@ def phase_sharded_serve(card: str, device="cuda", cfgs=None,
 # phase 6: small-input reference
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 10: the training launcher (no kernel lies on its path)
+# ---------------------------------------------------------------------------
+
+# 10a and 10b run ``launch.train`` at its own defaults: batch 8 x 256, lr
+# 3e-4, Markov tokens.  10a: a full fine-tune of qwen3-0.6b, 20 steps;
+# 10b: ``--fed`` on fedtime-llama2-7b (LoRA rank 4 on wq, wk, wv, wo), 10
+# steps.  Widths and depth as published; nothing cut.
+TRAIN = dict(batch=8, seq=256, lr=3e-4, full_steps=20, fed_steps=10)
+# 10a's card-vs-CPU check: qwen3-0.6b's smoke config in f32, the same
+# weights (drawn on the CPU) and batches, 3 steps of ``make_train_step``.
+# Losses within TOL_TRAIN_LOSS relative; moments within TOL_TRAIN_MOMENT
+# of their leaf's largest magnitude.  Parameters: every element within 2
+# lr a step (the most two AdamW steps can differ), and at most
+# TRAIN_PARAM_SHARE of a leaf's elements beyond TOL_TRAIN_PARAM of its
+# largest magnitude and beyond TRAIN_PARAM_FLOOR lr, leaving out the
+# elements whose first gradient (the reference run's) is under 1e-4 of
+# its leaf's largest.  (A leaf that starts at 0, as LoRA's B does, is a
+# few steps large after 3 steps, where TOL_TRAIN_PARAM of it is 3e-4 of a
+# step, the f32 rounding of the updates themselves; chip run: 6 of a
+# lora_b's 32,768 elements at up to 1e-3 lr.)  AdamW moves an
+# element by m / (sqrt(v) + eps), which shows the f32 noise of a gradient
+# that small in full, and steps 2-3 take their gradients at parameters
+# that differ there, which moves a few more elements whose gradients stay
+# small (chip run: 51 of the 155,582,464 elements of 10c's embedding
+# table, 1 of wq's 4,194,304, at up to 2.6e-4 and 0.1 lr, against a
+# tenth of every matrix's elements in the planted fault).  The planted
+# fault: the card's run fed labels with the last quarter of row 0
+# dropped (-1).
+TRAIN_CHECK = dict(steps=3, batch=4, seq=64)
+TOL_TRAIN_LOSS = 1e-5
+TOL_TRAIN_PARAM = 1e-4
+TRAIN_PARAM_SHARE = 1e-5
+TRAIN_PARAM_FLOOR = 1e-2
+TOL_TRAIN_MOMENT = 1e-3
+# 10c: 4 ranks on the one card over gloo, make_train_step on (data 2,
+# model 2) and make_fed_train_step on (data 4, model 1), at qwen3-0.6b's
+# published width (d_model 1024, 16/8 heads of 128, d_ff 3072, vocab
+# 151,936) in f32, depth cut from 28 to 4 layers (each rank holds the
+# whole model, its gradients and a gathered copy, rank 0 the one-rank run
+# beside, four ranks on one card; gloo stages each step's gradient psum
+# and parameter gather through the host), 3 steps each at batch 8 x 256
+# with -1 labels on every other position of data rank 0's rows.  Each is
+# held to the one-rank step on the same global batch with the limits
+# above; planted beside: one step with each rank's own count in place of
+# the count's psum, times the data ways (a per-rank mean averaged over the
+# ranks, what the reference's global count rules out).
+TRAIN_MESH = dict(layers=4, steps=3, world=4, timeout_s=420,
+                  runs={"train": ((2, 2), ("data", "model")),
+                        "fed": ((4, 1), ("data", "model"))})
+
+
+def _train_errors(got, want, mu1, lr: float) -> tuple:
+    """Parameters against a reference run, each leaf against its largest
+    |want|: (the largest share of a leaf's elements beyond
+    TOL_TRAIN_PARAM of it and beyond TRAIN_PARAM_FLOOR lr, leaving out the
+    elements whose first moment
+    ``mu1`` (0.1 x the first gradient) is under 1e-4 of its leaf's
+    largest; the worst such element outside those, as a share of its
+    leaf's largest; the worst element of all, in lr)."""
+    from repro_torch import tree as tree_util
+    share = worst = in_lr = 0.0
+    for g, w, mu in zip(tree_util.leaves(got), tree_util.leaves(want),
+                        tree_util.leaves(mu1)):
+        d = (g.float() - w.float()).abs()
+        in_lr = max(in_lr, float(d.max()) / lr)
+        m = (mu.abs() < 1e-4 * mu.abs().max()).to(d.device)
+        top = float(w.float().abs().max()) or 1e-30
+        d = d.masked_fill(m, 0.0)
+        off = max(TOL_TRAIN_PARAM * top, TRAIN_PARAM_FLOOR * lr)
+        share = max(share, float((d > off).sum()) / d.numel())
+        worst = max(worst, float(d.max()) / top)
+    return share, worst, in_lr
+
+
+def _train_within(loss_err, params, moments, steps: int) -> bool:
+    """A run against its reference within phase 10's limits."""
+    share, _, in_lr = params
+    return (loss_err <= TOL_TRAIN_LOSS and share <= TRAIN_PARAM_SHARE and
+            in_lr <= 2 * steps and moments <= TOL_TRAIN_MOMENT)
+
+
+def _train_reading(loss_err, params, moments, steps: int) -> str:
+    share, worst, in_lr = params
+    return (f"losses {loss_err:.3g} relative (tol {TOL_TRAIN_LOSS}); "
+            f"parameters: {share:.3g} of a leaf's elements beyond "
+            f"{TOL_TRAIN_PARAM} of its largest and {TRAIN_PARAM_FLOOR} lr "
+            f"(limit {TRAIN_PARAM_SHARE}),"
+            f" worst {worst:.3g}, worst element {in_lr:.3g} lr (limit "
+            f"{2 * steps}); moments {moments:.3g} (tol {TOL_TRAIN_MOMENT})")
+
+
+def _moment_error(got, want) -> float:
+    from repro_torch import tree as tree_util
+    return max(float((g - w.to(g.device)).abs().max())
+               / (float(w.abs().max()) or 1e-30)
+               for name in ("mu", "nu")
+               for g, w in zip(tree_util.leaves(got[name]),
+                               tree_util.leaves(want[name])))
+
+
+def _loss_error(got, want) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def _train_batches(cfg, n: int, batch: int, seq: int, device: str):
+    """``n`` of ``launch.train``'s batches (the same Markov stream)."""
+    from repro_torch.data.tokens import lm_batches, markov_tokens
+    from repro_torch.launch import train as launch_train
+    it = lm_batches(markov_tokens(launch_train.TOKENS, cfg.vocab_size,
+                                  seed=0), batch, seq + 1, seed=0)
+    return [launch_train.synth_batch(cfg, batch, seq, it, device)
+            for _ in range(n)]
+
+
+def _train_card_vs_cpu(card: str, device: str) -> None:
+    """10a's check: the f32 smoke config, the card against the CPU."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import adamw_init
+    cfg = get_smoke_config("qwen3-0.6b")
+    n, B, S = (TRAIN_CHECK[k] for k in ("steps", "batch", "seq"))
+    params, _, _ = launch_train.setup(cfg, fed=False, lr=TRAIN["lr"],
+                                      device="cpu")
+    batches = _train_batches(cfg, n, B, S, "cpu")
+    runs = {}
+    for name, dev in (("cpu", "cpu"), ("card", device),
+                      ("planted", device)):
+        p, st = _to(params, dev), adamw_init(_to(params, dev))
+        step, losses, mu1 = make_train_step(cfg, lr=TRAIN["lr"]), [], None
+        for i, b in enumerate(batches):
+            b = _to(b, dev)
+            if name == "planted":
+                b["labels"] = b["labels"].clone()
+                b["labels"][0, -S // 4:] = -1
+            p, st, loss = step(p, st, b, i)
+            losses.append(float(loss))
+            if i == 0:
+                mu1 = _to(st["mu"], "cpu")
+        runs[name] = (_to(p, "cpu"), _to(st, "cpu"), losses, mu1)
+    cp, cst, cl, mu1 = runs["cpu"]
+    read = {}
+    for name in ("card", "planted"):
+        p, st, losses, _ = runs[name]
+        read[name] = (_loss_error(losses, cl),
+                      _train_errors(p, cp, mu1, TRAIN["lr"]),
+                      _moment_error(st, cst))
+    _check(_train_within(*read["card"], n),
+           f"phase 10a: card vs CPU over the limits: {read['card']}")
+    _check(not _train_within(*read["planted"], n),
+           f"phase 10a: the planted fault passes the limits: "
+           f"{read['planted']}")
+    print(f"[{card}] phase 10a card vs CPU, {cfg.name} (f32), {n} steps at "
+          f"{B} x {S}, the same weights and batches: "
+          f"{_train_reading(*read['card'], n)}; planted fault (row 0's "
+          f"last quarter of labels dropped): "
+          f"{_train_reading(*read['planted'], n)}")
+
+
+def _counting(collectives, rec):
+    """Wrap ``collectives.psum`` / ``all_gather`` to record the bytes a
+    rank hands to a psum and gets back from a gather; returns the undo."""
+    psum, gather = collectives.psum, collectives.all_gather
+
+    def counted_psum(x, mesh, axes):
+        rec.append(("psum", tuple(x.shape), x.numel() * x.element_size()))
+        return psum(x, mesh, axes)
+
+    def counted_gather(x, mesh, axes, dim=0):
+        y = gather(x, mesh, axes, dim)
+        rec.append(("all_gather", tuple(y.shape),
+                    y.numel() * y.element_size()))
+        return y
+
+    collectives.psum, collectives.all_gather = counted_psum, counted_gather
+
+    def undo():
+        collectives.psum, collectives.all_gather = psum, gather
+    return undo
+
+
+def _train_mesh_rank(cfg, batch: int, seq: int, device="cuda"):
+    """10c in one rank of the 4-rank world: each run's mesh steps, their
+    bytes and walls; rank 0 also runs the one-rank steps on the global
+    batch and the planted fault, and holds the mesh run to them."""
+    import torch.distributed as dist
+    from repro_torch import tree as tree_util
+    from repro_torch.core.lora import lora_mask, lora_tree, tree_nbytes
+    from repro_torch.dist import collectives
+    from repro_torch.dist.sharding import data_specs, local_shard, use_mesh
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.adamw import adamw_init, zero1_gather
+    rank = dist.get_rank()
+    meshes = {name: make_mesh(shape, names, device_type=device)
+              for name, (shape, names) in TRAIN_MESH["runs"].items()}
+    out = {"rank": rank, "runs": {}}
+    lr, n = TRAIN["lr"], TRAIN_MESH["steps"]
+    for name, mesh in meshes.items():
+        fed, ways = name == "fed", TRAIN_MESH["runs"][name][0][0]
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        params, opt, step = launch_train.setup(cfg, fed=fed, lr=lr,
+                                               device=device, mesh=mesh)
+        trained = lora_tree(params) if fed else params
+        batches = _train_batches(cfg, n, batch, seq, device)
+        for b in batches:
+            b["labels"][:batch // ways, ::2] = -1
+        mine = [local_shard(b, data_specs(b, mesh), mesh) for b in batches]
+        rec, walls, losses = [], [], []
+        p, st = params, opt
+        with use_mesh(mesh):
+            undo = _counting(collectives, rec)
+            try:
+                for i, b in enumerate(mine):
+                    (p, st, loss), wall = _timed(device, step, p, st, b, i)
+                    walls.append(wall)
+                    losses.append(float(loss))
+            finally:
+                undo()
+            # planted: each rank's own count, times the ways (a per-rank
+            # mean, averaged over the ranks)
+            psum = collectives.psum
+            collectives.psum = lambda x, m, axes: (
+                x * ways if x.dtype == torch.int64 else psum(x, m, axes))
+            try:
+                pf, stf, lf = step(params, opt, mine[0], 0)
+            finally:
+                collectives.psum = psum
+        got = lora_tree(p) if fed else p
+        whole = zero1_gather(st, trained, mesh)
+        stf = zero1_gather(stf, trained, mesh)
+        r = dict(losses=losses, walls=walls, checksum=_checksum(got),
+                 moment_bytes=tree_nbytes(st),
+                 whole_moment_bytes=2 * 4 * sum(
+                     x.numel() for x in tree_util.leaves(trained)),
+                 psum_bytes=sum(x[2] for x in rec if x[0] == "psum") / n,
+                 gathered_bytes=sum(x[2] for x in rec
+                                    if x[0] == "all_gather") / n,
+                 payload=tree_nbytes(trained), peak_gib=_peak_gib(device))
+        if fed:
+            r["base_kept"] = all(
+                a is b for a, b, m in zip(tree_util.leaves(p),
+                                          tree_util.leaves(params),
+                                          tree_util.leaves(lora_mask(params)))
+                if m is False)
+        if rank == 0:       # the one-rank step on the global batch
+            one = (steps.make_fed_train_step(cfg, lr=lr) if fed
+                   else steps.make_train_step(cfg, lr=lr))
+            p1, st1, l1 = params, adamw_init(trained), []
+            for i, b in enumerate(batches):
+                p1, st1, loss = one(p1, st1, b, i)
+                l1.append(float(loss))
+                if i == 0:
+                    mu1, first = st1["mu"], (lora_tree(p1) if fed else p1)
+                    first_st = st1
+            want = lora_tree(p1) if fed else p1
+            r["one_rank"] = dict(
+                losses=l1,
+                read=(_loss_error(losses, l1),
+                      _train_errors(got, want, mu1, lr),
+                      _moment_error(whole, st1)),
+                planted=(abs(float(lf) - l1[0]) / l1[0], _train_errors(
+                    lora_tree(pf) if fed else pf, first, mu1, lr),
+                    _moment_error(stf, first_st)))
+            del p1, st1, first, first_st, want
+        out["runs"][name] = r
+        del params, opt, p, st, pf, stf, whole, batches, mine
+        dist.barrier()
+    out["launches"] = {k: v for mod in _kernel_modules()
+                       for k, v in mod.LAUNCHES.items()}
+    return out
+
+
+def phase_train(card: str, device="cuda", full: bool = True,
+                batch: int = None, seq: int = None) -> None:
+    """Phase 10: the training launcher, which reaches no kernel (every
+    launch count, set to 0 before, must read 0 after, in every rank too):
+    10a a full fine-tune of qwen3-0.6b through ``launch.train.run``, and
+    the f32 smoke config on the card against the CPU; 10b ``--fed`` on
+    fedtime-llama2-7b, base weights unchanged by checksum; 10c 4 ranks on
+    the one card, each step held to the one-rank step.  ``full=False``,
+    ``batch`` and ``seq`` cut it to smoke configs for a rehearsal on the
+    CPU."""
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core.lora import lora_mask, lora_tree, tree_nbytes
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import spawn_local
+    t_start = time.perf_counter()
+    batch, seq = batch or TRAIN["batch"], seq or TRAIN["seq"]
+    for mod in _kernel_modules():
+        mod.reset_launches()
+    size = ["--full-config"] if full else []
+    common = ["--batch", str(batch), "--seq", str(seq), "--lr",
+              str(TRAIN["lr"]), "--device", device]
+
+    # 10a: a full fine-tune through the launcher
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = launch_train.run(launch_train.parse_args(
+        ["--arch", "qwen3-0.6b", "--steps", str(TRAIN["full_steps"])]
+        + size + common))
+    wall = time.perf_counter() - t0
+    losses = run.losses
+    _check(all(np.isfinite(losses)), f"phase 10a: losses {losses}")
+    _check(float(np.mean(losses[-5:])) < losses[0],
+           f"phase 10a: the Markov loss did not fall: {losses}")
+    n = sum(x.numel() for x in tree_util.leaves(run.params))
+    print(f"[{card}] phase 10a launch.train --arch qwen3-0.6b "
+          f"{'--full-config ' if full else ''}({run.cfg.num_layers} "
+          f"layers, d_model {run.cfg.d_model}, vocab {run.cfg.vocab_size}, "
+          f"{run.cfg.param_dtype}, {n} parameters), full fine-tune, "
+          f"{TRAIN['full_steps']} steps at {batch} x {seq}, lr "
+          f"{TRAIN['lr']}: losses {[round(l, 4) for l in losses]} (mean of "
+          f"the last 5 {float(np.mean(losses[-5:])):.4f} < first "
+          f"{losses[0]:.4f}); step walls (host clock, each ending with its "
+          f"loss read back) {[round(w, 4) for w in run.walls]} s, median "
+          f"of steps 2+ {float(np.median(run.walls[1:])):.4f} s, "
+          f"{batch * seq / float(np.median(run.walls[1:])):.0f} tok/s "
+          f"steady, {run.tokens_per_s:.0f} tok/s over the loop; peak "
+          f"device memory {_peak_gib(device):.2f} GiB; wall {wall:.1f} s")
+    del run
+    _train_card_vs_cpu(card, device)
+
+    # 10b: the federated step on the paper's backbone
+    cfg = (get_config if full else get_smoke_config)("fedtime-llama2-7b")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt, step = launch_train.setup(cfg, fed=True, lr=TRAIN["lr"],
+                                           device=device)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    mask = tree_util.leaves(lora_mask(params))
+    before = [_leaf_checksum(x) for x, m in
+              zip(tree_util.leaves(params), mask) if m is False]
+    adapters0 = [x.clone() for x in tree_util.leaves(lora_tree(params))]
+    payload, moments = tree_nbytes(lora_tree(params)), tree_nbytes(opt)
+    base_bytes = sum(x.numel() * x.element_size() for x, m in
+                     zip(tree_util.leaves(params), mask) if m is False)
+    run = launch_train.train(cfg, params, opt, step,
+                             steps=TRAIN["fed_steps"], batch=batch, seq=seq,
+                             device=device, log=None)
+    after = [_leaf_checksum(x) for x, m in
+             zip(tree_util.leaves(run.params), mask) if m is False]
+    _check(after == before, "phase 10b: a base leaf changed")
+    moved = sum(not torch.equal(a, b) for a, b in zip(
+        adapters0, tree_util.leaves(lora_tree(run.params))))
+    _check(moved == len(adapters0), f"phase 10b: {moved} of "
+           f"{len(adapters0)} adapter leaves moved")
+    _check(moments == 2 * payload and
+           tree_nbytes(run.opt_state) == moments,
+           f"phase 10b: moments {moments} B for an adapter payload of "
+           f"{payload} B")
+    _check(all(np.isfinite(run.losses)), f"phase 10b: losses {run.losses}")
+    print(f"[{card}] phase 10b launch.train --fed --arch fedtime-llama2-7b "
+          f"{'--full-config ' if full else ''}({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+          f"{cfg.param_dtype}, LoRA rank 4 on wq/wk/wv/wo), "
+          f"{TRAIN['fed_steps']} steps at {batch} x {seq}: {len(before)} "
+          f"base leaves ({base_bytes / 1e9:.2f} GB) unchanged by checksum, "
+          f"all {moved} adapter leaves moved; adapter payload {payload} B, "
+          f"moments {moments} B (= 2 x the adapters' f32 bytes); losses "
+          f"{[round(l, 4) for l in run.losses]}; step walls "
+          f"{[round(w, 4) for w in run.walls]} s (median of steps 2+ "
+          f"{float(np.median(run.walls[1:])):.4f} s, "
+          f"{batch * seq / float(np.median(run.walls[1:])):.0f} tok/s); "
+          f"init {init_s:.1f} s; peak device memory "
+          f"{_peak_gib(device):.2f} GiB")
+    del params, opt, run, adapters0
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # 10c: the steps on a mesh of 4 ranks
+    mcfg = (get_config("qwen3-0.6b").replace(
+        num_layers=TRAIN_MESH["layers"], param_dtype="float32",
+        compute_dtype="float32") if full
+        else get_smoke_config("qwen3-0.6b"))
+    t0 = time.perf_counter()
+    ranks = spawn_local(TRAIN_MESH["world"], _train_mesh_rank, mcfg, batch,
+                        seq, device, device_type=device,
+                        timeout_s=TRAIN_MESH["timeout_s"])
+    mesh_s = time.perf_counter() - t0
+    n = TRAIN_MESH["steps"]
+    for name, (shape, names) in TRAIN_MESH["runs"].items():
+        rs = [rk["runs"][name] for rk in ranks]
+        one = rs[0]["one_rank"]
+        label = " x ".join(f"{a} {s}" for a, s in zip(names, shape))
+        _check(len({r["checksum"] for r in rs}) == 1,
+               f"phase 10c {name}: the ranks' trained leaves differ")
+        _check(all(r["losses"] == rs[0]["losses"] for r in rs),
+               f"phase 10c {name}: the ranks' losses differ")
+        _check(_train_within(*one["read"], n),
+               f"phase 10c {name}: mesh vs one rank over the limits: {one}")
+        _check(not _train_within(*one["planted"], 1),
+               f"phase 10c {name}: the planted fault passes the limits: "
+               f"{one['planted']}")
+        _check(all(r["moment_bytes"] * shape[0] == r["whole_moment_bytes"]
+                   for r in rs), f"phase 10c {name}: a rank's moments are "
+               f"not the whole's / {shape[0]}")
+        if name == "fed":
+            _check(all(r["base_kept"] for r in rs),
+                   "phase 10c fed: a base leaf was replaced")
+            _check(all(r["psum_bytes"] == r["payload"] + 12 and
+                       r["gathered_bytes"] == r["payload"] for r in rs),
+                   f"phase 10c fed: collective bytes a step "
+                   f"{[(r['psum_bytes'], r['gathered_bytes']) for r in rs]}"
+                   f" for an adapter payload of {rs[0]['payload']} B")
+        walls = [max(r["walls"][i] for r in rs) for i in range(n)]
+        print(f"[{card}] phase 10c {'make_fed_train_step' if name == 'fed' else 'make_train_step'} "
+              f"on ({label}), 4 ranks on one card over gloo, "
+              f"{mcfg.name} ({mcfg.num_layers} layers, d_model "
+              f"{mcfg.d_model}, vocab {mcfg.vocab_size}, f32), {n} steps at "
+              f"{batch} x {seq}, -1 labels on data rank 0's rows: losses "
+              f"{[round(l, 5) for l in rs[0]['losses']]} vs one rank "
+              f"{[round(l, 5) for l in one['losses']]}; "
+              f"{_train_reading(*one['read'], n)}; planted (per-rank means "
+              f"averaged, one step): {_train_reading(*one['planted'], 1)}; "
+              f"moments a rank "
+              f"{rs[0]['moment_bytes']} B = {rs[0]['whole_moment_bytes']} / "
+              f"{shape[0]}; psum {rs[0]['psum_bytes']:.0f} B and gather "
+              f"{rs[0]['gathered_bytes']:.0f} B a rank a step (trained "
+              f"leaves {rs[0]['payload']} B); step walls "
+              + ", ".join(f"{w:.2f}" for w in walls)
+              + " s (host clock, slowest rank; gloo staging through the "
+              f"host on one card, not a link's speed); peak a rank "
+              + ", ".join(f"{r['peak_gib']:.2f}" for r in rs) + " GiB")
+    launches = {k: v for mod in _kernel_modules()
+                for k, v in mod.LAUNCHES.items()}
+    rank_launches = [rk["launches"] for rk in ranks]
+    _check(not any(launches.values()) and
+           not any(v for rl in rank_launches for v in rl.values()),
+           f"phase 10: a kernel launched on the train path, which reaches "
+           f"none: {launches}, ranks {rank_launches}")
+    print(f"[{card}] phase 10 kernel launches on the train path: "
+          f"{launches}, in each rank of 10c {rank_launches[0]}; 10c wall "
+          f"{mesh_s:.1f} s with the world's start; phase 10 wall "
+          f"{time.perf_counter() - t_start:.1f} s (host clock)")
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -4088,6 +4561,9 @@ def main() -> None:
     shard_launches = phase_sharded_serve(card)
     for name in ("flash_decode", "flash_decode_paged"):
         rows[name]["sharded_serve_step"] = {"launches": shard_launches[name]}
+
+    torch.cuda.empty_cache()
+    phase_train(card)
 
     for arch in SERVED:
         phase_reference(card, arch)

@@ -12,6 +12,7 @@ from repro_torch.configs.base import ModelConfig
 # arch id -> module name under repro_torch.configs
 _ARCH_MODULES: Dict[str, str] = {
     "qwen3-0.6b": "qwen3_0_6b",
+    "smollm-360m": "smollm_360m",
     "fedtime-llama2-7b": "fedtime_llama2_7b",
 }
 

@@ -3,13 +3,17 @@
 ``repro_torch.launch.mesh`` -- meshes of ranks on ``torch.distributed``
 and ``spawn_local``, a world of local processes.
 
-``repro_torch.launch.steps`` -- ``make_prefill_step``, ``make_serve_step``
-and ``decode_force_window``; under a mesh each rank runs them on its own
-rows and cache stripe.
+``repro_torch.launch.steps`` -- ``make_train_step``,
+``make_fed_train_step``, ``make_prefill_step``, ``make_serve_step`` and
+``decode_force_window``; under a mesh each rank runs them on its own rows
+(and cache stripe).
 
 ``repro_torch.launch.serve`` -- the serving launcher: the fixed batch and
 the continuous-batching engine, with their request traces.
 
-Not ported yet: the train and federated train steps, ``train.py``, the dry
-run and its cost model (``dryrun.py``, ``specs.py``, ``hlo_cost.py``).
+``repro_torch.launch.train`` -- the training launcher: full fine-tuning or
+the federated LoRA step on Markov tokens, on one rank or a mesh of ranks.
+
+Not ported yet: the dry run and its cost model (``dryrun.py``,
+``specs.py``, ``hlo_cost.py``).
 """

@@ -1,6 +1,12 @@
-"""Step functions of the serving path (the reference's
+"""Step functions of training and serving (the reference's
 ``src/repro/launch/steps.py``).
 
+  train_step     — full fine-tuning: autograd + AdamW (on a mesh the
+                   ZeRO-1 scatter update: each rank updates its block of
+                   the moments and all-gathers the updated parameter block)
+  fed_train_step — the paper's step: gradients for the LoRA adapters only,
+                   summed over the mesh's data (+pod) axes; the base
+                   weights get no gradient and no traffic
   prefill_step — full forward building the KV cache + last logits
   serve_step   — one-token decode against the cache, through the
                  flash-decode kernels (``repro_torch.kernels.ops
@@ -10,22 +16,197 @@
 Under a mesh (``repro_torch.dist.sharding.use_mesh``) each rank runs the
 step on its own pieces: its rows of the batch
 (``local_shard(batch, data_specs(batch, mesh), mesh)``), its stripe of the
-cache, and the replicated parameters.  What a step returns is the rank's
-own too: its stripe of the cache, its rows' logits and tokens.  A caller
-that wants every row gathers them with ``dist.collectives.all_gather``
-over the axes ``data_specs`` gives the batch's leading dim.
+cache, and the replicated parameters.  What a serving step returns is
+the rank's own too: its stripe of the cache, its rows' logits and tokens.
+A caller that wants every row gathers them with
+``dist.collectives.all_gather`` over the axes ``data_specs`` gives the
+batch's leading dim.  A train step returns what every rank holds alike:
+the updated parameters, the rank's moment blocks and the global loss.
 
-The reference's train and federated train steps are not ported yet.
+The train steps differentiate the reference's loss of the global batch.
+Its ``chunked_ce`` divides the token-loss sum over the whole batch by the
+count of labels >= 0 in the whole batch, so a rank differentiates its
+rows' sum over the global count (one psum of the counts first) and the
+ranks then psum their gradients.  With ``accum`` > 1 the loss is the mean
+over ``accum`` microbatches of each one's token mean, microbatch m being
+rows ``[m B / accum, (m + 1) B / accum)`` of the global batch, which may
+span ranks: a rank runs its share of each microbatch it meets, over that
+microbatch's global count.  Means taken per rank and then averaged would
+differ wherever labels are -1 and the ranks' counts differ.
 """
 
 from __future__ import annotations
 
+import math
+import os
+
 import torch
 
+from repro_torch import tree as tree_util
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.lora import lora_tree, merge_lora
+from repro_torch.dist import collectives
+from repro_torch.dist.sharding import (_axis_candidates, _mesh_shape,
+                                       current_mesh)
 from repro_torch.fault.guard import logits_finite
 from repro_torch.models.registry import get_model
+from repro_torch.optim.adamw import adamw_update_zero1
 from repro_torch.serve.sampling import sample_vec
+
+
+def _mesh_update(params, grads, opt_state, step, *, lr):
+    """AdamW on the ZeRO-1 scatter-update schedule when a mesh is active
+    (``opt_state`` is then the rank's moment blocks, ``zero1_init``'s);
+    plain AdamW otherwise.  Equal either way, bit for bit."""
+    return adamw_update_zero1(params, grads, opt_state, step,
+                              mesh=current_mesh(), lr=lr)
+
+
+def row_split(mesh):
+    """(axes, ways, block) of the batch's rows on ``mesh``: the combined
+    (``pod``, ``data``) axes, major first, as ``data_specs`` splits a batch
+    whose rows divide them (the set ``dist.fed.aggregation_axes`` names),
+    how many ways, and this rank's block.  ``((), 1, 0)`` without a mesh or
+    a live data axis."""
+    cands = _axis_candidates(_mesh_shape(mesh)) if mesh is not None else []
+    if not cands:
+        return (), 1, 0
+    axes = tuple(cands[0])
+    ways = math.prod(collectives.axis_size(mesh, ax) for ax in axes)
+    return axes, ways, collectives.block_index(mesh, axes)
+
+
+def _micro_rows(rows: int, ways: int, block: int, accum: int) -> list:
+    """For each global microbatch, this rank's rows in it as a local
+    ``(lo, hi)``, or None where it holds none."""
+    total = rows * ways
+    if total % accum:
+        raise ValueError(f"a global batch of {total} rows does not split "
+                         f"into {accum} microbatches")
+    size, off = total // accum, block * rows
+    out = []
+    for m in range(accum):
+        lo, hi = max(m * size, off), min((m + 1) * size, off + rows)
+        out.append((lo - off, hi - off) if lo < hi else None)
+    return out
+
+
+def _grad_dtype(accum: int):
+    """The gradient sum's dtype over microbatches: f32, or bf16 when
+    ``REPRO_GRAD_DTYPE=bf16`` (the reference's switch; it halves the
+    carry at a precision cost).  None (the gradients' own) for one."""
+    if accum <= 1:
+        return None
+    return (torch.bfloat16 if os.environ.get("REPRO_GRAD_DTYPE") == "bf16"
+            else torch.float32)
+
+
+def _value_and_grad(loss_sum, leaves, like, batch, accum: int):
+    """(loss, gradients of ``leaves``) of the reference's loss of the
+    global batch, this rank holding its rows of ``batch``.
+
+    ``loss_sum(tree, batch) -> (summed token loss, count)`` of the tree
+    made of ``like``'s structure and ``leaves``, differentiated through
+    fresh aliases of them (the given tensors never require a gradient).
+    The counts are taken from the labels first, since every share needs
+    its microbatch's global count before its backward pass.  Each
+    microbatch's share is
+    its summed loss over its global count; the shares' gradients are summed
+    in ``_grad_dtype``, and on a mesh psummed over the batch's axes in f32.
+    The loss returned is the global loss on every rank."""
+    mesh = current_mesh()
+    axes, ways, block = row_split(mesh)
+    accum = max(accum, 1)
+    labels = batch["labels"]
+    rows = _micro_rows(labels.shape[0], ways, block, accum)
+    zero = torch.zeros((), dtype=torch.int64, device=labels.device)
+    cnt = torch.stack([(labels[r[0]:r[1]] >= 0).sum() if r else zero
+                       for r in rows])
+    if axes:        # on the host: gloo sums int64 there, exactly
+        cnt = collectives.psum(cnt.cpu(), mesh, axes).to(labels.device)
+    denom = torch.clamp(cnt, min=1).float()
+    acc_dt = _grad_dtype(accum)
+    loss = torch.zeros((), dtype=torch.float32, device=labels.device)
+    grads = None if acc_dt is None else [
+        torch.zeros(x.shape, dtype=acc_dt, device=x.device) for x in leaves]
+    for m, r in enumerate(rows):
+        if r is None:
+            continue
+        mb = {k: v[r[0]:r[1]] for k, v in batch.items()}
+        live = [x.detach().requires_grad_(True) for x in leaves]
+        with torch.enable_grad():
+            tot, _ = loss_sum(tree_util.unflatten(like, live), mb)
+            part = tot / denom[m]
+            got = torch.autograd.grad(part, live, allow_unused=True)
+        got = [torch.zeros_like(x) if g is None else g
+               for x, g in zip(leaves, got)]
+        del live
+        if acc_dt is None:
+            grads = got
+        else:
+            grads = [(a.float() + g.float()).to(acc_dt)
+                     for a, g in zip(grads, got)]
+        loss = loss + part.detach()
+        del got, part, tot
+    if axes:
+        grads = [collectives.psum(g.float(), mesh, axes).to(
+            acc_dt or g.dtype) for g in grads]
+        loss = collectives.psum(loss, mesh, axes)
+    if acc_dt is not None:
+        loss = loss / accum
+        grads = [g / accum for g in grads]
+    return loss, grads
+
+
+def make_train_step(cfg: ModelConfig, *, lr: float = 1e-4, accum: int = 1):
+    """``train_step(params, opt_state, batch, step) -> (params, opt_state,
+    loss)``: autograd on the model's loss, then AdamW at ``step + 1``.
+
+    ``accum`` > 1 splits the global batch into ``accum`` contiguous
+    microbatches run one at a time (activation memory / accum at equal
+    work), their gradients summed in f32 (``REPRO_GRAD_DTYPE=bf16``: bf16
+    after each add) and divided by ``accum`` at the end, as the loss is.
+    Under ``dist.sharding.use_mesh`` the batch is the rank's rows
+    (``local_shard(batch, data_specs(batch, mesh), mesh)``), the parameters
+    are whole on every rank and ``opt_state`` is the rank's moment blocks
+    (``optim.adamw.zero1_init``); the global batch's rows must divide the
+    data (+pod) ways."""
+    api = get_model(cfg)
+
+    def train_step(params, opt_state, batch, step):
+        loss, grads = _value_and_grad(
+            lambda p, mb: api.loss_sum(p, cfg, mb),
+            tree_util.leaves(params), params, batch, accum)
+        params, opt_state = _mesh_update(
+            params, tree_util.unflatten(params, grads), opt_state,
+            int(step) + 1, lr=lr)
+        return params, opt_state, loss
+
+    return train_step
+
+
+def make_fed_train_step(cfg: ModelConfig, *, lr: float = 1e-3):
+    """The paper's local step at mesh scale: every data slice of the mesh
+    is a cluster member training its LoRA adapters on its rows, and the
+    members' adapter gradients are summed over ``data`` (+``pod``), the
+    aggregation of Algorithm 1, line 12.  Only ``lora_tree(params)`` is
+    differentiated: the base leaves never require a gradient, and get no
+    gradient and no traffic.  ``opt_state`` is shaped like the adapter
+    tree (``adamw_init(lora_tree(params))``, or ``zero1_init`` of it under
+    a mesh); the step returns ``merge_lora(params, adapters)``."""
+    api = get_model(cfg)
+
+    def fed_train_step(params, opt_state, batch, step):
+        adapters = lora_tree(params)
+        loss, grads = _value_and_grad(
+            lambda ad, mb: api.loss_sum(merge_lora(params, ad), cfg, mb),
+            tree_util.leaves(adapters), adapters, batch, 1)
+        adapters, opt_state = _mesh_update(
+            adapters, tree_util.unflatten(adapters, grads), opt_state,
+            int(step) + 1, lr=lr)
+        return merge_lora(params, adapters), opt_state, loss
+
+    return fed_train_step
 
 
 def make_prefill_step(cfg: ModelConfig, *, force_window: int = 0,

@@ -1,24 +1,42 @@
-"""Model API: family dispatch for init / prefill / decode.
+"""Model API: family dispatch for init / loss / prefill / decode.
 
   init(cfg, generator, device)                       -> params
+  loss(params, cfg, batch)                           -> scalar LM cross-entropy
+  loss_sum(params, cfg, batch)                       -> (summed loss, count)
   prefill(params, cfg, batch, ...)                   -> (cache, last logits)
   decode_step(params, cfg, cache, batch, ...)        -> (logits, cache)
   init_cache(cfg, batch_size, seq_len, ...)          -> cache
 
-Batch dicts: prefill ``{"tokens": (B, S)}``; decode ``{"token": (B, 1),
-"pos": scalar or (B,)}`` plus ``block_tbl``/``ring_len`` for a paged pool.
-Only the dense family is ported; the others raise.
+``loss_sum`` (the port's addition) is ``loss`` before its division by the
+count of labels >= 0, for a caller that divides by a count taken over more
+rows than it holds (``launch.steps`` on a mesh).
+
+Batch dicts: train ``{"tokens": (B, S), "labels": (B, S)}`` (labels -1 =
+ignore); prefill ``{"tokens": (B, S)}``; decode ``{"token": (B, 1), "pos":
+scalar or (B,)}`` plus ``block_tbl``/``ring_len`` for a paged pool.  Only
+the dense family is ported; the others raise.
 """
 
 from __future__ import annotations
 
 from types import SimpleNamespace
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
+from repro_torch.models.losses import chunked_ce, chunked_ce_sum
 
 
 def _dense_api():
+    def loss(params, cfg, batch):
+        h = transformer.forward(params, cfg, batch["tokens"])
+        return chunked_ce(h, params, cfg, batch["labels"])
+
+    def loss_sum(params, cfg, batch):
+        h = transformer.forward(params, cfg, batch["tokens"])
+        return chunked_ce_sum(h, params, cfg, batch["labels"])
+
     def prefill(params, cfg, batch, *, force_window=0, cache_len=0,
                 true_len=None):
         return transformer.prefill(params, cfg, batch["tokens"],
@@ -32,13 +50,32 @@ def _dense_api():
                                        block_tbl=batch.get("block_tbl"),
                                        ring_len=batch.get("ring_len"))
 
-    return SimpleNamespace(init=transformer.init, prefill=prefill,
+    return SimpleNamespace(init=transformer.init, loss=loss,
+                           loss_sum=loss_sum, prefill=prefill,
                            decode_step=decode_step,
                            init_cache=transformer.init_cache)
 
 
 def get_model(cfg: ModelConfig):
+    _dense_only(cfg)
+    return _dense_api()
+
+
+def _dense_only(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
                                   f"(dense only)")
-    return _dense_api()
+
+
+def train_batch_shapes(cfg: ModelConfig, batch: int, seq: int) -> dict:
+    """``{name: (shape, dtype)}`` of a training batch."""
+    _dense_only(cfg)
+    return {"tokens": ((batch, seq), torch.int32),
+            "labels": ((batch, seq), torch.int32)}
+
+
+def decode_batch_shapes(cfg: ModelConfig, batch: int) -> dict:
+    """``{name: (shape, dtype)}`` of a synchronous decode batch."""
+    _dense_only(cfg)
+    return {"token": ((batch, 1), torch.int32),
+            "pos": ((), torch.int32)}

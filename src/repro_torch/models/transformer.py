@@ -11,6 +11,7 @@ the cache in place.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.decode import cache_stripe
@@ -117,15 +118,39 @@ def _block(p, cfg: ModelConfig, x, *, positions, window, kind="causal",
 
 
 def forward_hidden(params, cfg: ModelConfig, x, *, positions,
-                   prefix_len=None, kind: str = "causal"):
-    """Embedded input (B, S, d) -> final hidden (B, S, d)."""
+                   prefix_len=None, remat: bool = False,
+                   kind: str = "causal"):
+    """Embedded input (B, S, d) -> final hidden (B, S, d).
+
+    ``remat`` runs each block under ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint`` of its scan body): the backward pass
+    keeps each block's input and recomputes the rest.  Off by default here,
+    so FedTime and PatchTST run as they did; ``forward`` turns it on."""
     kind = "prefix" if prefix_len is not None else kind
     x = residual_constraint(x)
     for i in range(cfg.num_layers):
-        x = residual_constraint(_block(
-            layer(params["layers"], i), cfg, x, positions=positions,
-            window=cfg.sliding_window, kind=kind, prefix_len=prefix_len))
+        lp = layer(params["layers"], i)
+        kw = dict(positions=positions, window=cfg.sliding_window, kind=kind,
+                  prefix_len=prefix_len)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(_block, lp, cfg, x, use_reentrant=False, **kw)
+        else:
+            x = _block(lp, cfg, x, **kw)
+        x = residual_constraint(x)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def forward(params, cfg: ModelConfig, tokens, *, prefix_len=None,
+            remat: bool = True):
+    """tokens (B, S) -> final hidden (B, S, d).  Use
+    ``losses.chunked_ce`` for the LM loss (it never materializes the whole
+    logits)."""
+    check_ported(cfg)
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)
+    return forward_hidden(params, cfg, embed_tokens(params, cfg, tokens),
+                          positions=positions, prefix_len=prefix_len,
+                          remat=remat)
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens):

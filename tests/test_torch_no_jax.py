@@ -57,6 +57,8 @@ SLICE_MODULES = {
     "repro_torch.dist.fed", "repro_torch.dist.decode",
     "repro_torch.launch.steps", "repro_torch.models.transformer",
     "repro_torch.models.layers.attention",
+    "repro_torch.launch.train", "repro_torch.data.tokens",
+    "repro_torch.models.registry", "repro_torch.configs.smollm_360m",
 }
 
 
