@@ -198,6 +198,28 @@ Phases, each printing its numbers beside the card's name and power limit:
         moments exactly the whole's / data ways; the federated step's
         psum the adapter payload (+ count and loss) and its gather the
         payload; every rank alike;
+  11. the dry run against the card (after 10, before 6):
+     a. ``launch.dryrun.run_one`` in fake worlds of the installed
+        PyTorch: qwen3-0.6b at decode_32k and long_500k on the single mesh
+        (256 ranks) and at train_4k with ``--fed`` on the multi-pod mesh
+        (512 ranks): rank 0's FLOPs (equal to the committed record's in
+        ``experiments/dryrun_torch/``), bytes, collective bytes, argument
+        + temp bytes beside the card's memory, each dry run's wall;
+     b. one rank's steps, each predicted on fakes at its shapes
+        (``launch.specs.step_args``, ``launch.dryrun.measure``) and then
+        run on the card under the same counter after a warm-up call:
+        qwen3-0.6b's ``make_train_step`` at 2 x 4096 (the blockwise path),
+        fedtime-llama2-7b's ``make_fed_train_step`` at 8 x 256 (LoRA rank
+        8, NF4 base), qwen3-0.6b's ``make_prefill_step`` at one 8192-token
+        row and its ``make_serve_step`` over a 32,768-slot ring at the
+        largest B the dry run fits in 70 GB: the counted FLOPs on the card
+        equal to the prediction's, the peak above the arguments
+        (``max_memory_allocated`` less what was allocated before) within
+        5% or 256 MiB of the predicted ``temp_bytes``, the arguments'
+        bytes equal, one flash-decode launch a layer a serve call; each
+        kernel's shape rule against the kernel's outputs on fakes of the
+        same inputs; each step's time (CUDA events), its counted FLOPs
+        over that time and that rate's share of 989 TFLOP/s;
   6. check the model path on the card against the plain path on the CPU at
      the smoke configs in f32: prefill + teacher-forced decode (ring and
      paged) of qwen3-0.6b and of fedtime-llama2-7b (G = 1), a 2-round fit
@@ -353,6 +375,16 @@ def _bound_ms(nbytes: float, flops: float, rate: float = F32_FLOPS) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _cost_rule(label: str, rule, nbytes: float) -> None:
+    """Print the kernel's cost rule (``obs.cost``: its product FLOPs and
+    the bytes of each input read once and each output written once, from
+    shapes alone) at a call whose bound counted ``nbytes``, beside it."""
+    flops, rbytes = rule
+    print(f"  cost rule {label}: {flops / 1e9:.4f} GFLOP of products, "
+          f"{rbytes / 1e6:.4f} MB (the bound counts {nbytes / 1e6:.4f} MB, "
+          f"{(rbytes - nbytes) / max(nbytes, 1):+.2%})")
 
 
 # ---------------------------------------------------------------------------
@@ -604,6 +636,8 @@ def phase_kernels(card: str, timer: Timer) -> dict:
         nbytes = (q.numel() * 2 + slots * row_bytes + meta + B * H * D * 2)
         flops = 4 * (H // Hk) * D * Hk * slots
         bound, by = _bound_ms(nbytes, flops)
+        _cost_rule(f"{name} {label}", fd.flash_decode_cost(*args, **kw),
+                   nbytes)
         launch, _ = fd.flash_decode_launcher(*args, **kw)
         per_call = _device_ops_per_call(
             lambda: fd.flash_decode_cuda(*args, **kw))
@@ -679,6 +713,8 @@ def _cow_event(card: str, timer: Timer, g, arch: str, L: int, Hk: int,
     nbytes = sum(2 * leaf.shape[0] * leaf[0, 0].numel() * leaf.element_size()
                  for leaf in leaves)
     bound, by = _bound_ms(nbytes, 0.0)
+    _cost_rule(f"paged_block_copy {arch}", fd.paged_block_copy_cost(leaves),
+               nbytes)
     ms = timer.ms(lambda: fd.paged_block_copy_leaves_cuda(leaves, 5, 40), 50)
 
     def one_leaf_each():
@@ -800,6 +836,8 @@ def phase_hop_kernels(card: str, timer: Timer) -> dict:
             ops = (11 if full else 10) if wire == "int8" else 5
             bound, by = _bound_ms(nbytes, ops * HOP_ELEMS)
             kw = dict(wire=wire, qblock=HOP_QBLOCK)
+            _cost_rule(f"wire_hop_{wire} {form}",
+                       wh.wire_hop_cost(*args, **kw), nbytes)
             ms = timer.ms(lambda: wh.fused_hop_cuda(*args, **kw), 50)
             launch, _ = wh.wire_hop_launcher(*args, **kw)
             kernel_ms = timer.ms(launch, 50)
@@ -1048,6 +1086,8 @@ def phase_ops_kernels(card: str, timer: Timer):
         print(f"  {name} {label}: max_abs_err {err:.3g} within atol {atol} "
               f"+ rtol {rtol:.4g} |want| ({why}); {'; '.join(readings)}")
         bound, by, mb = _ops_bound(name, args, got)
+        _cost_rule(f"{name} {label}",
+                   getattr(mods[name], f"{name}_cost")(*args), mb * 1e6)
         heavy = name == "qlora_matmul" and args[0].numel() > 10 ** 6
         ms = timer.ms(lambda: _ops_call(name, args), 20)
         launch, _ = launchers[name](*args)
@@ -4410,6 +4450,334 @@ def phase_train(card: str, device="cuda", full: bool = True,
           f"{time.perf_counter() - t_start:.1f} s (host clock)")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the dry run against the card
+# ---------------------------------------------------------------------------
+
+# 11a: dry runs of the production world on the installed PyTorch:
+# (arch, shape, multi_pod, fed).
+DRYRUN_PAIRS = (("qwen3-0.6b", "decode_32k", False, False),
+                ("qwen3-0.6b", "long_500k", False, False),
+                ("qwen3-0.6b", "train_4k", True, True))
+# 11b: one rank's steps, predicted on fakes and run on the card.
+DRYRUN_STEPS = (("train", "qwen3-0.6b", "train", 2, 4096, False),
+                ("fed_train", "fedtime-llama2-7b", "train", 8, 256, True),
+                ("prefill", "qwen3-0.6b", "prefill", 1, 8192, False),
+                ("serve", "qwen3-0.6b", "decode", 0, 32768, False))
+SERVE_BUDGET = 70e9               # bytes the serve step's B must fit in
+# measured peak above the arguments vs the prediction: 5% or 256 MiB
+PEAK_TOL = (0.05, 256 * 2 ** 20)
+
+
+def _dry_committed(tag: str):
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "experiments", "dryrun_torch", tag + ".json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def _phase_dry_world(card: str, total_bytes: float, pairs) -> None:
+    """11a: ``launch.dryrun.run_one`` of each pair in a fake world of 256
+    or 512 ranks on the installed PyTorch; FLOPs held equal to the
+    committed record of the pair where there is one."""
+    import tempfile
+    from repro_torch.launch import dryrun
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as tmp:
+        for arch, shape, multi, fed in pairs:
+            t0 = time.perf_counter()
+            r = dryrun.run_one(arch, shape, multi_pod=multi, fed=fed,
+                               outdir=tmp)
+            wall = time.perf_counter() - t0
+            mem = r["memory"]
+            need = mem["argument_bytes"] + mem["temp_bytes"]
+            tag = (f"{arch}__{shape}__{r['mesh']}" + ("__fed" if fed
+                                                        else ""))
+            old = _dry_committed(tag)
+            if old is not None:
+                _check(old["flops_per_device"] == r["flops_per_device"],
+                       f"phase 11a {tag}: {r['flops_per_device']} FLOPs, "
+                       f"the committed record {old['flops_per_device']}")
+            same = ("no committed record" if old is None else
+                    "FLOPs equal to the committed record's, bytes "
+                    + ("equal" if old["bytes_accessed_per_device"]
+                       == r["bytes_accessed_per_device"] else
+                       f"{old['bytes_accessed_per_device']:.6e} there")
+                    + f" (torch {old.get('torch')})")
+            print(f"[{card}] phase 11a dry run {tag} ({r['num_devices']} "
+                  f"ranks, torch {torch.__version__}): rank 0 FLOPs "
+                  f"{r['flops_per_device']:.6e}, bytes "
+                  f"{r['bytes_accessed_per_device']:.6e}, collective bytes "
+                  f"{ {k: v for k, v in r['collectives']['bytes'].items() if v} }"
+                  f", argument + temp {need / 2 ** 30:.3f} GiB of the card's "
+                  f"{total_bytes / 2 ** 30:.1f} GiB; {same}; wall "
+                  f"{wall:.1f} s (host clock)")
+
+
+def _real_args(cfg, kind: str, batch: int, seq: int, fed: bool, device):
+    """The real counterparts of ``launch.specs.step_args``' fakes on
+    ``device``: weights drawn from seed 0 (adapters and NF4 as
+    ``param_shapes``), zero moments, random tokens, and for decode a full
+    ring (every slot valid, K and V random)."""
+    from repro_torch.core.lora import (FAMILY_TARGETS, attach_lora,
+                                       lora_tree, quantize_base)
+    from repro_torch.launch.steps import decode_force_window
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.adamw import adamw_init
+    api = get_model(cfg)
+    g = torch.Generator(device=device).manual_seed(0)
+    params = api.init(cfg, g, device=device)
+    if fed:
+        ft = cfg.fedtime
+        targets = FAMILY_TARGETS[cfg.family]
+        params = attach_lora(params, g, rank=ft.lora_rank,
+                             alpha=ft.lora_alpha, targets=targets)
+        if ft.qlora:
+            params = quantize_base(params, qblock=ft.qlora_block,
+                                   targets=targets)
+    tok = lambda shape: torch.randint(  # noqa: E731
+        0, cfg.vocab_size, shape, generator=g, device=device,
+        dtype=torch.int32)
+    if kind == "train":
+        opt = adamw_init(lora_tree(params) if fed else params)
+        return (params, opt, {"tokens": tok((batch, seq)),
+                              "labels": tok((batch, seq))}, 0)
+    if kind == "prefill":
+        return params, {"tokens": tok((batch, seq))}
+    fw = decode_force_window(cfg, seq)
+    cache = api.init_cache(cfg, batch, seq, force_window=fw,
+                           dtype=torch.bfloat16, device=device)
+    ring = cache["k"].shape[2]
+    for i in range(cfg.num_layers):
+        cache["k"][i].normal_(generator=g)
+        cache["v"][i].normal_(generator=g)
+    cache["kv_pos"].copy_(torch.arange(ring, dtype=torch.int32,
+                                       device=device).expand_as(
+                                           cache["kv_pos"]))
+    return params, cache, {"token": tok((batch, 1)),
+                           "pos": torch.tensor(ring, dtype=torch.int32,
+                                               device=device)}
+
+
+def _serve_batch_that_fits(cfg, seq: int, budget: float) -> tuple:
+    """The largest B whose predicted argument + temp bytes fit ``budget``
+    (the dry run is linear in B: two predictions give its slope), and that
+    B's prediction ``(counter, memory)``."""
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.steps import make_serve_step, decode_force_window
+    step = make_serve_step(cfg, force_window=decode_force_window(cfg, seq))
+
+    def need(b):
+        _, args, _, _ = specs.step_args(cfg, "decode", b, seq)
+        counter, mem = dryrun.measure(step, args)
+        return counter, mem, mem["argument_bytes"] + mem["temp_bytes"]
+
+    n1, n2 = need(1)[2], need(2)[2]
+    b = max(1, int((budget - (n1 - (n2 - n1))) // (n2 - n1)))
+    while True:
+        counter, mem, n = need(b)
+        if n <= budget or b == 1:
+            return b, counter, mem
+        b -= 1
+
+
+def _shape_rules_vs_kernels(card: str, device) -> int:
+    """Each kernel's shape rule, on fakes of real inputs, gives the
+    kernel's outputs' shapes and types (ring and paged flash-decode, with
+    and without partials; the block copy; rmsnorm; qlora_matmul;
+    flash_attention; the wire hop).  Returns the cases held."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.core.quant import nf4_quantize
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import qlora_matmul as qm
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import wire_hop as wh
+    g = torch.Generator(device=device).manual_seed(3)
+    r = lambda *s, dt=torch.bfloat16: torch.randn(  # noqa: E731
+        s, generator=g, device=device).to(dt)
+    B, S, Hk, D = 2, 256, 8, 128
+    q, k, v = r(B, 1, 2 * Hk, D), r(B, S, Hk, D), r(B, S, Hk, D)
+    kvp = torch.arange(S, dtype=torch.int32, device=device).expand(
+        B, S).contiguous()
+    pool_k, pool_v = r(8, 16, Hk, D), r(8, 16, Hk, D)
+    pool_pos = torch.arange(128, dtype=torch.int32,
+                            device=device).reshape(8, 16)
+    tbl = torch.tensor([[0, 1, 2, -1], [3, 4, 5, 6]], dtype=torch.int32,
+                       device=device)
+    qpos = torch.tensor([200, 60], dtype=torch.int32, device=device)
+    w = r(256, 512, dt=torch.float32)
+    codes, absmax = nf4_quantize(w, 64)
+    cases = [
+        ("flash_decode ring", fd.flash_decode_cuda, fd.flash_decode_shape,
+         (q, k, v, kvp, qpos), {}),
+        ("flash_decode ring partials", fd.flash_decode_cuda,
+         fd.flash_decode_shape, (q, k, v, kvp, qpos),
+         {"return_partials": True}),
+        ("flash_decode paged", fd.flash_decode_cuda, fd.flash_decode_shape,
+         (q, pool_k, pool_v, pool_pos, qpos), {"block_tables": tbl}),
+        ("paged_block_copy", fd.paged_block_copy_leaves_cuda,
+         fd.paged_block_copy_leaves_shape,
+         ([r(2, 8, 16, Hk, D)], 1, 4), {}),
+        ("rmsnorm", rn.rmsnorm_cuda, rn.rmsnorm_shape,
+         (r(3, 5, 1024), r(1024)), {}),
+        ("qlora_matmul", qm.qlora_matmul_cuda, qm.qlora_matmul_shape,
+         (r(7, 256), codes, absmax.reshape(256, -1),
+          r(256, 8, dt=torch.float32), r(8, 512, dt=torch.float32), 2.0),
+         {}),
+        ("flash_attention", fa.flash_attention_cuda, fa.flash_attention_shape,
+         (r(1, 4, 100, 64), r(1, 4, 100, 64), r(1, 4, 100, 64)), {}),
+        ("wire_hop int8", wh.fused_hop_cuda, wh.wire_hop_shape,
+         (r(1024, dt=torch.float32), None, None,
+          r(1024, dt=torch.float32)), {"wire": "int8", "qblock": 128}),
+    ]
+
+    def sig(x):
+        if isinstance(x, torch.Tensor):
+            return (tuple(x.shape), x.dtype, x.device.type)
+        if isinstance(x, (list, tuple)):
+            return [sig(y) for y in x]
+        return x
+
+    for label, kernel, shape_rule, args, kw in cases:
+        got = sig(kernel(*args, **kw))
+        mode = FakeTensorMode(allow_non_fake_inputs=True)
+        fake = lambda x: (mode.from_tensor(x)  # noqa: E731
+                          if isinstance(x, torch.Tensor) else
+                          [fake(y) for y in x] if isinstance(x, list)
+                          else x)
+        with mode:
+            want = sig(shape_rule(*[fake(a) for a in args], **kw))
+        _check(got == want, f"phase 11b shape rule {label}: {want}, the "
+               f"kernel's outputs {got}")
+    _sync(device)
+    print(f"[{card}] phase 11b shape rules: {len(cases)} kernel calls' "
+          f"outputs equal in shape, type and device to their shape rule's "
+          f"on fakes of the same inputs")
+    return len(cases)
+
+
+def phase_dryrun(card: str, device="cuda", pairs=DRYRUN_PAIRS,
+                 steps=DRYRUN_STEPS, configs=None,
+                 serve_budget: float = SERVE_BUDGET) -> dict:
+    """Phase 11: the dry run against the card.  11a: ``pairs`` through
+    ``launch.dryrun.run_one`` in fake worlds of 256 / 512 ranks.  11b:
+    each of ``steps`` predicted on fakes at one rank
+    (``launch.specs.step_args``, ``launch.dryrun.measure``), then run on
+    the card under the same counter, after a warm-up call: the counter's
+    FLOPs on the card equal to the prediction's, the peak above the
+    arguments (``max_memory_allocated`` less what was allocated before)
+    within 5% or 256 MiB of the predicted ``temp_bytes``, each kernel's
+    shape rule against the kernel; each step timed with CUDA events, its
+    counted FLOPs over that time and that rate's share of 989 TFLOP/s.
+    ``configs`` (arch -> config) and ``device="cpu"`` cut it to a
+    rehearsal on the CPU (the measured peak then reads the counter's own
+    real-run peak).  Returns the flash-decode launches of 11b's serve
+    step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.hlo_cost import analyze
+    from repro_torch.launch.steps import (decode_force_window,
+                                          make_fed_train_step,
+                                          make_prefill_step, make_serve_step,
+                                          make_train_step)
+    t_start = time.perf_counter()
+    cuda = device == "cuda"
+    total = (torch.cuda.get_device_properties(0).total_memory if cuda
+             else CARD_BYTES)
+    _phase_dry_world(card, total, pairs)
+    t_a = time.perf_counter() - t_start
+    cfg_of = (configs or {}).get
+    launches = 0
+    for name, arch, kind, batch, seq, fed in steps:
+        cfg = cfg_of(arch) or get_config(arch)
+        t0 = time.perf_counter()
+        if kind == "decode":
+            batch, c_f, m_f = _serve_batch_that_fits(cfg, seq, serve_budget)
+            step = make_serve_step(
+                cfg, force_window=decode_force_window(cfg, seq))
+        else:
+            step = {"train": make_fed_train_step(cfg) if fed
+                    else make_train_step(cfg),
+                    "prefill": make_prefill_step(cfg)}[kind]
+            _, fargs, _, _ = specs.step_args(cfg, kind, batch, seq, fed=fed)
+            c_f, m_f = dryrun.measure(step, fargs)
+            del fargs
+        predict_s = time.perf_counter() - t0
+        pred = analyze(c_f)
+        if cuda:
+            torch.cuda.empty_cache()
+        args = _real_args(cfg, kind, batch, seq, fed, device)
+        fd.reset_launches()
+        out = step(*args)                     # warm-up: handles, workspace
+        del out
+        _sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+        c_r, m_r = dryrun.measure(step, args)
+        _sync(device)
+        peak = (torch.cuda.max_memory_allocated() - before if cuda
+                else c_r.peak_bytes)
+        got = analyze(c_r)
+        times = []
+        for _ in range(2):
+            if cuda:
+                e0, e1 = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                e0.record()
+            t1 = time.perf_counter()
+            out = step(*args)
+            if cuda:
+                e1.record()
+                torch.cuda.synchronize()
+                times.append(e0.elapsed_time(e1) / 1e3)
+            else:
+                times.append(time.perf_counter() - t1)
+            del out
+        if kind == "decode" and cuda:
+            launches = fd.LAUNCHES["flash_decode"]
+            calls = 4                       # warm-up, counted, 2 timed
+            _check(launches == calls * cfg.num_layers,
+                   f"phase 11b serve: {launches} flash-decode launches, "
+                   f"not one a layer a call ({calls * cfg.num_layers})")
+        _check(got["flops_per_device"] == pred["flops_per_device"],
+               f"phase 11b {name}: {got['flops_per_device']} FLOPs counted "
+               f"on the card, {pred['flops_per_device']} predicted")
+        tol = max(PEAK_TOL[0] * m_f["temp_bytes"], PEAK_TOL[1])
+        _check(abs(peak - m_f["temp_bytes"]) <= tol,
+               f"phase 11b {name}: peak above the arguments {peak} B, "
+               f"predicted {m_f['temp_bytes']} B (limit {tol:.0f} B)")
+        _check(m_r["argument_bytes"] == m_f["argument_bytes"],
+               f"phase 11b {name}: argument bytes {m_r['argument_bytes']}, "
+               f"predicted {m_f['argument_bytes']}")
+        dt = min(times)
+        rate = got["flops_per_device"] / dt
+        print(f"[{card}] phase 11b {name} {arch} ({cfg.num_layers} layers) "
+              f"B {batch} x S {seq}{' [fed]' if fed else ''}: FLOPs "
+              f"{got['flops_per_device']:.6e} counted on the card = "
+              f"predicted; bytes {got['bytes_per_device']:.6e} (predicted "
+              f"{pred['bytes_per_device']:.6e}); arguments "
+              f"{m_f['argument_bytes'] / 2 ** 30:.3f} GiB; peak above them "
+              f"{peak / 2 ** 30:.4f} GiB measured, "
+              f"{m_f['temp_bytes'] / 2 ** 30:.4f} GiB predicted "
+              f"({(peak - m_f['temp_bytes']) / 2 ** 20:+.1f} MiB); step "
+              f"{dt * 1e3:.2f} ms ({'CUDA events' if cuda else 'host clock'}"
+              f", best of {len(times)}), {rate / 1e12:.2f} TFLOP/s counted, "
+              f"{rate / BF16_FLOPS:.1%} of 989 TFLOP/s bf16; prediction "
+              f"{predict_s:.1f} s (host clock)")
+        del args, c_r, c_f
+        if cuda:
+            torch.cuda.empty_cache()
+    if cuda:
+        _shape_rules_vs_kernels(card, device)
+    print(f"[{card}] phase 11 wall {time.perf_counter() - t_start:.1f} s "
+          f"(11a {t_a:.1f} s; host clock)")
+    return {"flash_decode": launches}
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -4564,6 +4932,11 @@ def main() -> None:
 
     torch.cuda.empty_cache()
     phase_train(card)
+
+    torch.cuda.empty_cache()
+    dry_launches = phase_dryrun(card)
+    rows["flash_decode"]["dry_run_check"] = {
+        "launches": dry_launches["flash_decode"]}
 
     for arch in SERVED:
         phase_reference(card, arch)

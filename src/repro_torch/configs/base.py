@@ -6,13 +6,15 @@ architecture gets one module in ``repro_torch.configs`` exporting
 ``CONFIG`` (the exact published dims) and ``smoke_config()`` (a reduced
 variant for CPU tests).  The family sub-configs are kept because
 ``ModelConfig`` names them; only the dense family is served so far.
+``INPUT_SHAPES`` are the reference's four input shapes of the dry run
+(``repro_torch.launch.dryrun``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -179,3 +181,25 @@ class ModelConfig:
         if sub is not None and getattr(self, sub) is None:
             raise ValueError(f"{self.name}: family {self.family!r} needs "
                              f"the {sub!r} sub-config")
+
+
+# ---------------------------------------------------------------------------
+# The input shapes of the dry run (the reference's, field for field).
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                            # train | prefill | decode
+
+
+INPUT_SHAPES: Tuple[InputShape, ...] = (
+    InputShape("train_4k", 4_096, 256, "train"),
+    InputShape("prefill_32k", 32_768, 32, "prefill"),
+    InputShape("decode_32k", 32_768, 128, "decode"),
+    InputShape("long_500k", 524_288, 1, "decode"),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in INPUT_SHAPES}

@@ -17,6 +17,10 @@ _ARCH_MODULES: Dict[str, str] = {
 }
 
 ALL_ARCHS: Tuple[str, ...] = tuple(_ARCH_MODULES)
+# The archs the dry run sweeps with ``--all``: the reference's rule, every
+# arch but the paper's own backbone, which it runs by name.
+ASSIGNED_ARCHS: Tuple[str, ...] = tuple(
+    a for a in _ARCH_MODULES if a != "fedtime-llama2-7b")
 
 
 def _module(arch: str):

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 # bitsandbytes NF4 code book (quantiles of N(0,1), normalized to [-1, 1])
 NF4_CODE = np.array([
@@ -30,7 +31,11 @@ _CODES = {}
 def code_book(device) -> torch.Tensor:
     code = _CODES.get(device)
     if code is None:
-        code = _CODES[device] = torch.from_numpy(NF4_CODE).to(device)
+        code = torch.from_numpy(NF4_CODE).to(device)
+        # under a fake mode (the dry run) the copy is a fake, which must
+        # not stand in for the real book after the mode is left
+        if not isinstance(code, FakeTensor):
+            _CODES[device] = code
     return code
 
 

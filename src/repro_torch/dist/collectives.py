@@ -17,6 +17,12 @@ Host staging happens here and only here: gloo moves CUDA tensors for
 gloo group a CUDA tensor goes to the host for those two, and comes back to
 its device after.  Ranks that share one card (NCCL refuses them) take that
 path; on NCCL every call stays on the device.
+
+Every collective the port issues goes through here, so this is where a
+cost counter (``repro_torch.obs.cost``) learns of them: each
+transfer is one collective of the reference's kind (``psum`` / ``pmax``
+an ``all-reduce`` an axis, ``all_gather`` an ``all-gather`` an axis,
+``ppermute`` a ``collective-permute`` a tensor), at its result's bytes.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ from typing import Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.obs.cost import record_collective
 
 Axes = Union[str, Sequence[str]]
 
@@ -86,6 +94,7 @@ def ppermute(xs, mesh, axis: str, shift: int = 1):
         ops.append(dist.P2POp(dist.isend, send, dst, group, tag))
         ops.append(dist.P2POp(dist.irecv, recv, src, group, tag))
         outs.append(recv)
+        record_collective("collective-permute", recv)
     for work in dist.batch_isend_irecv(ops):
         work.wait()
     outs = [None if o is None else o.to(x.device)
@@ -98,6 +107,7 @@ def _reduce(x: torch.Tensor, mesh, axes: Axes, op) -> torch.Tensor:
     for ax in _axes(axes):
         if axis_size(mesh, ax) > 1:
             dist.all_reduce(y, op=op, group=mesh.get_group(ax))
+            record_collective("all-reduce", y)
     return y
 
 
@@ -127,4 +137,5 @@ def all_gather(x: torch.Tensor, mesh, axes: Axes,
         parts = [torch.empty_like(y) for _ in range(axis_size(mesh, ax))]
         dist.all_gather(parts, y, group=mesh.get_group(ax))
         y = torch.cat(parts, dim=dim)
+        record_collective("all-gather", y)
     return y.to(x.device) if staged else y

@@ -21,7 +21,9 @@ As in the reference, no model path calls this kernel: the port's attention
 is plain PyTorch.  ``repro_torch.kernels.ops.flash_attention`` dispatches to
 it.  ``LAUNCHES`` counts the kernel's launches, added where the wrapper
 launches and nowhere else; ``flash_attention_launcher`` is the wrapper
-without its count, to time the bare kernel.
+without its count, to time the bare kernel.  ``flash_attention_shape`` is
+its shape rule (the checks, then the output, with no card query: for the
+dry run's fake tensors) and ``flash_attention_cost`` its cost rule.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels.build import library
+from repro_torch.obs.cost import aligned16, on_card, tensor_bytes
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 
@@ -69,13 +72,9 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"flash_attention kernel: {msg}")
 
 
-def flash_attention_launcher(q, k, v, causal: bool = True):
-    """Check the arguments and allocate the output.
-
-    Returns ``(launch, o)``: ``launch()`` runs the kernel on the current
-    stream into ``o``, raises when the launch fails, and counts nothing.
-    Raises on a device, type, shape or layout the kernel does not take."""
-    _require(q.is_cuda, "q must be a CUDA tensor")
+def _check(q, k, v):
+    """The kernel's argument checks (no card needed)."""
+    _require(on_card(q), "q must be a CUDA tensor")
     _require(q.dtype in (torch.float32, torch.bfloat16), "q must be f32/bf16")
     _require(q.ndim == 4 and q.numel() > 0, "q must be a non-empty "
              "(B, H, S, D)")
@@ -88,7 +87,34 @@ def flash_attention_launcher(q, k, v, causal: bool = True):
         _require(t.device == q.device, "k and v on q's device")
     for t in (q, k, v):
         _require(t.is_contiguous(), "q, k and v must be contiguous")
-        _require(t.data_ptr() % 16 == 0, "q, k and v must be 16B aligned")
+        _require(aligned16(t), "q, k and v must be 16B aligned")
+
+
+def flash_attention_shape(q, k, v, causal: bool = True):
+    """The shape rule: the kernel's checks, then its output, unwritten."""
+    del causal
+    _check(q, k, v)
+    return torch.empty_like(q)
+
+
+def flash_attention_cost(q, k, v, causal: bool = True):
+    """``(flops, bytes)`` of one call: QK and PV over the (query, key)
+    pairs the kernel computes (S (S + 1) / 2 under the causal mask, S^2
+    without), 4 B H D pairs; q, k and v read once, o written once."""
+    B, H, S, D = q.shape
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return 4 * B * H * D * pairs, tensor_bytes((q, k, v)) + tensor_bytes(q)
+
+
+def flash_attention_launcher(q, k, v, causal: bool = True):
+    """Check the arguments and allocate the output.
+
+    Returns ``(launch, o)``: ``launch()`` runs the kernel on the current
+    stream into ``o``, raises when the launch fails, and counts nothing.
+    Raises on a device, type, shape or layout the kernel does not take."""
+    _require(q.is_cuda, "q must be a CUDA tensor")
+    _check(q, k, v)
+    B, H, S, D = q.shape
     o = torch.empty_like(q)
     fn = _lib()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

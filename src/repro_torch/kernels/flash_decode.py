@@ -30,8 +30,14 @@ cache itself instead of padding it.
 
 ``LAUNCHES`` counts each kernel's launches: a wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main path
-went through the kernels.  ``flash_decode_launcher`` is the flash-decode
-wrapper without its count, to time the bare kernel.  The plain versions are
+went through the kernels.  Each kernel also has a shape rule
+(``flash_decode_shape``, ``paged_block_copy_leaves_shape``: the kernel's own
+argument checks, then outputs of its shapes and types, with no card query,
+for the fake tensors of the dry run) and a cost rule (``flash_decode_cost``,
+``paged_block_copy_cost``: its FLOPs and bytes, each input read once and
+each output written once, for ``repro_torch.obs.cost``).
+``flash_decode_launcher`` is the flash-decode wrapper without its count,
+to time the bare kernel.  The plain versions are
 what ``repro_torch.kernels.ops`` runs for tensors on the CPU, and what the
 card checks the kernels against.
 """
@@ -39,11 +45,13 @@ card checks the kernels against.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Optional
 
 import torch
 
 from repro_torch.kernels.build import library
+from repro_torch.obs.cost import aligned16, on_card, tensor_bytes
 
 # Finite mask fill: -inf poisons the online-softmax recurrences on rows
 # with no valid slot; with a finite floor masked probabilities are zeroed
@@ -304,10 +312,7 @@ def _card_splits(pairs: int, most: int, sm_count: int, requested: int,
     up to ``most``; by default enough splits for about two blocks an SM,
     at most ``most`` and 8, and fewer where the card could not hold every
     (row, head)'s cluster at once."""
-    if requested < 0 or requested > MAX_SPLITS:
-        raise ValueError(f"flash_decode kernel: n_splits must be in "
-                         f"[0, {MAX_SPLITS}] for the {layout}, not "
-                         f"{requested}")
+    _check_requested(requested, layout)
     if requested:
         return min(requested, most)
     pairs = max(1, pairs)
@@ -316,6 +321,13 @@ def _card_splits(pairs: int, most: int, sm_count: int, requested: int,
     while max_clusters is not None and n > 1 and max_clusters[n - 1] < pairs:
         n -= 1
     return n
+
+
+def _check_requested(requested: int, layout: str) -> None:
+    if requested < 0 or requested > MAX_SPLITS:
+        raise ValueError(f"flash_decode kernel: n_splits must be in "
+                         f"[0, {MAX_SPLITS}] for the {layout}, not "
+                         f"{requested}")
 
 
 def _ring_splits(B: int, Hk: int, S: int, sm_count: int,
@@ -390,7 +402,7 @@ def _scalar_or_rows(x, batch: int, dev, name: str):
 
 
 def _common_checks(q, k, v, k_scale, v_scale, kind):
-    _require(q.is_cuda, "q must be a CUDA tensor")
+    _require(on_card(q), "q must be a CUDA tensor")
     B, one, H, D = q.shape
     _require(one == 1, "q must be (B, 1, H, D)")
     _require(q.dtype in (torch.bfloat16, torch.float32), "q must be bf16/f32")
@@ -421,7 +433,107 @@ def _check_tensors(tensors, dev):
         if t is not None:
             _require(t.device == dev, "all tensors on q's device")
             _require(t.is_contiguous(), "tensors must be contiguous")
-            _require(t.data_ptr() % 16 == 0, "tensors must be 16B aligned")
+            _require(aligned16(t), "tensors must be 16B aligned")
+
+
+class _Call:
+    """A checked flash-decode call: its geometry and the kernel's view of
+    ``q_pos`` / ``prefix_len`` (``_scalar_or_rows``)."""
+    __slots__ = ("B", "H", "D", "Hk", "G", "paged", "T", "bs", "nb", "S",
+                 "kvp_stride", "qp", "pl")
+
+
+def _check_call(q, k, v, kv_pos, q_pos, *, k_scale=None, v_scale=None,
+                kind: str = "causal", prefix_len=None, block_tables=None,
+                n_splits: int = 0, **_) -> _Call:
+    """Every argument check of the kernel that needs no card: devices,
+    types, shapes, layouts, contiguity, alignment and the split request.
+    Raises where the kernel would."""
+    c = _Call()
+    dev = q.device
+    c.B, c.H, c.D, c.Hk = _common_checks(q, k, v, k_scale, v_scale, kind)
+    c.G = c.H // c.Hk
+    B = c.B
+    _require(kv_pos.dtype == torch.int32, "kv_pos must be int32")
+    tbl = block_tables
+    c.paged = tbl is not None
+    if c.paged:
+        c.nb, c.bs = k.shape[:2]
+        _require(tbl.dtype == torch.int32 and tbl.ndim == 2
+                 and tbl.shape[0] == B and tbl.shape[1] >= 1,
+                 "block_tables must be (B, T) int32")
+        c.T = tbl.shape[1]
+        _require(kv_pos.shape == (c.nb, c.bs),
+                 "kv_pos must be (n_blocks, bs)")
+        _require(c.T * c.bs < 2 ** 31 and c.nb * c.bs < 2 ** 31,
+                 "the table and the pool must hold under 2**31 slots")
+        _check_requested(n_splits, "paged pool")
+    else:
+        _require(k.shape[0] == B, "ring batch must match q")
+        c.S = k.shape[1]
+        _require(c.S >= 1, "the ring must hold a slot")
+        if kv_pos.ndim == 1:
+            _require(kv_pos.shape == (c.S,), "kv_pos must be (B, S) or (S,)")
+            c.kvp_stride = 0
+        else:
+            _require(kv_pos.shape == (B, c.S),
+                     "kv_pos must be (B, S) or (S,)")
+            c.kvp_stride = c.S
+        _check_requested(n_splits, "ring")
+    _check_tensors((q, k, v, kv_pos, tbl, k_scale, v_scale), dev)
+    c.qp = _scalar_or_rows(q_pos, B, dev, "q_pos")
+    c.pl = _scalar_or_rows(prefix_len, B, dev, "prefix_len")
+    return c
+
+
+def _outputs(c: _Call, q, return_partials: bool):
+    """The kernel's outputs, allocated: ``(out, m, l, acc)``."""
+    if return_partials:
+        m = torch.empty((c.B, c.Hk, c.G, 1), dtype=torch.float32,
+                        device=q.device)
+        acc = torch.empty((c.B, c.Hk, c.G, c.D), dtype=torch.float32,
+                          device=q.device)
+        return None, m, torch.empty_like(m), acc
+    return torch.empty_like(q), None, None, None
+
+
+def flash_decode_shape(q, k, v, kv_pos, q_pos, *,
+                       return_partials: bool = False, **kw):
+    """The kernel's shape rule: its argument checks, then its outputs
+    (``flash_decode_ref``'s shapes and types), unwritten, with no card
+    query and no launch.  What ``repro_torch.kernels.ops`` runs for fake
+    tensors."""
+    c = _check_call(q, k, v, kv_pos, q_pos, **kw)
+    out, m, l, acc = _outputs(c, q, return_partials)
+    return (m, l, acc) if return_partials else out
+
+
+def flash_decode_cost(q, k, v, kv_pos, q_pos, *, k_scale=None, v_scale=None,
+                      prefix_len=None, block_tables=None,
+                      return_partials: bool = False, **_):
+    """``(flops, bytes)`` of one call from its shapes: the QK and PV
+    products over every slot the kernel walks (the ring's S, or the
+    table's T entries of bs slots a row), 4 B H D slots FLOPs; each input
+    read once (K, V, their scales and kv_pos at those slots, q, the table,
+    q_pos and prefix_len where they are tensors) and the output written
+    once."""
+    B, _, H, D = q.shape
+    tbl = block_tables
+    if tbl is None:
+        slots = B * k.shape[1]
+        kvp = tensor_bytes(kv_pos)
+    else:
+        slots = B * tbl.shape[1] * k.shape[1]
+        kvp = slots * kv_pos.element_size()
+    per_slot = sum(math.prod(t.shape[2:]) * t.element_size()
+                   for t in (k, v, k_scale, v_scale) if t is not None)
+    if return_partials:
+        out = B * H * (D + 2) * 4
+    else:
+        out = tensor_bytes(q)
+    nbytes = (tensor_bytes((q, tbl, q_pos, prefix_len)) + slots * per_slot
+              + kvp + out)
+    return 4 * H * D * slots, nbytes
 
 
 def flash_decode_launcher(q, k, v, kv_pos, q_pos, *, k_scale=None,
@@ -443,64 +555,38 @@ def flash_decode_launcher(q, k, v, kv_pos, q_pos, *, k_scale=None,
 
     Raises on a device, type, shape or layout the kernel does not take."""
     del block_kv
+    _require(q.is_cuda, "q must be a CUDA tensor")
+    c = _check_call(q, k, v, kv_pos, q_pos, k_scale=k_scale,
+                    v_scale=v_scale, kind=kind, prefix_len=prefix_len,
+                    block_tables=block_tables, n_splits=n_splits)
     dev = q.device
-    B, H, D, Hk = _common_checks(q, k, v, k_scale, v_scale, kind)
-    G = H // Hk
-    _require(kv_pos.dtype == torch.int32, "kv_pos must be int32")
+    B, Hk, G, D = c.B, c.Hk, c.G, c.D
     kv_type = _KV_TYPES[k.dtype]
-    paged = block_tables is not None
     tbl = block_tables
-    if paged:
-        layout = "paged"
-        nb, bs = k.shape[:2]
-        _require(tbl.dtype == torch.int32 and tbl.ndim == 2
-                 and tbl.shape[0] == B and tbl.shape[1] >= 1,
-                 "block_tables must be (B, T) int32")
-        T = tbl.shape[1]
-        _require(kv_pos.shape == (nb, bs), "kv_pos must be (n_blocks, bs)")
-        _require(T * bs < 2 ** 31 and nb * bs < 2 ** 31,
-                 "the table and the pool must hold under 2**31 slots")
-        resident = _max_clusters(layout, dev, kv_type, G, D)
-        n, _ = _paged_splits(B, Hk, T, bs, _sm_count(dev), n_splits,
+    layout = "paged" if c.paged else "ring"
+    resident = _max_clusters(layout, dev, kv_type, G, D)
+    if c.paged:
+        n, _ = _paged_splits(B, Hk, c.T, c.bs, _sm_count(dev), n_splits,
                              resident)
     else:
-        layout = "ring"
-        _require(k.shape[0] == B, "ring batch must match q")
-        S = k.shape[1]
-        _require(S >= 1, "the ring must hold a slot")
-        if kv_pos.ndim == 1:
-            _require(kv_pos.shape == (S,), "kv_pos must be (B, S) or (S,)")
-            kvp_stride = 0
-        else:
-            _require(kv_pos.shape == (B, S), "kv_pos must be (B, S) or (S,)")
-            kvp_stride = S
-        resident = _max_clusters(layout, dev, kv_type, G, D)
-        n, _ = _ring_splits(B, Hk, S, _sm_count(dev), n_splits, resident)
-    _check_tensors((q, k, v, kv_pos, tbl, k_scale, v_scale), dev)
-    qp = _scalar_or_rows(q_pos, B, dev, "q_pos")
-    pl = _scalar_or_rows(prefix_len, B, dev, "prefix_len")
-    if return_partials:
-        m = torch.empty((B, Hk, G, 1), dtype=torch.float32, device=dev)
-        l = torch.empty_like(m)
-        acc = torch.empty((B, Hk, G, D), dtype=torch.float32, device=dev)
-        out, outs = None, (m, l, acc)
-    else:
-        out = torch.empty_like(q)
-        m = l = acc = None
-        outs = out
+        n, _ = _ring_splits(B, Hk, c.S, _sm_count(dev), n_splits, resident)
+    qp, pl = c.qp, c.pl
+    out, m, l, acc = _outputs(c, q, return_partials)
+    outs = (m, l, acc) if return_partials else out
     head = (q.data_ptr(), int(q.dtype == torch.float32), k.data_ptr(),
             v.data_ptr(), _ptr(k_scale), _ptr(v_scale), kv_pos.data_ptr())
     where = (_ptr(qp[0]), qp[1], qp[2], _ptr(pl[0]), pl[1], pl[2], _ptr(out),
              _ptr(m), _ptr(l), _ptr(acc), B, Hk, G, D)
     tail = (n, _KINDS[kind], int(window), float(softcap), float(D ** -0.5),
             kv_type)
-    if paged:
+    if c.paged:
         name = "fd_flash_decode_paged"
-        args = (head + (tbl.data_ptr(), T, bs, nb, *_fast_divisor(bs))
+        args = (head + (tbl.data_ptr(), c.T, c.bs, c.nb,
+                        *_fast_divisor(c.bs))
                 + where + tail)
     else:
         name = "fd_flash_decode_ring"
-        args = head + (kvp_stride,) + where + (S,) + tail
+        args = head + (c.kvp_stride,) + where + (c.S,) + tail
     fn = _fn(name)
 
     def launch():
@@ -531,19 +617,15 @@ def flash_decode_cuda(q, k, v, kv_pos, q_pos, **kw):
     return out
 
 
-def paged_block_copy_leaves_cuda(leaves, src: int, dst: int):
-    """The CUDA block-copy kernel: block ``src`` -> ``dst`` in every layer
-    of each layer-stacked pool leaf ``(L, n_blocks, ...)``, in place, in one
-    launch (at most ``MAX_COPY_LEAVES`` leaves)."""
-    leaves = list(leaves)
+def _check_copy(leaves, src: int, dst: int) -> None:
+    """The block copy kernel's argument checks (no card needed)."""
     n = len(leaves)
     if not 1 <= n <= MAX_COPY_LEAVES:
         raise ValueError(f"block copy kernel: 1 to {MAX_COPY_LEAVES} "
                          f"leaves, got {n}")
-    src, dst = int(src), int(dst)
     dev = leaves[0].device
     for leaf in leaves:
-        if not leaf.is_cuda or leaf.device != dev:
+        if not on_card(leaf) or leaf.device != dev:
             raise ValueError("block copy kernel: leaves must be CUDA "
                              "tensors on one device")
         if leaf.ndim < 2 or not leaf.is_contiguous():
@@ -553,6 +635,36 @@ def paged_block_copy_leaves_cuda(leaves, src: int, dst: int):
         if not (0 <= src < nb and 0 <= dst < nb):
             raise ValueError(f"block copy kernel: src {src} / dst {dst} "
                              f"outside [0, {nb})")
+
+
+def paged_block_copy_leaves_shape(leaves, src: int, dst: int):
+    """The block copy's shape rule: its checks; the leaves, unchanged (the
+    kernel writes them in place)."""
+    leaves = list(leaves)
+    _check_copy(leaves, int(src), int(dst))
+    return leaves
+
+
+def paged_block_copy_cost(leaves, src: int = 0, dst: int = 0):
+    """``(flops, bytes)`` of one event: no products; every layer's block
+    of every leaf read once and written once."""
+    del src, dst
+    return 0, sum(2 * leaf.shape[0] * math.prod(leaf.shape[2:])
+                  * leaf.element_size() for leaf in leaves)
+
+
+def paged_block_copy_leaves_cuda(leaves, src: int, dst: int):
+    """The CUDA block-copy kernel: block ``src`` -> ``dst`` in every layer
+    of each layer-stacked pool leaf ``(L, n_blocks, ...)``, in place, in one
+    launch (at most ``MAX_COPY_LEAVES`` leaves)."""
+    leaves = list(leaves)
+    n = len(leaves)
+    src, dst = int(src), int(dst)
+    if n and not leaves[0].is_cuda:
+        raise ValueError("block copy kernel: leaves must be CUDA tensors on "
+                         "one device")
+    _check_copy(leaves, src, dst)
+    dev = leaves[0].device
     bases = (_P * n)(*(leaf.data_ptr() for leaf in leaves))
     layers = (_I * n)(*(leaf.shape[0] for leaf in leaves))
     n_blocks = (_LL * n)(*(leaf.shape[1] for leaf in leaves))

@@ -28,7 +28,9 @@ dequantizes and leaves the product to ``torch.matmul``.
 ``repro_torch.kernels.ops.qlora_matmul`` dispatches to it.  ``LAUNCHES``
 counts the kernel's launches, added where the wrapper launches and nowhere
 else; ``qlora_matmul_launcher`` is the wrapper without its count, to time
-the bare kernel.
+the bare kernel.  ``qlora_matmul_shape`` is its shape rule (the checks,
+then the output, with no card query: for the dry run's fake tensors) and
+``qlora_matmul_cost`` its cost rule.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import torch
 
 from repro_torch.core.quant import code_book, nf4_dequant
 from repro_torch.kernels.build import library
+from repro_torch.obs.cost import on_card, tensor_bytes
 
 LAUNCHES: Dict[str, int] = {"qlora_matmul": 0}
 
@@ -95,15 +98,9 @@ def _lib():
     return fn
 
 
-def qlora_matmul_launcher(x, w_nf4, absmax, lora_a, lora_b, lora_scale):
-    """Check the arguments and allocate the output.
-
-    Returns ``(launch, y)``: ``launch()`` runs the kernel on the current
-    stream into ``y``, raises when the launch fails, and counts nothing.
-    ``lora_scale`` goes to the kernel by value (a tensor is read once,
-    here).  Raises on a device, type, shape or layout the kernel does not
-    take."""
-    _require(x.is_cuda, "x must be a CUDA tensor")
+def _check(x, w_nf4, absmax, lora_a, lora_b):
+    """The kernel's argument checks (no card needed); ``_shapes``' tuple."""
+    _require(on_card(x), "x must be a CUDA tensor")
     M, N, K, r, qblock = _shapes(x, w_nf4, absmax, lora_a, lora_b)
     _require(x.dtype in (torch.float32, torch.bfloat16), "x must be f32/bf16")
     _require(w_nf4.dtype == torch.uint8, "w_nf4 must be u8")
@@ -113,6 +110,37 @@ def qlora_matmul_launcher(x, w_nf4, absmax, lora_a, lora_b, lora_scale):
         _require(t.device == x.device, "all tensors on x's device")
     for t in (x, w_nf4, absmax, lora_a, lora_b):
         _require(t.is_contiguous(), "tensors must be contiguous")
+    return M, N, K, r, qblock
+
+
+def qlora_matmul_shape(x, w_nf4, absmax, lora_a, lora_b, lora_scale):
+    """The shape rule: the kernel's checks, then its (M, N) output in x's
+    type, unwritten."""
+    del lora_scale
+    M, N, _, _, _ = _check(x, w_nf4, absmax, lora_a, lora_b)
+    return torch.empty((M, N), dtype=x.dtype, device=x.device)
+
+
+def qlora_matmul_cost(x, w_nf4, absmax, lora_a, lora_b, lora_scale):
+    """``(flops, bytes)`` of one call: the three products, 2 M K N + 2 M K r
+    + 2 M r N; every input read once and y written once."""
+    del lora_scale
+    (M, K), r, N = x.shape, lora_a.shape[-1], 2 * w_nf4.shape[-1]
+    y = M * N * x.element_size()
+    return (2 * M * K * N + 2 * M * K * r + 2 * M * r * N,
+            tensor_bytes((x, w_nf4, absmax, lora_a, lora_b)) + y)
+
+
+def qlora_matmul_launcher(x, w_nf4, absmax, lora_a, lora_b, lora_scale):
+    """Check the arguments and allocate the output.
+
+    Returns ``(launch, y)``: ``launch()`` runs the kernel on the current
+    stream into ``y``, raises when the launch fails, and counts nothing.
+    ``lora_scale`` goes to the kernel by value (a tensor is read once,
+    here).  Raises on a device, type, shape or layout the kernel does not
+    take."""
+    _require(x.is_cuda, "x must be a CUDA tensor")
+    M, N, K, r, qblock = _check(x, w_nf4, absmax, lora_a, lora_b)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     code = code_book(x.device)
     xvec = int(K % (16 // x.element_size()) == 0 and x.data_ptr() % 16 == 0)

@@ -26,8 +26,9 @@ The port runs SPMD: these functions run in every rank of a
 ``byte_ledger`` receives ``(axis, nbytes)`` for every transfer (codes and
 scales summed), the measured side of the byte agreement with
 ``ring_wire_plan``; each hop's transfer and arithmetic run inside an
-``obs`` span named as the reference's scope,
-``obs.ring.<axis>.d<dir>.rs_hop<h>`` / ``ag_hop<h>``.
+``obs`` span and an ``obs.cost.scope`` named as the reference's scope,
+``obs.ring.<axis>.d<dir>.rs_hop<h>`` / ``ag_hop<h>``, so a cost counter
+files each hop's bytes, kernel and transfer under it.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import obs
+from repro_torch.obs import cost
 from repro_torch.core.comm import ring_wire_plan, wire_format, wire_qblock
 from repro_torch.dist.collectives import axis_index, axis_size, ppermute
 from repro_torch.kernels.wire_hop import dequant_chunk, fused_hop
@@ -93,7 +95,8 @@ def _ring_one_axis(flat, mesh, axis: str, n: int, *, wire: str, qblock: int,
                 wire=wire, qblock=qblock)
             _set_chunk(rsd, s_idx(0), r_new, c)
         for h in range(n - 1):
-            with obs.span(f"obs.ring.{axis}.d{d}.rs_hop{h}"):
+            name = f"obs.ring.{axis}.d{d}.rs_hop{h}"
+            with obs.span(name), cost.scope(name):
                 _ledger_add(byte_ledger, axis, codes, scales)
                 codes, scales = ppermute((codes, scales), mesh, axis, sgn)
                 r_idx = s_idx(h + 1)
@@ -114,7 +117,8 @@ def _ring_one_axis(flat, mesh, axis: str, n: int, *, wire: str, qblock: int,
         _set_chunk(outd, own, codes if wire == "f32" else dequant_chunk(
             codes, scales, wire=wire, qblock=qblock), c)
         for h in range(n - 1):
-            with obs.span(f"obs.ring.{axis}.d{d}.ag_hop{h}"):
+            name = f"obs.ring.{axis}.d{d}.ag_hop{h}"
+            with obs.span(name), cost.scope(name):
                 _ledger_add(byte_ledger, axis, codes, scales)
                 codes, scales = ppermute((codes, scales), mesh, axis, sgn)
                 # the chunk owned by my (h+1)-away upstream neighbour

@@ -12,7 +12,10 @@ As in the reference, no model path calls this kernel: the port's norms
 (``models/layers/norms.py``) are plain PyTorch.  ``repro_torch.kernels.ops.
 rmsnorm`` dispatches to it.  ``LAUNCHES`` counts the kernel's launches,
 added where the wrapper launches and nowhere else; ``rmsnorm_launcher`` is
-the wrapper without its count, to time the bare kernel.
+the wrapper without its count, to time the bare kernel.  ``rmsnorm_shape``
+is its shape rule (the checks, then the output, with no card query: for
+the dry run's fake tensors) and ``rmsnorm_cost`` its cost rule (no
+products; x and scale read once, y written once).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Dict, NamedTuple
 import torch
 
 from repro_torch.kernels.build import library
+from repro_torch.obs.cost import on_card, tensor_bytes
 
 LAUNCHES: Dict[str, int] = {"rmsnorm": 0}
 
@@ -107,14 +111,9 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"rmsnorm kernel: {msg}")
 
 
-def rmsnorm_launcher(x, scale, eps: float = 1e-6, layout: Layout = None):
-    """Check the arguments and allocate the output.
-
-    Returns ``(launch, y)``: ``launch()`` runs the kernel on the current
-    stream into ``y``, raises when the launch fails, and counts nothing.
-    Raises on a device, type or shape the kernel does not take.
-    ``layout`` overrides ``rmsnorm_layout``'s choice (to time others)."""
-    _require(x.is_cuda, "x must be a CUDA tensor")
+def _check(x, scale) -> int:
+    """The kernel's argument checks (no card needed); returns d."""
+    _require(on_card(x), "x must be a CUDA tensor")
     _require(x.dtype in _TYPES and scale.dtype in _TYPES,
              "x and scale must be f32 or bf16")
     _require(x.ndim >= 1 and x.numel() > 0, "x must be a non-empty (..., d)")
@@ -126,6 +125,33 @@ def rmsnorm_launcher(x, scale, eps: float = 1e-6, layout: Layout = None):
     _require(scale.device == x.device, "scale on x's device")
     _require(x.is_contiguous() and scale.is_contiguous(),
              "x and scale must be contiguous")
+    return d
+
+
+def rmsnorm_shape(x, scale, eps: float = 1e-6):
+    """The shape rule: the kernel's checks, then its output, unwritten."""
+    del eps
+    _check(x, scale)
+    return torch.empty_like(x)
+
+
+def rmsnorm_cost(x, scale, eps: float = 1e-6):
+    """``(flops, bytes)`` of one call: no products; x and scale read once,
+    y written once."""
+    del eps
+    return 0, 2 * tensor_bytes(x) + tensor_bytes(scale)
+
+
+def rmsnorm_launcher(x, scale, eps: float = 1e-6, layout: Layout = None):
+    """Check the arguments and allocate the output.
+
+    Returns ``(launch, y)``: ``launch()`` runs the kernel on the current
+    stream into ``y``, raises when the launch fails, and counts nothing.
+    Raises on a device, type or shape the kernel does not take.
+    ``layout`` overrides ``rmsnorm_layout``'s choice (to time others)."""
+    _require(x.is_cuda, "x must be a CUDA tensor")
+    d = _check(x, scale)
+    per_chunk = 16 // x.element_size()
     y = torch.empty_like(x)
     rows = x.numel() // d
     lay = layout or rmsnorm_layout(rows, d, x.element_size(),

@@ -17,10 +17,13 @@ bit, and so does the reference's own host-loop path (``_hop_jnp`` as
 that takes.
 
 ``fused_hop`` dispatches: a CPU tensor takes ``fused_hop_ref``, a CUDA
-tensor the kernel, which launches or raises.  ``LAUNCHES`` counts the
-kernel's launches per wire, added where the wrapper launches and nowhere
-else; ``wire_hop_launcher`` is the wrapper without its count, to time the
-bare kernel.
+tensor the kernel, which launches or raises, and a fake tensor (the dry
+run's) ``wire_hop_shape``, the kernel's checks and outputs with no card
+query.  Under a cost counter (``repro_torch.obs.cost``) a hop counts at
+``wire_hop_cost``, in the ring hop's ``obs.ring.*`` scope.  ``LAUNCHES``
+counts the kernel's launches per wire, added where the wrapper launches
+and nowhere else; ``wire_hop_launcher`` is the wrapper without its count,
+to time the bare kernel.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels.build import library
+from repro_torch.obs.cost import aligned16, on_card, run_kernel, \
+    tensor_bytes
 
 LAUNCHES: Dict[str, int] = {"wire_hop_int8": 0, "wire_hop_bf16": 0}
 
@@ -120,16 +125,11 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def wire_hop_launcher(acc, codes, scales, res, *, wire: str, qblock: int):
-    """Check the arguments and allocate the outputs.
-
-    Returns ``(launch, (acc', codes', scales', res'))``: ``launch()`` runs
-    the kernel on the current stream into those outputs, raises when the
-    launch fails, and counts nothing.  ``codes=None`` is the quantize-only
-    form.  Raises on a device, type, shape or layout the kernel does not
-    take."""
+def _check(acc, codes, scales, res, *, wire: str, qblock: int):
+    """The kernel's argument checks (no card needed): ``(rows, the input
+    tensors)``."""
     _require(wire in _WIRES, f"wire must be one of {_WIRES}, not {wire!r}")
-    _require(acc.is_cuda, "acc must be a CUDA tensor")
+    _require(on_card(acc), "acc must be a CUDA tensor")
     dev = acc.device
     n = acc.numel()
     _require(qblock in _KERNEL_QBLOCKS,
@@ -154,12 +154,48 @@ def wire_hop_launcher(acc, codes, scales, res, *, wire: str, qblock: int):
     for t in tensors:
         _require(t.device == dev, "all tensors on acc's device")
         _require(t.is_contiguous(), "tensors must be contiguous")
-        _require(t.data_ptr() % 16 == 0, "tensors must be 16B aligned")
-    oacc = torch.empty_like(acc)
-    ores = torch.empty_like(acc)
-    ocodes = torch.empty(acc.shape, dtype=_CODE_DTYPES[wire], device=dev)
-    oscales = (torch.empty((rows,), dtype=torch.float32, device=dev)
-               if int8 else None)
+        _require(aligned16(t), "tensors must be 16B aligned")
+    return rows, tensors
+
+
+def _outputs(acc, rows: int, wire: str):
+    oscales = (torch.empty((rows,), dtype=torch.float32, device=acc.device)
+               if wire == "int8" else None)
+    return (torch.empty_like(acc),
+            torch.empty(acc.shape, dtype=_CODE_DTYPES[wire],
+                        device=acc.device),
+            oscales, torch.empty_like(acc))
+
+
+def wire_hop_shape(acc, codes, scales, res, *, wire: str, qblock: int):
+    """The shape rule: the kernel's checks, then its outputs ``(acc',
+    codes', scales', res')``, unwritten."""
+    rows, _ = _check(acc, codes, scales, res, wire=wire, qblock=qblock)
+    return _outputs(acc, rows, wire)
+
+
+def wire_hop_cost(acc, codes, scales, res, *, wire: str, qblock: int):
+    """``(flops, bytes)`` of one hop: no products; every input read once,
+    every output (acc', codes', scales', res') written once."""
+    rows = acc.numel() // qblock
+    out = (2 * tensor_bytes(acc) + acc.numel() * _CODE_DTYPES[wire].itemsize
+           + (rows * 4 if wire == "int8" else 0))
+    return 0, tensor_bytes((acc, codes, scales, res)) + out
+
+
+def wire_hop_launcher(acc, codes, scales, res, *, wire: str, qblock: int):
+    """Check the arguments and allocate the outputs.
+
+    Returns ``(launch, (acc', codes', scales', res'))``: ``launch()`` runs
+    the kernel on the current stream into those outputs, raises when the
+    launch fails, and counts nothing.  ``codes=None`` is the quantize-only
+    form.  Raises on a device, type, shape or layout the kernel does not
+    take."""
+    _require(acc.is_cuda, "acc must be a CUDA tensor")
+    rows, tensors = _check(acc, codes, scales, res, wire=wire,
+                           qblock=qblock)
+    dev, int8 = acc.device, wire == "int8"
+    oacc, ocodes, oscales, ores = _outputs(acc, rows, wire)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     grid = min(-(-rows // 8), sms * _RESIDENT_BLOCKS_PER_SM)
     fn = _hop_lib()
@@ -196,7 +232,6 @@ def fused_hop(acc, codes, scales, res, *, wire: str, qblock: int):
     absmax scales (int8 wire only, else None).  Returns (new_acc,
     send_codes, send_scales, new_res); ``codes=None`` is the quantize-only
     form (nothing received yet: encode the local value)."""
-    if acc.device.type == "cpu":
-        return fused_hop_ref(acc, codes, scales, res, wire=wire,
-                             qblock=qblock)
-    return fused_hop_cuda(acc, codes, scales, res, wire=wire, qblock=qblock)
+    return run_kernel(None, wire_hop_cost, wire_hop_shape, fused_hop_ref,
+                      fused_hop_cuda, acc, acc, codes, scales, res,
+                      wire=wire, qblock=qblock)

@@ -14,6 +14,8 @@ the continuous-batching engine, with their request traces.
 ``repro_torch.launch.train`` -- the training launcher: full fine-tuning or
 the federated LoRA step on Markov tokens, on one rank or a mesh of ranks.
 
-Not ported yet: the dry run and its cost model (``dryrun.py``,
-``specs.py``, ``hlo_cost.py``).
+``repro_torch.launch.dryrun`` -- the dry run: rank 0's step of a fake
+256- or 512-rank world on fake tensors (``specs.dryrun_args``), counted
+by the step cost model (``obs.cost.CostCounter``: FLOPs, bytes,
+collectives, live memory) into ``experiments/dryrun_torch/``.
 """

@@ -25,6 +25,7 @@ Nothing here touches ``torch.distributed`` at import time.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import pickle
@@ -61,6 +62,37 @@ def make_mesh(shape: Sequence[int], names: Sequence[str],
                          f"{math.prod(shape)} ranks; the group has "
                          f"{dist.get_world_size()}")
     return init_device_mesh(device_type, shape, mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The reference's production mesh over the running group: ``(data
+    16, model 16)``, or with ``multi_pod`` ``(pod 2, data 16, model 16)``
+    (``PRODUCTION_MESH_SHAPES``); the group must hold 256 or 512 ranks, a
+    ``dry_world`` of them in the dry run."""
+    shape = PRODUCTION_MESH_SHAPES["multi" if multi_pod else "single"]
+    return make_mesh(tuple(shape.values()), tuple(shape), device_type)
+
+
+@contextlib.contextmanager
+def dry_world(world: int):
+    """A fake group of ``world`` ranks with this process as rank 0, for the
+    dry run: ``torch.distributed``'s ``fake`` backend, whose collectives
+    return at once and move nothing, so one process runs rank 0's step of
+    a 256- or 512-rank world.  Refuses to start while another group is
+    running, and always destroys its own on exit.  Rank 0 holds block 0
+    on every axis."""
+    if dist.is_initialized():
+        raise RuntimeError("dry_world: a process group is already running "
+                           "in this process; a dry world needs none")
+    # importing it registers the ``fake`` backend's process group
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401
+    dist.init_process_group("fake", store=dist.HashStore(), rank=0,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def make_host_mesh(*, model: int = 1, device_type: str = "cuda"):

@@ -23,6 +23,14 @@ with no mesh.
 ``--trace-out PATH`` writes the ``repro_torch.obs`` timeline (a
 ``train.step`` span a step, the ``train.loss`` gauge, device-memory
 watermarks) as Chrome trace-event JSON for Perfetto / chrome://tracing.
+
+``--scope-costs`` first runs one step on fakes of the run's own
+parameters, moments and batch (``launch.hlo_cost``: nothing is computed or
+allocated, and the real parameters are untouched) and prints its FLOPs
+and bytes by ``obs.*`` scope, ordered by FLOPs, as the reference prints
+its compiled step's; then it trains.  It counts a one-rank step: under a
+process group it is refused, since the step's collectives would meet
+fakes.
 """
 
 from __future__ import annotations
@@ -84,8 +92,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="write the repro_torch.obs span timeline as Chrome "
                          "trace-event JSON (Perfetto / chrome://tracing)")
     ap.add_argument("--scope-costs", action="store_true",
-                    help="not ported: the compiled step's per-scope cost "
-                         "attribution comes with the dry run")
+                    help="print one step's FLOPs and bytes by obs.* scope "
+                         "(counted on fakes) before training")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
@@ -181,14 +189,30 @@ def _join_group(dev: torch.device) -> bool:
     return True
 
 
+def print_scope_costs(cfg, params, opt_state, step_fn, *, batch: int,
+                      seq: int, log: Callable[[str], None] = print) -> dict:
+    """One step of ``step_fn`` on fakes of ``params``, ``opt_state`` and a
+    ``batch`` x ``seq`` batch, under the cost counter: logs the reference's
+    per-scope table (scope, FLOPs, share of the step's, bytes; by FLOPs)
+    and returns the scope costs."""
+    from repro_torch.launch.dryrun import measure
+    from repro_torch.launch.specs import fake_mode, fakes_like
+    rows = {k: torch.empty(shp, dtype=dt, device="meta") for k, (shp, dt)
+            in train_batch_shapes(cfg, batch, seq).items()}
+    args = fakes_like((params, opt_state, rows), fake_mode()) + (0,)
+    counter, _ = measure(step_fn, args)
+    costs = obs.devmem.scope_costs(counter)
+    total = sum(v["flops"] for v in costs.values()) or 1.0
+    log("per-scope cost attribution (one step, counted on fakes):")
+    for scope, v in sorted(costs.items(), key=lambda kv: -kv[1]["flops"]):
+        log(f"  {scope:<28} flops={v['flops']:.3e} "
+            f"({v['flops'] / total:5.1%})  bytes={v['bytes']:.3e}")
+    return costs
+
+
 def run(args: argparse.Namespace) -> TrainRun:
     """The launcher's run for parsed ``args`` (``parse_args``), in this
     process: on a mesh of the running group's ranks, else on one."""
-    if args.scope_costs:
-        raise SystemExit("--scope-costs: the per-scope cost attribution of "
-                         "the compiled step comes with the dry run "
-                         "(launch/hlo_cost.py, obs.devmem.scope_costs), "
-                         "which is not ported yet")
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -207,11 +231,18 @@ def run(args: argparse.Namespace) -> TrainRun:
             log(f"arch={cfg.name} device={dev} ranks="
                 f"{dist.get_world_size() if mesh is not None else 1} "
                 f"mesh={shape}")
+        if args.scope_costs and mesh is not None:
+            raise SystemExit("--scope-costs counts a one-rank step; under a "
+                             "process group its collectives would meet "
+                             "fakes")
         params, opt, step_fn = setup(cfg, fed=args.fed, lr=args.lr,
                                      seed=args.seed, device=dev, mesh=mesh)
         if log:
             n = sum(x.numel() for x in tree_util.leaves(params))
             log(f"params: {n / 1e6:.1f}M")
+        if args.scope_costs:
+            print_scope_costs(cfg, params, opt, step_fn, batch=args.batch,
+                              seq=args.seq, log=log)
         out = train(cfg, params, opt, step_fn, steps=args.steps,
                     batch=args.batch, seq=args.seq, device=dev, mesh=mesh,
                     log=log)

@@ -93,7 +93,8 @@ def _scores(q, k, softcap: float):
 
 def sdpa(q, k, v, *, q_pos, kv_pos, kind: str = "causal", window: int = 0,
          prefix_len=None, softcap: float = 0.0, block_q: int = 0,
-         block_kv: int = 0, k_scale=None, v_scale=None):
+         block_kv: int = 0, k_scale=None, v_scale=None,
+         arange: bool = False):
     """Scaled dot-product attention with f32 scores and softmax.
 
     q: (B, Sq, H, D); k, v: (B, Skv, Hk, D); returns (B, Sq, H, D) in
@@ -103,7 +104,10 @@ def sdpa(q, k, v, *, q_pos, kv_pos, kind: str = "causal", window: int = 0,
     tensor is built.  Ragged tails are padded with position -1 (masked;
     padded Q rows are sliced off).  ``k_scale``/``v_scale`` ((B, Skv, Hk,
     1)) mark int8 k/v, dequantized one KV block at a time.  A fully masked
-    row gives exactly 0 on both paths.
+    row gives exactly 0 on both paths.  ``arange`` says that ``q_pos`` and
+    ``kv_pos`` are both ``arange(S)`` (the trunk's own positions): the
+    blockwise path then reads its causal skip table off the shapes instead
+    of the positions, with no host read.
 
     Plain PyTorch on every device: the reference computes this in plain
     jnp, outside any Pallas kernel.
@@ -116,7 +120,7 @@ def sdpa(q, k, v, *, q_pos, kv_pos, kind: str = "causal", window: int = 0,
     if block_kv > 0 and k.shape[1] > block_kv:
         return _sdpa_blockwise(q, k, v, q_pos, kv_pos, kind, window,
                                prefix_len, softcap, block_q, block_kv,
-                               k_scale, v_scale)
+                               k_scale, v_scale, arange)
     if k_scale is not None:
         k = _dequant_kv(k, k_scale, q.dtype)
         v = _dequant_kv(v, v_scale, q.dtype)
@@ -131,14 +135,22 @@ def sdpa(q, k, v, *, q_pos, kv_pos, kind: str = "causal", window: int = 0,
     return o.reshape(B, Sq, H, D)
 
 
-def _causal_live_blocks(q_pos, kv_pos, kind, block_q, block_kv):
+def _causal_live_blocks(q_pos, kv_pos, kind, block_q, block_kv,
+                        arange_len: int = 0):
     """Under the causal mask, ``live[i][j]`` is False where no query of Q
     block i sees a slot of KV block j (every valid slot lies after the Q
     block's last position, or there is none): such a block is an exact
     no-op of the online softmax (p = 0, corr = 1), so skipping it changes
-    no bit.  One host read of the positions; None for other kinds."""
+    no bit.  One host read of the positions; none where they are
+    ``arange(arange_len)`` on both sides, padded with -1: Q block i's last
+    position is then ``min(S, (i + 1) block_q) - 1`` and KV block j's
+    first ``j block_kv``.  None for other kinds."""
     if kind != "causal":
         return None
+    if arange_len:
+        return [[j * block_kv <= min(arange_len, (i + 1) * block_q) - 1
+                 for j in range(kv_pos.shape[1] // block_kv)]
+                for i in range(q_pos.shape[1] // block_q)]
     B = q_pos.shape[0]
     q_last = q_pos.reshape(B, -1, block_q).amax(dim=(0, 2))
     none = torch.iinfo(kv_pos.dtype).max
@@ -148,7 +160,8 @@ def _causal_live_blocks(q_pos, kv_pos, kind, block_q, block_kv):
 
 
 def _sdpa_blockwise(q, k, v, q_pos, kv_pos, kind, window, prefix_len,
-                    softcap, block_q, block_kv, k_scale, v_scale):
+                    softcap, block_q, block_kv, k_scale, v_scale,
+                    arange=False):
     B, Sq, H, D = q.shape
     Hk = k.shape[2]
     G = H // Hk
@@ -168,7 +181,8 @@ def _sdpa_blockwise(q, k, v, q_pos, kv_pos, kind, window, prefix_len,
     Sq_pad, Skv_pad = q.shape[1], k.shape[1]
     qg = q.reshape(B, Sq_pad, Hk, G, D)
     out = torch.empty((B, Sq_pad, Hk, G, D), dtype=q.dtype, device=q.device)
-    live = _causal_live_blocks(q_pos, kv_pos, kind, block_q, block_kv)
+    live = _causal_live_blocks(q_pos, kv_pos, kind, block_q, block_kv,
+                               Sq if arange else 0)
     for i in range(0, Sq_pad, block_q):
         qb, qpb = qg[:, i:i + block_q], q_pos[:, i:i + block_q]
         m_run = torch.full((B, Hk, G, block_q), _NEG_INF, device=q.device)
@@ -217,12 +231,15 @@ def _project_qkv(params, cfg, x, positions):
 def attention(params, cfg, x, *, positions, kind: str = "causal",
               window: int = 0, prefix_len=None, block_q: int = 0,
               block_kv: int = 0, return_kv: bool = False):
-    """Full-sequence self-attention. x: (B, S, d) -> (B, S, d)."""
+    """Full-sequence self-attention. x: (B, S, d) -> (B, S, d).
+    ``positions`` is ``arange(S)``, as every caller builds it, so the
+    blockwise path reads its causal skip table off the shapes (``sdpa``'s
+    ``arange``)."""
     q, k, v = _project_qkv(params, cfg, x, positions)
     o = sdpa(q, k, v, q_pos=positions, kv_pos=positions, kind=kind,
              window=window, prefix_len=prefix_len,
              softcap=cfg.attn_logit_softcap, block_q=block_q,
-             block_kv=block_kv)
+             block_kv=block_kv, arange=True)
     B, S = x.shape[0], x.shape[1]
     y = dense(params["wo"], o.reshape(B, S, -1))
     if return_kv:

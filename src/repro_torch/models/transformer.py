@@ -223,21 +223,26 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos, *,
 
 def _scatter_ring(k, v, positions, cache_len: int, lo: int = 0,
                   size: int = 0):
-    """k, v: (B, S, Hk, dh) post-RoPE -> ring cache of ``cache_len`` slots
-    holding the last ``cache_len`` positions (int8 when REPRO_KV_INT8).
-    With ``size`` < ``cache_len`` only the stripe of global slots ``[lo, lo
-    + size)`` is built (a rank's own piece of a ring sharded over
-    ``model``)."""
+    """k, v: (B, S, Hk, dh) post-RoPE at ``positions`` = ``arange(S)`` ->
+    ring cache of ``cache_len`` slots holding the last ``cache_len``
+    positions (int8 when REPRO_KV_INT8).  With ``size`` < ``cache_len``
+    only the stripe of global slots ``[lo, lo + size)`` is built (a rank's
+    own piece of a ring sharded over ``model``); which positions land on
+    it follows from the lengths alone, with no host read."""
     B, S = k.shape[:2]
     take = min(S, cache_len)
-    pos_tail = positions[-take:]
-    slots = torch.remainder(pos_tail, cache_len).long()
     if 0 < size < cache_len:
-        src = torch.arange(S - take, S, device=k.device)
-        mine = (slots >= lo) & (slots < lo + size)
-        slots, src, pos_tail = slots[mine] - lo, src[mine], pos_tail[mine]
+        src = torch.cat([torch.arange(a, b, device=k.device)
+                         for a, b in _stripe_runs(S, take, cache_len, lo,
+                                                  size)]
+                        or [torch.zeros(0, dtype=torch.long,
+                                        device=k.device)])
+        pos_tail = positions.index_select(0, src)
+        slots = torch.remainder(pos_tail, cache_len).long() - lo
         k, v, cache_len = k[:, src], v[:, src], size
     else:
+        pos_tail = positions[-take:]
+        slots = torch.remainder(pos_tail, cache_len).long()
         k, v = k[:, S - take:], v[:, S - take:]
 
     def scatter(val):
@@ -254,6 +259,20 @@ def _scatter_ring(k, v, positions, cache_len: int, lo: int = 0,
         return {"k": scatter(kq), "v": scatter(vq), "k_scale": scatter(ks),
                 "v_scale": scatter(vs), "kv_pos": cp}
     return {"k": scatter(k), "v": scatter(v), "kv_pos": cp}
+
+
+def _stripe_runs(S: int, take: int, cache_len: int, lo: int, size: int):
+    """The positions of ``[S - take, S)`` whose ring slot (position mod
+    ``cache_len``) lies in ``[lo, lo + size)``, as increasing ``(start,
+    stop)`` runs: one for each lap of the ring the positions span."""
+    first = S - take
+    runs = []
+    for lap in range(first // cache_len, (S - 1) // cache_len + 1):
+        a = max(first, lap * cache_len + lo)
+        b = min(S, lap * cache_len + lo + size)
+        if a < b:
+            runs.append((a, b))
+    return runs
 
 
 def _finalize_prefill(params, cfg: ModelConfig, x, cache, true_len):

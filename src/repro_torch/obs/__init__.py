@@ -21,8 +21,10 @@ keeps the last ``REPRO_FLIGHT_CAP`` events and ``REPRO_FLIGHT_OUT=f.json``
 arms post-mortem dumps (atexit / unhandled exception / engine distress);
 ``REPRO_FLIGHT=0`` disables that last layer too.
 
-The reference's ``bench_gate`` (benchmark provenance) and its HLO scope
-costs are not part of the port's layer.
+The step cost counter, its ``obs.*`` scopes and the kernels' dispatch
+hook live in ``obs.cost`` (per-scope costs: ``obs.devmem.scope_costs``).
+The reference's ``bench_gate`` (benchmark provenance) is not part of the
+port's layer.
 """
 
 from repro_torch.obs import devmem, fleet

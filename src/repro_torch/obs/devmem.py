@@ -1,4 +1,5 @@
-"""Device-memory watermarks on the card's caching allocator.
+"""Device-memory watermarks on the card's caching allocator, and the
+per-scope cost attribution of a step.
 
 :func:`memory_snapshot` reads ``torch.cuda.memory_stats`` (bytes held by
 live tensors now and at peak, the allocations behind them) and the card's
@@ -9,6 +10,15 @@ of it synchronizes the card: the allocator keeps its counts on the host.
 
 Where there is no card (a CPU run) every number is 0: PyTorch keeps no
 allocator statistics for host tensors.
+
+**Which scope is the cost?**  The reference stamps ``jax.named_scope(
+"obs.*")`` around every kernel dispatch and ring hop and re-parses the
+compiled HLO to bucket its costs by scope.  The port marks the same
+places with ``obs.cost.scope(name)``, and the cost counter
+(``obs.cost.CostCounter``) files each op it counts under the innermost
+open name: ``scope_costs`` reads those buckets, and
+``compiled_scope_costs`` runs a step once under a counter (the port
+compiles nothing, so "compiled" is the reference's name only).
 """
 
 from __future__ import annotations
@@ -17,7 +27,10 @@ from typing import Dict
 
 import torch
 
-__all__ = ["memory_snapshot", "peak_bytes", "watermark"]
+from repro_torch.obs.cost import CostCounter
+
+__all__ = ["memory_snapshot", "peak_bytes", "watermark", "scope_costs",
+           "compiled_scope_costs"]
 
 
 def _cuda_index(device):
@@ -77,3 +90,25 @@ def watermark(tag: str, device=None) -> Dict[str, int]:
     if snap["peak_bytes_in_use"]:
         obs.gauge(f"devmem.{tag}.peak_bytes", float(snap["peak_bytes_in_use"]))
     return snap
+
+
+# -- per-scope cost attribution ----------------------------------------------
+
+def scope_costs(counter) -> Dict[str, Dict[str, float]]:
+    """``{scope: {"flops", "bytes", "ops"}}`` of a counter's record
+    (``obs.cost.CostCounter``): each op's FLOPs and
+    bytes under the innermost ``obs.*`` scope open when it ran, a kernel at
+    its own cost rule under its own scope, the rest under
+    ``obs.cost.UNSCOPED``."""
+    return {k: dict(v) for k, v in counter.scopes.items()}
+
+
+def compiled_scope_costs(step, *args,
+                         **kwargs) -> Dict[str, Dict[str, float]]:
+    """The scope costs of one call ``step(*args, **kwargs)``, run under a
+    fresh counter (on fake tensors it costs no device work).  The
+    reference reads them from a compiled step's HLO; the port compiles
+    nothing, so it runs the step.  The call's result is dropped."""
+    with CostCounter() as counter:
+        step(*args, **kwargs)
+    return scope_costs(counter)

@@ -67,7 +67,7 @@ from repro_torch import tree as tree_util
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import lora
 from repro_torch.data import tokens
-from repro_torch.launch import steps, train
+from repro_torch.launch import hlo_cost, steps, train
 from repro_torch.models import losses, registry, transformer
 from repro_torch.optim.adamw import adamw_init
 
@@ -432,7 +432,7 @@ def test_launcher_main_on_cpu(fed, tmp_path, monkeypatch, capsys):
     assert trace["metadata"]["provenance"]["fed"] is fed
 
 
-def test_launcher_run_moments_and_refusals():
+def test_launcher_run_moments_and_refusals(capsys):
     args = train.parse_args(["--device", "cpu", "--steps", "2", "--batch",
                              "2", "--seq", "16", "--fed", "--arch",
                              "qwen3-0.6b"])
@@ -443,6 +443,27 @@ def test_launcher_run_moments_and_refusals():
     for m in ("mu", "nu"):          # moments of the adapter tree only
         assert [tuple(x.shape) for x in tree_util.leaves(out.opt_state[m])] \
             == [tuple(x.shape) for x in tree_util.leaves(ad)]
-    with pytest.raises(SystemExit) as e:
-        train.main(["--device", "cpu", "--scope-costs"])
-    assert "not ported" in str(e.value)
+    capsys.readouterr()
+    # --scope-costs prints one step's per-scope table (counted on fakes of
+    # the run's own trees), then trains
+    train.main(["--device", "cpu", "--scope-costs", "--steps", "2",
+                "--batch", "2", "--seq", "16"])
+    text = capsys.readouterr().out
+    head, rest = text.split("per-scope cost attribution (one step, counted "
+                            "on fakes):\n")
+    row = rest.splitlines()[0]
+    assert row.split()[0] == "(unscoped)" and "(100.0%)" in row
+    assert "step 2/2" in rest and text.rstrip().endswith("done")
+    # the table's numbers are those of the same step on real tensors
+    cfg = get_smoke_config("smollm-360m")
+    params, opt, step_fn = train.setup(cfg, fed=False, lr=3e-4,
+                                       device="cpu")
+    costs = train.print_scope_costs(cfg, params, opt, step_fn, batch=2,
+                                    seq=16, log=lambda _: None)
+    it = tokens.lm_batches(tokens.markov_tokens(1000, cfg.vocab_size,
+                                                seed=0), 2, 17, seed=0)
+    batch = train.synth_batch(cfg, 2, 16, it, "cpu")
+    _, counter = hlo_cost.count(step_fn, params, opt, batch, 0)
+    assert costs == counter.scopes
+    assert float(row.split("flops=")[1].split()[0]) == pytest.approx(
+        costs["(unscoped)"]["flops"], rel=1e-3)

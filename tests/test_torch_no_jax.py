@@ -59,6 +59,9 @@ SLICE_MODULES = {
     "repro_torch.models.layers.attention",
     "repro_torch.launch.train", "repro_torch.data.tokens",
     "repro_torch.models.registry", "repro_torch.configs.smollm_360m",
+    "repro_torch.launch.dryrun", "repro_torch.launch.specs",
+    "repro_torch.launch.hlo_cost", "repro_torch.configs.base",
+    "repro_torch.configs.registry", "repro_torch.obs.cost",
 }
 
 
