@@ -19,6 +19,13 @@ Phases, each printing its numbers beside the card's name and power limit:
      - the wire hop, int8 and bf16, full and quantize-only, at the fit's
        upload size (8,388,608 adapter elements in rows of 128) and at a
        ragged 1001 rows, equal bit for bit;
+     - phase 12's new flash-decode instances at its call shapes:
+       smollm-360m (Hk=5, G=3, D=64) and mixtral-8x7b (Hk=8, G=4,
+       D=128) at the fixed batch's ring and the engine's pool (and
+       mixtral's ring in int8, whose instance spills), gemma2-27b's
+       local layer (Hk=16, G=2, D=128, softcap 50, window 4096) over a
+       4096-slot ring that wrapped, one row a lap behind on a quarter of
+       its slots; a CoW event of each new paged engine's pool;
      with the wrapper's time, the kernel's alone, the plain version's, the
      least time the card could take (bound) and one library call's time as
      a yardstick where one exists, and the timer's floor (a one-element
@@ -220,9 +227,28 @@ Phases, each printing its numbers beside the card's name and power limit:
         kernel's shape rule against the kernel's outputs on fakes of the
         same inputs; each step's time (CUDA events), its counted FLOPs
         over that time and that rate's share of 989 TFLOP/s;
+  12. the rest of the dense family and the MoE family (after 11, before
+     6), each at its published width with random bf16 weights drawn on
+     the card a layer slice at a time: gemma2-27b (46 layers, 54.4 GB;
+     local/global alternation, post-block norms, softcaps), smollm-360m
+     (G = 3), qwen2-moe-a2.7b (24 layers, 60 experts top-4 + 4 shared)
+     and mixtral-8x7b (16 of its 32 layers, 47 GB; 8 experts top-2,
+     G = 4): the fixed batch (4 x 512, 64 steps) over the ring, then the
+     engine (phase 4's trace and geometry; the paged pool with prefix
+     sharing and copy-on-write, contiguous local/global lanes for
+     gemma2), then for gemma2 and mixtral one 4608-token row past the
+     4096 window (gemma2 through the fixed-batch launcher, its blockwise
+     prefill wrapping the local rings; mixtral through the paged
+     engine); each model's init peak, run peak and launches (set to 0 at
+     its start), a few of its own flash-decode calls held to the plain
+     version (the long rows' first local and global calls among them);
   6. check the model path on the card against the plain path on the CPU at
      the smoke configs in f32: prefill + teacher-forced decode (ring and
-     paged) of qwen3-0.6b and of fedtime-llama2-7b (G = 1), a 2-round fit
+     paged) of qwen3-0.6b and of fedtime-llama2-7b (G = 1), of
+     qwen3-1.7b, gemma2-27b (ring only: its two ring lengths keep
+     contiguous lanes), smollm-360m (G = 3), mixtral-8x7b and
+     qwen2-moe-a2.7b (at head_dim 128: its smoke heads have no
+     instance), a 2-round fit
      on the int8 wire, and 4 steps of ``trainer.fit`` of FedTime's smoke
      config and of each Table 2 model at a small width (step losses within
      TOL_FIT_LOSS).
@@ -266,6 +292,10 @@ F32_MATMUL_FLOPS = 494.7e12 / 3
 # TOL_F32_OUT.
 TOL_F32_OUT = 1e-5
 BF16_HALF_STEP = 2.0 ** -8
+# flex_attention (the library call beside the softcapped decode) rounds its
+# probabilities to bf16 before their product with V: outputs under 0.5 then
+# sit within 1e-3 of the plain version's beyond the outputs' own rounding
+FLEX_TOL = 1e-3
 TOL_F32_MODEL = 1e-3             # f32 logits, card vs CPU (sum order)
 # f32 smoke fit, card vs CPU: round losses, relative.  The losses are means
 # of local losses whose adapters differ by f32 sum order (and, through it,
@@ -291,6 +321,16 @@ ENGINE_POOL_BLOCKS = (ENGINE["slots"] * ENGINE["cache_len"]
 # rows are qwen3-0.6b's (G = 2); fedtime-llama2-7b's (G = 1) are nested
 # under its name in each serving kernel's row.
 SERVED = ("qwen3-0.6b", "fedtime-llama2-7b")
+# Phase 12: the rest of the dense family and the MoE family, each at its
+# published width and random bf16 weights drawn on the card; (arch, layers)
+# with 0 for the published depth.  mixtral-8x7b is cut from 32 layers to
+# 16 (about 47 GB of bf16 weights; 32 would be 93 GB).
+PHASE12 = (("gemma2-27b", 0), ("smollm-360m", 0), ("qwen2-moe-a2.7b", 0),
+           ("mixtral-8x7b", 16))
+# One row past the 4096-slot window (gemma2's local layers, mixtral's every
+# layer): 9 MoE groups of 512 tokens, as the reference's group rule asks.
+LONG_ROW = dict(prompt=4608, gen=16)
+PHASE12_WINDOW, PHASE12_SOFTCAP = 4096, 50.0       # gemma2-27b's
 
 
 def _card() -> str:
@@ -399,11 +439,15 @@ def _quant(x):
 
 
 def _decode_case(rows, S: int, int8: bool, paged: bool, *, n_blocks=0,
-                 Hk=8, G=2, D=128, bs=16, seed=0, device="cuda"):
+                 Hk=8, G=2, D=128, bs=16, seed=0, device="cuda",
+                 wrap=False):
     """Inputs of one decode call with Hk KV heads of D and G queries each:
     one row per entry of ``rows`` (its position; -1 is an idle lane, which
     must come out 0).
-    The ring holds positions 0..q_pos of each row.  The paged pool
+    The ring holds positions 0..q_pos of each row; with ``wrap`` (rows past
+    the ring) it holds the last S positions of each row, slot p mod S, and
+    row 1's first quarter of slots one lap older (positions a window of S
+    drops).  The paged pool
     (``n_blocks`` blocks of ``bs``) shares its first two blocks between all
     active rows, and leaves the table entries past each row's position,
     and every entry of an idle lane, ungranted (-1)."""
@@ -431,6 +475,16 @@ def _decode_case(rows, S: int, int8: bool, paged: bool, *, n_blocks=0,
         kv_shape = (n_blocks, bs, Hk, D)
         kv_pos = torch.from_numpy(kv_pos).to(dev)
         tbl = torch.from_numpy(tbl).to(dev)
+    elif wrap:
+        kv_shape = (B, S, Hk, D)
+        ar = torch.arange(S, device=dev, dtype=torch.int32)
+        kv_pos = q_pos[:, None] - torch.remainder(q_pos[:, None] - ar[None],
+                                                  S)
+        if B > 1:
+            kv_pos[1, :S // 4] -= S              # a lap behind the window
+        kv_pos = torch.where(kv_pos >= 0, kv_pos,
+                             torch.full_like(kv_pos, -1)).contiguous()
+        tbl = None
     else:
         kv_shape = (B, S, Hk, D)
         ar = torch.arange(S, device=dev, dtype=torch.int32)
@@ -459,14 +513,16 @@ def _needed_slots(args, kw):
     q, k, v, kv_pos, q_pos = args
     B = q.shape[0]
     tbl = kw.get("block_tables")
+    window = kw.get("window", 0)
     if tbl is None:
         keep = fd._slot_mask(kv_pos, q_pos[:, None], 0, kind="causal",
-                             window=0)
+                             window=window)
         return int(keep.sum())
     bs = k.shape[1]
     T = tbl.shape[1]
     _, _, gpos, _, _ = fd.paged_gather(k, v, kv_pos, None, None, tbl)
-    keep = fd._slot_mask(gpos, q_pos[:, None], 0, kind="causal", window=0)
+    keep = fd._slot_mask(gpos, q_pos[:, None], 0, kind="causal",
+                         window=window)
     phys = (tbl.clamp(min=0).long()[:, :, None] * bs
             + torch.arange(bs, device=tbl.device)).reshape(B, T * bs)
     return int(torch.unique(phys[keep]).numel())
@@ -474,7 +530,8 @@ def _needed_slots(args, kw):
 
 def _sdpa_inputs(args, kw):
     """The library yardstick's inputs: the gathered, dequantized cache in
-    bf16 and a boolean mask, laid out for scaled_dot_product_attention."""
+    bf16 and a boolean mask (window included), laid out for
+    scaled_dot_product_attention, which has no softcap."""
     from repro_torch.kernels import flash_decode as fd
     q, k, v, kv_pos, q_pos = args
     ks, vs = kw.get("k_scale"), kw.get("v_scale")
@@ -484,9 +541,99 @@ def _sdpa_inputs(args, kw):
     if ks is not None:
         k = (k.float() * ks.float()).to(torch.bfloat16)
         v = (v.float() * vs.float()).to(torch.bfloat16)
-    mask = fd._slot_mask(kv_pos, q_pos[:, None], 0, kind="causal", window=0)
+    mask = fd._slot_mask(kv_pos, q_pos[:, None], 0, kind="causal",
+                         window=kw.get("window", 0))
     return (q.transpose(1, 2), k.transpose(1, 2).contiguous(),
             v.transpose(1, 2).contiguous(), mask[:, None, None, :])
+
+
+def _input_sums(args) -> list:
+    return [float(t.double().sum()) for t in args[:4]]
+
+
+def _flex_library_ms(label: str, args, case: dict) -> float:
+    """``_flex_library``'s call timed in a child process on the same
+    inputs (``case`` rebuilds them from their seed; their sums are held
+    equal to the parent's), which keeps torch.compile out of this
+    process.  On the card's machine a ``torch.profiler`` profile taken
+    after a compile here, or after any other process has used the card,
+    misses device operations (0-3 of 5 seen), so phase 2 times this last,
+    after its profiles.  Returns the child's mean device time, ms."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import json, sys; sys.path[:0] = [{root!r}, "
+            f"{os.path.join(root, 'src')!r}]; import chip_smoke; "
+            f"print(json.dumps(chip_smoke._flex_child({label!r}, "
+            f"{case!r})))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600)
+    for line in out.stdout.splitlines()[:-1]:
+        print(line)
+    _check(out.returncode == 0, f"{label}: the flex_attention child "
+           f"failed ({out.returncode}): {out.stderr[-2000:]}")
+    res = json.loads(out.stdout.splitlines()[-1])
+    _check(res["sums"] == _input_sums(args), f"{label}: the flex_attention "
+           f"child built other inputs")
+    return res["ms"]
+
+
+def _flex_child(label: str, case: dict) -> dict:
+    """In the child: rebuild the case, hold flex_attention to the plain
+    version and time it."""
+    case = dict(case)
+    rows, S, wrap = case.pop("rows"), case.pop("S"), case.pop("wrap")
+    kw_extra = {k: case.pop(k) for k in ("window", "softcap")}
+    args, kw = _decode_case(rows, S, False, False, wrap=wrap, **case)
+    kw.update(kw_extra)
+    call = _flex_library(label, args, kw)
+    return {"ms": Timer().ms(call, 50), "sums": _input_sums(args)}
+
+
+def _flex_library(label: str, args, kw):
+    """The one PyTorch call that computes a softcapped, windowed decode:
+    ``flex_attention``, compiled, with the softcap as its score_mod and the
+    empty-slot, causal and window mask read from kv_pos and q_pos as its
+    block mask, built here once and outside the timed call (one mask
+    serves every local layer of a decode step).  Its output is held
+    against the plain version's within bf16 rounding and FLEX_TOL.
+    Returns the call."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    from repro_torch.kernels import flash_decode as fd
+    q, k, v, kv_pos, q_pos = args
+    _check(kw.get("block_tables") is None and kw.get("k_scale") is None,
+           f"{label}: flex_attention is timed on a bf16 ring only")
+    B, S = kv_pos.shape
+    W, cap = kw.get("window", 0), kw["softcap"]
+    qp = fd._rows(q_pos, B, q.device)
+
+    def keep(b, h, q_idx, kv_idx):
+        kp = kv_pos[b, kv_idx]
+        m = (kp >= 0) & (kp <= qp[b])
+        return m & (qp[b] - kp < W) if W else m
+
+    def softcap(score, b, h, q_idx, kv_idx):
+        return cap * torch.tanh(score / cap)
+
+    mask = create_block_mask(keep, B, None, 1, S, device=q.device)
+    flex = torch.compile(flex_attention)
+    qt, kt, vt = (q.transpose(1, 2), k.transpose(1, 2).contiguous(),
+                  v.transpose(1, 2).contiguous())
+
+    def call():
+        return flex(qt, kt, vt, score_mod=softcap, block_mask=mask,
+                    enable_gqa=True)
+
+    got = call().transpose(1, 2).float()
+    want = fd.flash_decode_ref(*args, **kw).float()
+    over = float(((got - want).abs() - BF16_HALF_STEP * (got.abs()
+                                                         + want.abs())
+                  - FLEX_TOL).max())
+    _check(over <= 0.0, f"{label}: flex_attention disagrees with the plain "
+           f"version ({over} over bf16 rounding and {FLEX_TOL})")
+    print(f"  {label}: flex_attention max_abs_err "
+          f"{float((got - want).abs().max()):.3g} (within bf16 rounding and "
+          f"{FLEX_TOL})")
+    return call
 
 
 def _f32_outs(args, kw):
@@ -551,7 +698,9 @@ def _hold_to_plain(label: str, args, kw, got=None) -> float:
     if tbl is None:                           # the first 128-slot tile of b0
         kv_pos[b0, :128] = -1
     else:                                     # its last granted block
-        kv_pos[int(tbl[b0, int(q_pos[b0]) // args[1].shape[1]])] = -1
+        bs = args[1].shape[1]
+        ring = tbl.shape[1] * bs
+        kv_pos[int(tbl[b0, int(q_pos[b0]) % ring // bs])] = -1
     _, planted32 = _f32_outs(args[:3] + (kv_pos, q_pos), kw)
     planted = float((k32 - planted32).abs().max())
     idle = [b for b in range(len(q_pos)) if b not in active]
@@ -571,6 +720,23 @@ def _hold_to_plain(label: str, args, kw, got=None) -> float:
     return err
 
 
+def _phase12_heads():
+    """{config name: (layers, Hk, G, D)} of phase 12's configs, at the
+    depths it serves them."""
+    out = {}
+    for arch, layers in PHASE12:
+        cfg = _phase12_config(arch, layers)
+        out[arch] = (cfg.num_layers, cfg.num_kv_heads,
+                     cfg.num_heads // cfg.num_kv_heads, cfg.head_dim)
+    return out
+
+
+def _phase12_config(arch: str, layers: int):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg.replace(num_layers=layers) if layers else cfg
+
+
 def _served_heads():
     """{config name: (layers, Hk, G, D)} of the configs the main path
     serves."""
@@ -587,9 +753,14 @@ def phase_kernels(card: str, timer: Timer) -> dict:
     """Every kernel against its plain version at the main path's own call
     shapes (for each served config: the fixed batch's ring and the engine's
     pool, bf16; the rows the JSON line keeps; for qwen3-0.6b also phase
-    3b's one-row ring of 8208 slots and phase 4d's 32-block pool) and at
-    longer caches (S = 1024, 4096; bf16 and int8; qwen3-0.6b's heads).  Returns the JSON rows:
-    qwen3-0.6b's, with fedtime-llama2-7b's nested under its name."""
+    3b's one-row ring of 8208 slots and phase 4d's 32-block pool), at phase
+    12's new instances (smollm-360m's G 3 and mixtral-8x7b's G 4, ring and
+    pool, and qwen2-moe-a2.7b's; gemma2-27b's local layer with its softcap
+    and window over a ring that wrapped, its library call flex_attention)
+    and at longer caches (S = 1024, 4096; bf16 and int8;
+    qwen3-0.6b's heads); a copy-on-write event of each paged engine's pool.
+    Returns the JSON rows: qwen3-0.6b's, with the other configs' nested
+    under their names."""
     from repro_torch.kernels import flash_decode as fd
     F = torch.nn.functional
     P, gen = FIXED["prompt_len"], FIXED["gen"]
@@ -604,6 +775,32 @@ def phase_kernels(card: str, timer: Timer) -> dict:
                    hw),
                   (arch, f"main path {arch}: engine pool", engine_rows,
                    S_eng, False, True, ENGINE_POOL_BLOCKS, hw)]
+    # phase 12's calls at its own shapes: smollm-360m (G 3), mixtral-8x7b
+    # (G 4) and qwen2-moe-a2.7b (G 1, 16 KV heads) at the fixed batch's ring
+    # and the engine's pool; gemma2-27b's local layer (G 2, softcap 50) over a 4096-slot
+    # ring that wrapped, one row a lap behind on a quarter of its slots,
+    # which the 4096 window drops
+    for arch, (_, Hk, G, D) in _phase12_heads().items():
+        hw = dict(Hk=Hk, G=G, D=D)
+        if arch == "gemma2-27b":
+            W = PHASE12_WINDOW
+            cases.append((f"{arch} local layer", f"phase 12 {arch}: local "
+                          f"layer's wrapped ring, window {W}, softcap "
+                          f"{PHASE12_SOFTCAP:g}",
+                          [LONG_ROW["prompt"] + i for i in range(4)], W,
+                          False, False, 0,
+                          dict(hw, wrap=True, window=W,
+                               softcap=PHASE12_SOFTCAP)))
+            continue
+        cases += [(arch, f"phase 12 {arch}: fixed batch ring",
+                   [P + gen - 1] * FIXED["batch"], P + gen, False, False, 0,
+                   hw),
+                  (arch, f"phase 12 {arch}: engine pool", engine_rows,
+                   S_eng, False, True, ENGINE_POOL_BLOCKS, hw)]
+        if G == 4:          # the int8 instances, which spill (ptxas, phase 1)
+            cases.append((None, f"phase 12 {arch}: fixed batch ring, int8",
+                          [P + gen - 1] * FIXED["batch"], P + gen, True,
+                          False, 0, hw))
     _, Hk, G, D = heads[SERVED[0]]
     hw = dict(Hk=Hk, G=G, D=D)
     cases += [(None, f"main path {SERVED[0]}: phase 3b's generate ring",
@@ -617,11 +814,15 @@ def phase_kernels(card: str, timer: Timer) -> dict:
                 cases.append((None, f"S={S} {'int8' if int8 else 'bf16'}",
                               rows4, S, int8, paged, 0,
                               dict(Hk=Hk, G=G, D=D)))
-    rows = {}
-    for arch, label, q_rows, S, int8, paged, n_blocks, hw in cases:
+    rows, flex_cases = {}, []
+    for arch, label, q_rows, S, int8, paged, n_blocks, opts in cases:
         name = "flash_decode_paged" if paged else "flash_decode"
+        hw = {k: opts[k] for k in ("Hk", "G", "D")}
         args, kw = _decode_case(q_rows, S, int8, paged, n_blocks=n_blocks,
-                                **hw)
+                                wrap=opts.get("wrap", False), **hw)
+        for k in ("window", "softcap"):
+            if opts.get(k):
+                kw[k] = opts[k]
         err = _hold_to_plain(f"{name} {label}", args, kw)
         q, k, v = args[:3]
         B, _, H, D = q.shape
@@ -664,25 +865,47 @@ def phase_kernels(card: str, timer: Timer) -> dict:
         kernel_ms = timer.ms(launch, 50)
         plain = timer.ms(lambda: fd.flash_decode_ref(*args, **kw), 5)
         sq, sk, sv, smask = _sdpa_inputs(args, kw)
-        lib = timer.ms(lambda: F.scaled_dot_product_attention(
+        sdpa = timer.ms(lambda: F.scaled_dot_product_attention(
             sq, sk, sv, attn_mask=smask, enable_gqa=True), 50)
+        capped = bool(kw.get("softcap"))
         print(f"[{card}] kernel {name} {label} (B={B}, S={S}): wrapper "
               f"{ms:.4f} ms, kernel alone {kernel_ms:.4f} ms, plain "
               f"{plain:.4f} ms, bound {bound:.4f} ms ({by}, "
-              f"{nbytes / 1e6:.2f} MB), sdpa {lib:.4f} ms")
+              f"{nbytes / 1e6:.2f} MB, {slots} slots kept), sdpa "
+              f"{'without the softcap ' if capped else ''}{sdpa:.4f} ms")
         if arch is not None:                      # the rows the JSON keeps
             row = dict(max_abs_err=err, ms=ms, kernel_ms=kernel_ms,
                        plain_ms=plain, bound_ms=bound, bound_by=by,
-                       library_ms=lib, shape=f"{label}, G = {H // Hk}",
+                       library_ms=sdpa, shape=f"{label}, G = {H // Hk}",
                        grid=grid)
             _keep_row(rows, name, arch, row)
+            # SDPA has no softcap: with one, flex_attention is the library
+            # call that computes the same function, timed below
+            if capped:
+                flex_cases.append((f"{name} {label}", args, dict(
+                    rows=q_rows, S=S, wrap=opts.get("wrap", False),
+                    window=kw.get("window", 0), softcap=kw["softcap"],
+                    **hw), row))
     floor = timer.ms(lambda: timer.flush[:1].fill_(1.0), 50)
     print(f"[{card}] timer floor: a one-element fill_ reads {floor:.4f} ms "
           f"in this harness (a kernel's gap to its bound reads against it)")
     g = torch.Generator(device="cuda").manual_seed(1)
-    for arch, (L, Hk, _, D) in heads.items():
+    paged_heads = dict(heads)
+    paged_heads.update({a: h for a, h in _phase12_heads().items()
+                        if a != "gemma2-27b"})     # gemma2: contiguous lanes
+    for arch, (L, Hk, _, D) in paged_heads.items():
         _keep_row(rows, "paged_block_copy", arch,
                   _cow_event(card, timer, g, arch, L, Hk, D))
+    # after every profile of this phase: a profile taken after another
+    # process has used the card misses device operations (see
+    # ``_flex_library_ms``)
+    for label, args, case, row in flex_cases:
+        lib = _flex_library_ms(label, args, case)
+        print(f"[{card}] kernel {label}: flex_attention {lib:.4f} ms (the "
+              f"library call; the kernel {row['ms']:.4f} ms, sdpa without "
+              f"the softcap {row['library_ms']:.4f} ms)")
+        row.update(library_ms=lib, library="flex_attention",
+                   sdpa_without_softcap_ms=row["library_ms"])
     return rows
 
 
@@ -1208,10 +1431,29 @@ def phase_main_path(card: str, arch: str) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def _checked_logits():
+    """Keeps a finiteness flag of every logits tensor the trunk computes
+    while it is open (a list, yielded)."""
+    from repro_torch.models import transformer
+    finite = []
+    real = transformer.logits_fn
+
+    def checked_logits(*a, **k):
+        lg = real(*a, **k)
+        finite.append(torch.isfinite(lg).all())
+        return lg
+
+    transformer.logits_fn = checked_logits
+    try:
+        yield finite
+    finally:
+        transformer.logits_fn = real
+
+
 def _run_main_path(card: str, cfg, params) -> dict:
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.launch.serve import run_engine, run_fixed_batch
-    from repro_torch.models import transformer
 
     fd.reset_launches()
     t0 = time.perf_counter()
@@ -1228,29 +1470,19 @@ def _run_main_path(card: str, cfg, params) -> dict:
           f"{res['decode_tok_per_s']:.1f} tok/s (63 steps x 4), "
           f"wall {wall:.1f} s, launches {fixed_launches}")
 
-    finite = []
-    logits_fn = transformer.logits_fn
-
-    def checked_logits(*a, **k):              # every logits tensor the
-        lg = logits_fn(*a, **k)                # engine computes
-        finite.append(torch.isfinite(lg).all())
-        return lg
-
     trace = _engine_trace(cfg)
-    transformer.logits_fn = checked_logits
-    try:
+    with _checked_logits() as finite:
         t0 = time.perf_counter()
         done, summ, engine = run_engine(cfg, params, trace, device="cuda",
                                         quiet=True, **ENGINE)
         wall = time.perf_counter() - t0
-    finally:
-        transformer.logits_fn = logits_fn
     launches = dict(fd.LAUNCHES)
     _check(len(done) == len(trace), "engine: not every request finished")
     for r in trace:
         _check(len(done[r["id"]].tokens) == r["max_new_tokens"],
                f"engine: {r['id']} stopped short")
-    _check(all(bool(f) for f in finite), "engine: non-finite logits")
+    _check(finite and all(bool(f) for f in finite),
+           "engine: non-finite logits")
     _check(summ["cow_copies"] >= 1, "engine: copy-on-write never fired")
     _check(summ["full_prompt_hits"] >= 1, "engine: no full-prompt hit")
     engine.pool.assert_partition()
@@ -1258,7 +1490,8 @@ def _run_main_path(card: str, cfg, params) -> dict:
     _check(engine.pool.pool_blocks == ENGINE_POOL_BLOCKS,
            "engine: pool geometry differs from the one phase 2 checks")
     for name in ("flash_decode", "flash_decode_paged", "paged_block_copy"):
-        _check(launches[name] > 0, f"main path never launched {name}")
+        _check(launches[name] > 0,
+               f"main path never launched {name}")
     _check(launches["paged_block_copy"] == summ["cow_copies"],
            f"engine: {launches['paged_block_copy']} block-copy launches for "
            f"{summ['cow_copies']} copy-on-write events, not one each")
@@ -1274,6 +1507,212 @@ def _run_main_path(card: str, cfg, params) -> dict:
     print(f"[{card}] {cfg.name} main-path launches (fixed batch + engine): "
           f"{launches}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the rest of the dense family and the MoE family at full width
+# ---------------------------------------------------------------------------
+
+def _gib(n: float) -> float:
+    return n / 2 ** 30
+
+
+def _hold_recorded(label: str, recorder, G: int) -> int:
+    """Hold a recorder's calls against the plain version on copies of
+    their inputs; returns how many."""
+    for what, args, kw, out in recorder.calls:
+        _check(args[0].shape[2] == G * args[1].shape[2],
+               f"{label} {what}: a call of another head geometry")
+        _hold_to_plain(f"{label} {what}, q {tuple(args[0].shape)}, k "
+                       f"{tuple(args[1].shape)}, window "
+                       f"{kw.get('window', 0)}, softcap "
+                       f"{kw.get('softcap', 0.0):g}", args, kw, got=out)
+    return len(recorder.calls)
+
+
+def _run_contiguous_path(card: str, cfg, params) -> dict:
+    """An alternating config (gemma2-27b) through the fixed-batch launcher
+    and then the engine, which keeps contiguous lanes for its local and
+    global rings (as the reference's does): every request finished, every
+    logits tensor finite, no paged launch.  Returns the launch counts,
+    set to 0 at the start."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.launch.serve import run_engine, run_fixed_batch
+    fd.reset_launches()
+    t0 = time.perf_counter()
+    res = run_fixed_batch(cfg, params, device="cuda", quiet=True, **FIXED)
+    wall = time.perf_counter() - t0
+    _check(res["finite"], f"{cfg.name} fixed batch: non-finite logits")
+    _check(res["tokens"].shape == (FIXED["batch"], FIXED["gen"] + 1),
+           f"{cfg.name} fixed batch: token shape")
+    fixed = dict(fd.LAUNCHES)
+    _check(fixed["flash_decode"] == FIXED["gen"] * cfg.num_layers,
+           f"{cfg.name} fixed batch: {fixed} launches")
+    print(f"[{card}] fixed batch {cfg.name}: prefill 4x512 "
+          f"{res['prefill_tok_per_s']:.0f} tok/s, decode first step "
+          f"{res['first_step_s']:.3f} s, steady "
+          f"{res['decode_tok_per_s']:.1f} tok/s (63 steps x 4), wall "
+          f"{wall:.1f} s, launches {fixed}")
+    trace = _engine_trace(cfg)
+    with _checked_logits() as finite:
+        t0 = time.perf_counter()
+        done, summ, engine = run_engine(
+            cfg, params, trace, device="cuda", quiet=True,
+            slots=ENGINE["slots"], cache_len=ENGINE["cache_len"])
+        wall = time.perf_counter() - t0
+    launches = dict(fd.LAUNCHES)
+    _check(not engine.paged and set(engine.pool.cache) == {"local",
+                                                           "global"},
+           f"{cfg.name} engine: not on contiguous local/global lanes")
+    _check(len(done) == len(trace), f"{cfg.name} engine: not every request "
+           f"finished")
+    for r in trace:
+        _check(len(done[r["id"]].tokens) == r["max_new_tokens"],
+               f"{cfg.name} engine: {r['id']} stopped short")
+    _check(finite and all(bool(f) for f in finite),
+           f"{cfg.name} engine: non-finite logits")
+    _check(launches["flash_decode"] > fixed["flash_decode"]
+           and launches["flash_decode_paged"] == 0
+           and launches["paged_block_copy"] == 0,
+           f"{cfg.name} engine: launches {launches}")
+    print(f"[{card}] engine {cfg.name}, contiguous local/global lanes: "
+          f"{summ['requests']} requests, {summ['decode_tokens']} decode "
+          f"tokens in {summ['decode_steps']} steps, "
+          f"{summ['steady_tok_per_s']:.1f} tok/s steady, itl p50 "
+          f"{summ['itl_p50_s'] * 1e3:.2f} ms, ttft p50 "
+          f"{summ['ttft_p50_s'] * 1e3:.1f} ms, {len(finite)} logits "
+          f"tensors finite, wall {wall:.1f} s")
+    return launches
+
+
+def _long_row(card: str, cfg, params) -> int:
+    """One row whose 4608-token prompt runs past the 4096 window: gemma2
+    through the fixed-batch launcher (a blockwise prefill; the local rings
+    wrap, the global rings hold the whole row), mixtral through the paged
+    engine (its every ring wraps).  The first step's first two
+    flash-decode calls are held against the plain version.  Returns the
+    number held."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.launch.serve import run_engine, run_fixed_batch
+    P, gen = LONG_ROW["prompt"], LONG_ROW["gen"]
+    G = cfg.num_heads // cfg.num_kv_heads
+    W = cfg.sliding_window
+    t0 = time.perf_counter()
+    with _CallRecorder(fd, every=1, keep=2) as rec:
+        if cfg.local_global_alternating:
+            res = run_fixed_batch(cfg, params, batch=1, prompt_len=P,
+                                  gen=gen, device="cuda", quiet=True)
+            _check(res["finite"] and res["tokens"].shape == (1, gen + 1),
+                   f"{cfg.name} long row: non-finite logits or short")
+        else:
+            rng = np.random.default_rng(2)
+            trace = [{"id": "long", "prompt": rng.integers(
+                0, cfg.vocab_size, P).tolist(), "max_new_tokens": gen,
+                "arrival_step": 0}]
+            with _checked_logits() as finite:
+                done, summ, engine = run_engine(
+                    cfg, params, trace, device="cuda", quiet=True, slots=2,
+                    cache_len=P + gen)
+            _check(engine.paged and engine.pool.ring_len == W,
+                   f"{cfg.name} long row: not a paged ring of the window")
+            _check(len(done["long"].tokens) == gen and finite
+                   and all(bool(f) for f in finite),
+                   f"{cfg.name} long row: short or non-finite")
+            engine.pool.assert_partition()
+    wall = time.perf_counter() - t0
+    layouts = {w.split()[0] for w, *_ in rec.calls}
+    _check(len(rec.calls) == 2,
+           f"{cfg.name} long row: {len(rec.calls)} calls recorded")
+    for what, args, kw, _ in rec.calls:
+        q_pos = int(fd._rows(args[4], args[0].shape[0], args[0].device)[0])
+        kvp = args[3][0] if kw.get("block_tables") is None else \
+            fd.paged_gather(args[1], args[2], args[3], None, None,
+                            kw["block_tables"])[2][0]
+        valid = kvp[kvp >= 0]
+        print(f"  {cfg.name} long row {what}: q_pos {q_pos}, ring "
+              f"{kvp.numel()} slots, positions {int(valid.min())}.."
+              f"{int(valid.max())}, window {kw.get('window', 0)}")
+        if kw.get("window"):
+            _check(kvp.numel() == W and int(valid.min()) > 0
+                   and int(valid.max()) == q_pos,
+                   f"{cfg.name} long row {what}: the windowed ring did not "
+                   f"wrap")
+    print(f"[{card}] {cfg.name} long row ({P}-token prompt, {gen} steps, "
+          f"{'/'.join(sorted(layouts))}): wall {wall:.1f} s")
+    return _hold_recorded(f"{cfg.name} long row", rec, G)
+
+
+def phase_families(card: str) -> dict:
+    """Serve each of PHASE12's configs at its published width (mixtral at
+    16 of 32 layers) with random bf16 weights drawn on the card: the fixed
+    batch (4 x 512, 64 steps) over the ring, then the engine (the paged
+    pool with prefix sharing and copy-on-write; gemma2 on contiguous
+    lanes), and for gemma2 and mixtral one row past the window.  Prints
+    each model's init peak and run peak; returns each model's launch
+    counts, set to 0 at its start and read at its end."""
+    from repro_torch import tree as tree_util
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models.registry import get_model
+    out = {}
+    t_all = time.perf_counter()
+    for arch, layers in PHASE12:
+        cfg = _phase12_config(arch, layers)
+        G = cfg.num_heads // cfg.num_kv_heads
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = get_model(cfg).init(
+            cfg, torch.Generator(device="cuda").manual_seed(0),
+            device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated() - base
+        weights = sum(t.numel() * t.element_size()
+                      for t in tree_util.leaves(params))
+        cut = (f" (cut from {_phase12_config(arch, 0).num_layers})"
+               if layers else "")
+        print(f"[{card}] phase 12 {cfg.name}: {cfg.num_layers} layers"
+              f"{cut}, d_model {cfg.d_model}, {cfg.num_heads}/"
+              f"{cfg.num_kv_heads} heads of {cfg.head_dim} (G = {G}), "
+              f"vocab {cfg.vocab_size}"
+              + (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k}"
+                 f" (+{cfg.moe.num_shared_experts} shared)"
+                 if cfg.moe else "")
+              + f": weights {_gib(weights):.2f} GiB ({weights / 1e9:.2f} "
+              f"GB) drawn in {init_s:.1f} s, init peak "
+              f"{_gib(init_peak):.2f} GiB over what was held before")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _CallRecorder(fd, every=500, keep=3) as rec:
+            if cfg.local_global_alternating:
+                _run_contiguous_path(card, cfg, params)
+            else:
+                _run_main_path(card, cfg, params)
+        held = _hold_recorded(f"phase 12 {cfg.name}", rec, G)
+        if cfg.sliding_window:
+            held += _long_row(card, cfg, params)
+        launches = dict(fd.LAUNCHES)
+        _check(launches["flash_decode"] > 0,
+               f"phase 12 {cfg.name}: no ring flash-decode launch")
+        if not cfg.local_global_alternating:
+            _check(launches["flash_decode_paged"] > 0
+                   and launches["paged_block_copy"] > 0,
+                   f"phase 12 {cfg.name}: paged launches {launches}")
+        _check(held >= 3, f"phase 12 {cfg.name}: only {held} of its calls "
+               f"held to the plain version")
+        peak = torch.cuda.max_memory_allocated() - base
+        print(f"[{card}] phase 12 {cfg.name}: {time.perf_counter() - t0:.1f}"
+              f" s served, peak device memory {_gib(peak):.2f} GiB "
+              f"(weights {_gib(weights):.2f}), {held} of its own "
+              f"flash-decode calls held to the plain version, launches "
+              f"{launches}")
+        out[arch] = launches
+        del params, rec
+        torch.cuda.empty_cache()
+    print(f"[{card}] phase 12 wall {time.perf_counter() - t_all:.1f} s "
+          f"(host clock)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4786,14 +5225,24 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
+# Phase 6's smoke configs besides SERVED's: qwen3-1.7b, gemma2-27b (its
+# local and global rings; no paged pool), smollm-360m (G 3, D 64),
+# mixtral-8x7b and qwen2-moe-a2.7b, whose smoke heads (G 1, D 64) have no
+# kernel instance and run at D 128 here (G 1, D 128: its full width's).
+PHASE6_EXTRA = ("qwen3-1.7b", "gemma2-27b", "smollm-360m", "mixtral-8x7b",
+                "qwen2-moe-a2.7b")
+
+
 def phase_reference(card: str, arch: str) -> None:
     """``arch``'s smoke config in f32 (qwen3-0.6b: G = 2, D 64;
-    fedtime-llama2-7b: G = 1, D 32): the card (kernels) against the CPU
-    (plain versions), same weights, teacher-forced tokens; ring and
-    paged."""
+    fedtime-llama2-7b: G = 1, D 32; PHASE6_EXTRA's): the card (kernels)
+    against the CPU (plain versions), same weights, teacher-forced tokens;
+    ring and (but for an alternating config) paged."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.registry import get_model
     cfg = get_smoke_config(arch)
+    if arch == "qwen2-moe-a2.7b":
+        cfg = cfg.replace(head_dim=128)
     api = get_model(cfg)
     params = api.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     rng = np.random.default_rng(0)
@@ -4802,10 +5251,12 @@ def phase_reference(card: str, arch: str) -> None:
     ring, bs = 32, 8
     table = torch.tensor([[3, 9, 0, 6], [1, 11, 4, -1], [10, 2, 7, 5]],
                          dtype=torch.int32)
+    layouts = (("ring",) if cfg.local_global_alternating
+               else ("ring", "paged"))
     outs = {}
     for dev in ("cpu", "cuda"):
         p = _to(params, dev)
-        for layout in ("ring", "paged"):
+        for layout in layouts:
             cache, lg = api.prefill(p, cfg, {"tokens": prompt.to(dev)},
                                     cache_len=ring)
             steps = [lg]
@@ -4834,7 +5285,7 @@ def phase_reference(card: str, arch: str) -> None:
                     {"token": teacher[i].to(dev), "pos": pos, **batch})
                 steps.append(lg)
             outs[(dev, layout)] = torch.cat([s.cpu() for s in steps], 1)
-    for layout in ("ring", "paged"):
+    for layout in layouts:
         a, b = outs[("cuda", layout)], outs[("cpu", layout)]
         _check(a.shape == (3, 9, cfg.vocab_size), "reference: logits shape")
         _check(bool(torch.isfinite(a).all()), "reference: non-finite")
@@ -4938,7 +5389,14 @@ def main() -> None:
     rows["flash_decode"]["dry_run_check"] = {
         "launches": dry_launches["flash_decode"]}
 
-    for arch in SERVED:
+    torch.cuda.empty_cache()
+    family_launches = phase_families(card)
+    for arch, counts in family_launches.items():
+        for name in ("flash_decode", "flash_decode_paged",
+                     "paged_block_copy"):
+            rows[name][f"phase 12 {arch}"] = {"launches": counts[name]}
+
+    for arch in SERVED + PHASE6_EXTRA:
         phase_reference(card, arch)
     _fit_reference(card)
     _centralized_reference(card)

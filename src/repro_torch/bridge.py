@@ -57,14 +57,28 @@ def _shape(params, *path):
 
 
 def _check_dense(params, cfg: ModelConfig) -> None:
+    """A dense or MoE tree: the embedding table, and the block stack (an
+    alternating config's ``local`` and ``global`` stacks of half the layers
+    each; an MoE model's routers beside its attention)."""
     table = _shape(params, "embed", "table")
     if table != (cfg.vocab_size, cfg.d_model):
         raise ValueError(f"params_from_jax: embed table does not match "
                          f"{cfg.name} ({cfg.vocab_size}, {cfg.d_model})")
-    if _shape(params, "layers", "attn", "wq", "w") != (
-            cfg.num_layers, cfg.d_model, cfg.q_dim):
-        raise ValueError(f"params_from_jax: layers are not a stack of "
-                         f"{cfg.num_layers} {cfg.name} blocks")
+    if cfg.local_global_alternating:
+        stacks, n = (("layers", "local"), ("layers", "global")), \
+            cfg.num_layers // 2
+    else:
+        stacks, n = (("layers",),), cfg.num_layers
+    for stack in stacks:
+        if _shape(params, *stack, "attn", "wq", "w") != (
+                n, cfg.d_model, cfg.q_dim):
+            raise ValueError(f"params_from_jax: {'/'.join(stack)} is not a "
+                             f"stack of {n} {cfg.name} blocks")
+    if cfg.family == "moe" and _shape(params, "layers", "moe", "router",
+                                      "w") != (cfg.num_layers, cfg.d_model,
+                                               cfg.moe.num_experts):
+        raise ValueError(f"params_from_jax: layers carry no stack of "
+                         f"{cfg.num_layers} {cfg.name} routers")
 
 
 def _check_fedtime(params, cfg: ModelConfig) -> None:
@@ -108,7 +122,7 @@ def params_from_jax(tree, cfg: ModelConfig, device="cuda"):
     """The reference's parameter tree (leaves as numpy arrays) -> the port's
     parameters on ``device``.  A tree with a ``patch`` embedding is a
     FedTime model and is checked as one; any other must describe ``cfg``'s
-    dense model.  Raises if the tree does not match ``cfg``."""
+    dense or MoE model.  Raises if the tree does not match ``cfg``."""
     params = tree_to_torch(tree, device)
     if "patch" in params:
         _check_fedtime(params, cfg)

@@ -5,7 +5,7 @@ defaults), so that a config means the same model in both packages.  Each
 architecture gets one module in ``repro_torch.configs`` exporting
 ``CONFIG`` (the exact published dims) and ``smoke_config()`` (a reduced
 variant for CPU tests).  The family sub-configs are kept because
-``ModelConfig`` names them; only the dense family is served so far.
+``ModelConfig`` names them; the dense and MoE families are ported.
 ``INPUT_SHAPES`` are the reference's four input shapes of the dry run
 (``repro_torch.launch.dryrun``).
 """

@@ -12,7 +12,11 @@ from repro_torch.configs.base import ModelConfig
 # arch id -> module name under repro_torch.configs
 _ARCH_MODULES: Dict[str, str] = {
     "qwen3-0.6b": "qwen3_0_6b",
+    "qwen3-1.7b": "qwen3_1_7b",
     "smollm-360m": "smollm_360m",
+    "gemma2-27b": "gemma2_27b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "mixtral-8x7b": "mixtral_8x7b",
     "fedtime-llama2-7b": "fedtime_llama2_7b",
 }
 

@@ -2,8 +2,8 @@
 [hf:HuggingFaceTB/SmolLM-135M card family]
 
 The port's copy of the reference's config, field for field; the training
-launcher's default arch.  Its 15/5 heads (G = 3) have no flash-decode
-instance yet, so it trains but does not serve on the card.
+launcher's default arch.  Its 15/5 heads of 64 decode through the
+flash-decode instances at (G, D) = (3, 64).
 """
 
 from repro_torch.configs.base import FedTimeConfig, ModelConfig

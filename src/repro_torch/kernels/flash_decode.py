@@ -61,9 +61,10 @@ _NEG = -1e30
 _KINDS = {"causal": 0, "prefix": 1, "full": 2}
 # The (G, D) head geometries both kernels are built for: those of the ported
 # configurations (csrc/flash_decode.cu, with_heads): qwen3-0.6b's smoke
-# config and full width (G 2, D 64 / 128), fedtime-llama2-7b's (G 1, D 32 /
-# 128).
-HEAD_GEOMETRIES = ((2, 64), (2, 128), (1, 32), (1, 128))
+# config and full width (G 2, D 64 / 128; qwen3-1.7b and gemma2-27b too),
+# fedtime-llama2-7b's (G 1, D 32 / 128; qwen2-moe-a2.7b too), smollm-360m's
+# (G 3, D 64) and mixtral-8x7b's (G 4, D 128).
+HEAD_GEOMETRIES = ((2, 64), (2, 128), (1, 32), (1, 128), (3, 64), (4, 128))
 _KV_TYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 
 LAUNCHES: Dict[str, int] = {"flash_decode": 0, "flash_decode_paged": 0,

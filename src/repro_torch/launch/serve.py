@@ -5,7 +5,8 @@ Fixed batch (one prefill, synchronous decode over the contiguous ring):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
       --full-config --batch 4 --prompt-len 512 --gen 64
 
-Engine (continuous batching over the paged pool with prefix sharing):
+Engine (continuous batching over the paged pool with prefix sharing, or
+over contiguous lanes for gemma2's local/global rings):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
       --full-config --engine --slots 4 --trace 8 --arrival-rate 0.5 --gen 32
@@ -106,7 +107,7 @@ def _to_request(r: dict):
 
 def run_engine(cfg, params, trace, *, slots: int, cache_len: int,
                max_tokens_in_flight: int = 0, prefill_chunk: int = 0,
-               prefill_bucket: int = 0, paged: bool = True,
+               prefill_bucket: int = 0, paged=None,
                block_size: int = 0, pool_blocks: int = 0,
                share_prefixes=None, swap_tier=None, max_queue=None,
                deadline_s=None, ttft_slo_s=None, journal=None, clock=None,
@@ -255,7 +256,12 @@ def main() -> None:
     ap.add_argument("--prefill-chunk", type=int, default=0)
     ap.add_argument("--prefill-bucket", type=int, default=0)
     ap.add_argument("--trace-seed", type=int, default=0)
-    ap.add_argument("--no-paged", dest="paged", action="store_false",
+    # paged block-KV pool (default: on for uniform-ring dense/moe configs)
+    ap.add_argument("--paged", dest="paged", action="store_const",
+                    const=True, default=None,
+                    help="force the paged block-KV pool")
+    ap.add_argument("--no-paged", dest="paged", action="store_const",
+                    const=False,
                     help="contiguous per-slot lanes instead of the paged "
                          "block-KV pool")
     ap.add_argument("--block-size", type=int, default=0)

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models.layers.linear import draw_normal
+
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     """Inverse frequencies for RoPE, shape (head_dim // 2,) float32."""
@@ -30,8 +32,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def init_embedding(generator: torch.Generator, vocab: int, dim: int, *,
                    dtype=torch.float32, device=None):
-    table = torch.randn((vocab, dim), generator=generator, device=device)
-    return {"table": (table * 0.02).to(dtype)}
+    return {"table": draw_normal(generator, (vocab, dim), 0.02, dtype=dtype,
+                                 device=device)}
 
 
 def embed(params, tokens: torch.Tensor) -> torch.Tensor:

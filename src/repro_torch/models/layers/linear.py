@@ -19,16 +19,32 @@ import torch
 from repro_torch.core.quant import nf4_dequant
 
 
+def draw_normal(generator: torch.Generator, shape, scale: float, *,
+                dtype=torch.float32, device=None,
+                stacked: bool = False) -> torch.Tensor:
+    """Normal(0, ``scale``) values of ``dtype``, drawn in f32 from
+    ``generator``.  A ``stacked`` leaf (a leading layer axis) is filled one
+    layer slice at a time into a tensor of ``dtype``, so the f32 draw never
+    holds more than one slice: a whole-leaf draw of gemma2-27b's MLP
+    (23 x 4608 x 36864) would take 31 GB of f32 beside its 7.8 GB."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for piece in (out if stacked else out[None]):
+        draw = torch.randn(piece.shape, generator=generator, device=device)
+        piece.copy_(draw.mul_(scale))
+        del draw
+    return out
+
+
 def init_dense(generator: torch.Generator, in_dim: int, out_dim: int, *,
                layers: int = 0, dtype=torch.float32, device=None,
                scale: float | None = None):
     """Normal(0, in_dim^-1/2) weight; ``layers`` > 0 stacks a leading layer
-    axis."""
+    axis (drawn a layer at a time, ``draw_normal``)."""
     if scale is None:
         scale = in_dim ** -0.5
     shape = (layers, in_dim, out_dim) if layers else (in_dim, out_dim)
-    w = torch.randn(shape, generator=generator, device=device) * scale
-    return {"w": w.to(dtype)}
+    return {"w": draw_normal(generator, shape, scale, dtype=dtype,
+                             device=device, stacked=bool(layers))}
 
 
 def dense(p, x: torch.Tensor) -> torch.Tensor:

@@ -13,8 +13,14 @@ rows than it holds (``launch.steps`` on a mesh).
 
 Batch dicts: train ``{"tokens": (B, S), "labels": (B, S)}`` (labels -1 =
 ignore); prefill ``{"tokens": (B, S)}``; decode ``{"token": (B, 1), "pos":
-scalar or (B,)}`` plus ``block_tbl``/``ring_len`` for a paged pool.  Only
-the dense family is ported; the others raise.
+scalar or (B,)}`` plus ``block_tbl``/``ring_len`` for a paged pool.  The
+dense and MoE families are ported; the others raise.
+
+An MoE model's ``loss`` adds the router's aux loss (summed over layers) to
+the cross-entropy, as the reference's does.  Its ``loss_sum`` returns
+``(ce_sum + aux * max(count, 1), count)``, so that one rank's
+``loss_sum`` over its count is ``loss``; on a mesh the aux term a rank
+adds is that of its own rows, weighted by its share of the labels.
 """
 
 from __future__ import annotations
@@ -56,26 +62,46 @@ def _dense_api():
                            init_cache=transformer.init_cache)
 
 
+def _moe_api():
+    """The dense family's API with the router's aux loss in ``loss``."""
+    api = _dense_api()
+
+    def loss(params, cfg, batch):
+        h, aux = transformer.forward_aux(params, cfg, batch["tokens"])
+        return chunked_ce(h, params, cfg, batch["labels"]) + aux
+
+    def loss_sum(params, cfg, batch):
+        h, aux = transformer.forward_aux(params, cfg, batch["tokens"])
+        tot, count = chunked_ce_sum(h, params, cfg, batch["labels"])
+        return tot + aux * count.clamp(min=1), count
+
+    api.loss, api.loss_sum = loss, loss_sum
+    return api
+
+
+_FAMILIES = {"dense": _dense_api, "moe": _moe_api}
+
+
 def get_model(cfg: ModelConfig):
-    _dense_only(cfg)
-    return _dense_api()
+    _ported_only(cfg)
+    return _FAMILIES[cfg.family]()
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _ported_only(cfg: ModelConfig) -> None:
+    if cfg.family not in _FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  f"(dense only)")
+                                  f"(families {tuple(_FAMILIES)})")
 
 
 def train_batch_shapes(cfg: ModelConfig, batch: int, seq: int) -> dict:
     """``{name: (shape, dtype)}`` of a training batch."""
-    _dense_only(cfg)
+    _ported_only(cfg)
     return {"tokens": ((batch, seq), torch.int32),
             "labels": ((batch, seq), torch.int32)}
 
 
 def decode_batch_shapes(cfg: ModelConfig, batch: int) -> dict:
     """``{name: (shape, dtype)}`` of a synchronous decode batch."""
-    _dense_only(cfg)
+    _ported_only(cfg)
     return {"token": ((batch, 1), torch.int32),
             "pos": ((), torch.int32)}

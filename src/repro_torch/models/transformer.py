@@ -1,11 +1,20 @@
-"""Dense decoder-only transformer (qwen3-style: GQA + qk-norm, tied
-embeddings, SwiGLU).
+"""Decoder-only transformer: qwen3-style (GQA + qk-norm, tied embeddings,
+SwiGLU), smollm (llama-arch), the paper's LLaMA-2 backbone, gemma2
+(local/global alternating attention, post-block norms, logit softcaps),
+and the MoE family (mixtral-8x7b, qwen2-moe-a2.7b: the reference's
+``moe_transformer``), whose blocks take the capacity-dispatched MoE block
+(``models.layers.moe``) as their FFN half, under ``"moe_norm"``/``"moe"``
+where a dense block has ``"mlp_norm"``/``"mlp"``.  ``forward_aux`` returns
+the MoE router's aux loss, summed over layers, beside the hidden states.
 
 Parameters are a nested dict of tensors laid out as the reference's pytree:
 every leaf under ``"layers"`` carries a leading layer axis (the reference
-stacks layers with ``jax.vmap``), and ``w`` matrices are (in, out).  The
-reference's ``lax.scan`` over layers is a Python loop here.  Decode updates
-the cache in place.
+stacks layers with ``jax.vmap``), and ``w`` matrices are (in, out).  An
+alternating config holds two such stacks, ``{"local", "global"}``, of
+``num_layers / 2`` blocks each, run as pairs (local, then global), and its
+cache is the same pair of ring trees: the local rings hold the window, the
+global rings the whole sequence.  The reference's ``lax.scan`` over layers
+is a Python loop here.  Decode updates the cache in place.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from repro_torch.models.layers.embeddings import (embed, init_embedding,
                                                   unembed)
 from repro_torch.models.layers.linear import dense, init_dense
 from repro_torch.models.layers.mlp import init_mlp, mlp
+from repro_torch.models.layers.moe import init_moe, moe_block
 from repro_torch.models.layers.norms import init_rmsnorm, rmsnorm
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -41,31 +51,52 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a model this port runs."""
-    unported = [f for f, on in (("local_global_alternating",
-                                 cfg.local_global_alternating),
-                                ("post_block_norm", cfg.post_block_norm))
-                if on]
-    if cfg.family != "dense" or unported:
-        raise NotImplementedError(
-            f"{cfg.name}: only the plain dense family is ported "
-            f"(family {cfg.family!r}, unported options {unported})")
+    """Raise unless ``cfg`` is a dense or an MoE transformer."""
+    if cfg.family not in ("dense", "moe") or (cfg.family == "moe"
+                                               and cfg.moe is None):
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is "
+                                  f"not a dense or an MoE transformer")
+    if cfg.local_global_alternating and cfg.num_layers % 2:
+        raise ValueError(f"{cfg.name}: local/global alternation needs an "
+                         f"even layer count, not {cfg.num_layers}")
+
+
+def _init_stack(cfg: ModelConfig, generator: torch.Generator, layers: int,
+                device):
+    kw = dict(layers=layers, dtype=dtype_of(cfg.param_dtype), device=device)
+    p = {
+        "attn_norm": init_rmsnorm(cfg.d_model, layers=layers, device=device),
+        "attn": init_attention(generator, cfg, **kw),
+    }
+    if cfg.family == "moe":
+        p["moe_norm"] = init_rmsnorm(cfg.d_model, layers=layers,
+                                     device=device)
+        p["moe"] = init_moe(generator, cfg, **kw)
+    else:
+        p["mlp_norm"] = init_rmsnorm(cfg.d_model, layers=layers,
+                                     device=device)
+        p["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff,
+                            cfg.activation, **kw)
+    if cfg.post_block_norm:
+        p["post_attn_norm"] = init_rmsnorm(cfg.d_model, layers=layers,
+                                           device=device)
+        p["post_mlp_norm"] = init_rmsnorm(cfg.d_model, layers=layers,
+                                          device=device)
+    return p
 
 
 def init_blocks(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda"):
     """The layer-stacked block parameters (leaves (L, ...)) drawn from
-    ``generator``, with the reference's shapes, dtypes and scales."""
+    ``generator``, with the reference's shapes, dtypes and scales; for an
+    alternating config the ``{"local", "global"}`` pair of stacks of
+    ``L / 2`` each."""
     check_ported(cfg)
-    L = cfg.num_layers
-    kw = dict(layers=L, dtype=dtype_of(cfg.param_dtype), device=device)
-    return {
-        "attn_norm": init_rmsnorm(cfg.d_model, layers=L, device=device),
-        "attn": init_attention(generator, cfg, **kw),
-        "mlp_norm": init_rmsnorm(cfg.d_model, layers=L, device=device),
-        "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.activation,
-                        **kw),
-    }
+    if cfg.local_global_alternating:
+        n = cfg.num_layers // 2
+        return {"local": _init_stack(cfg, generator, n, device),
+                "global": _init_stack(cfg, generator, n, device)}
+    return _init_stack(cfg, generator, cfg.num_layers, device)
 
 
 def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
@@ -90,6 +121,23 @@ def layer(tree, i: int):
             for k, v in tree.items()}
 
 
+def schedule(cfg: ModelConfig, window: int):
+    """The trunk's blocks in the order they run, as ``(stack, index,
+    window)``: ``stack`` None for a plain stack (every block at
+    ``window``), else ``"local"`` (the config's sliding window) and
+    ``"global"`` (no window) in turn, pair by pair."""
+    if cfg.local_global_alternating:
+        return [(name, i, w) for i in range(cfg.num_layers // 2)
+                for name, w in (("local", cfg.sliding_window),
+                                ("global", 0))]
+    return [(None, i, window) for i in range(cfg.num_layers)]
+
+
+def _at(tree, stack, i: int):
+    """Block ``i`` of ``stack`` (None: the tree is the stack itself)."""
+    return layer(tree if stack is None else tree[stack], i)
+
+
 # ---------------------------------------------------------------------------
 # Blocks and the full-sequence trunk
 # ---------------------------------------------------------------------------
@@ -100,11 +148,35 @@ def _blocks_for(S: int):
     return (BLOCK_Q, BLOCK_KV) if S >= BLOCKWISE_THRESHOLD else (0, 0)
 
 
+def _post_norm(p, name: str, cfg: ModelConfig, h):
+    """gemma2's post-attention / post-MLP norm where the config has one."""
+    if cfg.post_block_norm:
+        h = rmsnorm(p[name], h, cfg.norm_eps, gemma_style=True)
+    return h
+
+
+def _ffn_half(p, cfg: ModelConfig, x):
+    """The block's FFN half -> (x, aux): the MLP (aux None) or the MoE
+    block (aux its router's loss, f32)."""
+    gemma = cfg.post_block_norm
+    if cfg.family == "moe":
+        h, aux = moe_block(p["moe"], cfg, rmsnorm(p["moe_norm"], x,
+                                                   cfg.norm_eps,
+                                                   gemma_style=gemma))
+    else:
+        h, aux = mlp(p["mlp"], rmsnorm(p["mlp_norm"], x, cfg.norm_eps,
+                                       gemma_style=gemma),
+                     cfg.activation), None
+    return x + _post_norm(p, "post_mlp_norm", cfg, h), aux
+
+
 def _block(p, cfg: ModelConfig, x, *, positions, window, kind="causal",
            prefix_len=None, capture=None):
-    """One pre-norm block.  With ``capture`` (a list) the layer's post-RoPE
-    (k, v) is appended to it (prefill)."""
-    a_in = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
+    """One pre-norm block (with gemma2's post-block norms where the config
+    has them) -> (x, aux), as ``_ffn_half``.  With ``capture`` (a list) the
+    layer's post-RoPE (k, v) is appended to it (prefill)."""
+    a_in = rmsnorm(p["attn_norm"], x, cfg.norm_eps,
+                   gemma_style=cfg.post_block_norm)
     bq, bkv = _blocks_for(x.shape[1])
     h = attention(p["attn"], cfg, a_in, positions=positions, kind=kind,
                   window=window, prefix_len=prefix_len, block_q=bq,
@@ -112,9 +184,36 @@ def _block(p, cfg: ModelConfig, x, *, positions, window, kind="causal",
     if capture is not None:
         h, kv = h
         capture.append(kv)
-    x = x + h
-    return x + mlp(p["mlp"], rmsnorm(p["mlp_norm"], x, cfg.norm_eps),
-                   cfg.activation)
+    x = x + _post_norm(p, "post_attn_norm", cfg, h)
+    return _ffn_half(p, cfg, x)
+
+
+def final_norm(params, cfg: ModelConfig, x):
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps,
+                   gemma_style=cfg.post_block_norm)
+
+
+def _trunk(params, cfg: ModelConfig, x, *, positions, prefix_len, remat,
+           kind):
+    """Embedded input -> (final hidden, the MoE blocks' aux loss summed
+    over layers in f32; None for a dense trunk)."""
+    kind = "prefix" if prefix_len is not None else kind
+    x = residual_constraint(x)
+    aux = (torch.zeros((), dtype=torch.float32, device=x.device)
+           if cfg.family == "moe" else None)
+    for stack, i, w in schedule(cfg, cfg.sliding_window):
+        lp = _at(params["layers"], stack, i)
+        kw = dict(positions=positions, window=w, kind=kind,
+                  prefix_len=prefix_len)
+        if remat and torch.is_grad_enabled():
+            x, aux_l = checkpoint(_block, lp, cfg, x, use_reentrant=False,
+                                  **kw)
+        else:
+            x, aux_l = _block(lp, cfg, x, **kw)
+        x = residual_constraint(x)
+        if aux is not None:
+            aux = aux + aux_l
+    return final_norm(params, cfg, x), aux
 
 
 def forward_hidden(params, cfg: ModelConfig, x, *, positions,
@@ -126,18 +225,21 @@ def forward_hidden(params, cfg: ModelConfig, x, *, positions,
     reference's ``jax.checkpoint`` of its scan body): the backward pass
     keeps each block's input and recomputes the rest.  Off by default here,
     so FedTime and PatchTST run as they did; ``forward`` turns it on."""
-    kind = "prefix" if prefix_len is not None else kind
-    x = residual_constraint(x)
-    for i in range(cfg.num_layers):
-        lp = layer(params["layers"], i)
-        kw = dict(positions=positions, window=cfg.sliding_window, kind=kind,
-                  prefix_len=prefix_len)
-        if remat and torch.is_grad_enabled():
-            x = checkpoint(_block, lp, cfg, x, use_reentrant=False, **kw)
-        else:
-            x = _block(lp, cfg, x, **kw)
-        x = residual_constraint(x)
-    return rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return _trunk(params, cfg, x, positions=positions,
+                  prefix_len=prefix_len, remat=remat, kind=kind)[0]
+
+
+def forward_aux(params, cfg: ModelConfig, tokens, *, prefix_len=None,
+                remat: bool = True):
+    """tokens (B, S) -> (final hidden (B, S, d), aux loss (f32)): the MoE
+    router's loss summed over layers (the reference's
+    ``moe_transformer.forward``), None for a dense model."""
+    check_ported(cfg)
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)
+    return _trunk(params, cfg, embed_tokens(params, cfg, tokens),
+                  positions=positions, prefix_len=prefix_len, remat=remat,
+                  kind="causal")
 
 
 def forward(params, cfg: ModelConfig, tokens, *, prefix_len=None,
@@ -145,18 +247,17 @@ def forward(params, cfg: ModelConfig, tokens, *, prefix_len=None,
     """tokens (B, S) -> final hidden (B, S, d).  Use
     ``losses.chunked_ce`` for the LM loss (it never materializes the whole
     logits)."""
-    check_ported(cfg)
-    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                             device=tokens.device)
-    return forward_hidden(params, cfg, embed_tokens(params, cfg, tokens),
-                          positions=positions, prefix_len=prefix_len,
-                          remat=remat)
+    return forward_aux(params, cfg, tokens, prefix_len=prefix_len,
+                       remat=remat)[0]
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens):
+    """Token embeddings in the compute dtype, times the config's multiplier
+    cast to that dtype first, as the reference does (in bf16 gemma2-27b's
+    sqrt(4608) = 67.882 is 68.0)."""
     x = embed(params["embed"], tokens).to(dtype_of(cfg.compute_dtype))
     if cfg.embedding_multiplier != 1.0:
-        x = x * cfg.embedding_multiplier
+        x = x * torch.tensor(cfg.embedding_multiplier, dtype=x.dtype)
     return x
 
 
@@ -177,20 +278,50 @@ def logits_fn(params, cfg: ModelConfig, hidden):
 
 def ring_length(cfg: ModelConfig, seq_len: int, *,
                 force_window: int = 0) -> int:
-    """Ring-buffer slots per layer: the window when one applies, else the
-    whole sequence."""
+    """Ring-buffer slots per layer of a uniform ring: the window when one
+    applies, else the whole sequence."""
     w = force_window or cfg.sliding_window
     return min(seq_len, w) if w > 0 else seq_len
 
 
+def _cache_lengths(cfg: ModelConfig, seq_len: int, *,
+                   force_window: int = 0):
+    """(local_len, global_len) ring sizes: an alternating config's local
+    rings hold its window and its global rings the whole sequence (a forced
+    window does not apply to them); a uniform config's are one length."""
+    if cfg.local_global_alternating:
+        return min(seq_len, cfg.sliding_window), seq_len
+    ring = ring_length(cfg, seq_len, force_window=force_window)
+    return ring, ring
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
                force_window: int = 0, dtype=torch.bfloat16, device="cuda"):
-    """Layer-stacked ring caches: leaves (L, batch, ring, ...)."""
+    """Layer-stacked ring caches: leaves (L, batch, ring, ...); for an
+    alternating config ``{"local", "global"}`` of (L / 2, batch, ring,
+    ...) each."""
     check_ported(cfg)
-    return init_attn_cache(batch, ring_length(cfg, seq_len,
-                                              force_window=force_window),
-                           cfg.num_kv_heads, cfg.resolved_head_dim(),
-                           layers=cfg.num_layers, dtype=dtype, device=device)
+    ll, gl = _cache_lengths(cfg, seq_len, force_window=force_window)
+    kw = dict(dtype=dtype, device=device)
+    mk = lambda n, ring: init_attn_cache(  # noqa: E731
+        batch, ring, cfg.num_kv_heads, cfg.resolved_head_dim(), layers=n,
+        **kw)
+    if cfg.local_global_alternating:
+        n = cfg.num_layers // 2
+        return {"local": mk(n, ll), "global": mk(n, gl)}
+    return mk(cfg.num_layers, ll)
+
+
+def _block_decode(p, cfg: ModelConfig, x_t, cache, pos, *, window,
+                  prefix_len=None, block_tbl=None, ring_len=None):
+    gemma = cfg.post_block_norm
+    h, _ = attn_decode(p["attn"], cfg,
+                       rmsnorm(p["attn_norm"], x_t, cfg.norm_eps,
+                               gemma_style=gemma),
+                       cache, pos, window=window, prefix_len=prefix_len,
+                       block_tbl=block_tbl, ring_len=ring_len)
+    x_t = x_t + _post_norm(p, "post_attn_norm", cfg, h)
+    return _ffn_half(p, cfg, x_t)[0]
 
 
 def decode_step(params, cfg: ModelConfig, cache, token, pos, *,
@@ -200,21 +331,22 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos, *,
 
     The cache is updated in place and returned.  ``block_tbl``/``ring_len``
     select the paged-pool layout (one shared block pool per layer, one
-    table for every layer; see ``repro_torch.serve.cache_pool``)."""
+    table for every layer; see ``repro_torch.serve.cache_pool``), which
+    needs uniform rings: an alternating config keeps contiguous lanes and
+    raises for a table, as the reference does.  An MoE model's inactive
+    lane still routes its token (and takes expert capacity), as in the
+    reference."""
+    if cfg.local_global_alternating and block_tbl is not None:
+        raise ValueError("paged KV pools require uniform ring lengths; "
+                         "local/global alternating layers keep "
+                         "contiguous lanes")
     x = embed_tokens(params, cfg, token)
-    w = force_window or cfg.sliding_window
-    for i in range(cfg.num_layers):
-        lp = layer(params["layers"], i)
-        h, _ = attn_decode(lp["attn"], cfg,
-                           rmsnorm(lp["attn_norm"], x, cfg.norm_eps),
-                           layer(cache, i), pos, window=w,
-                           prefix_len=prefix_len, block_tbl=block_tbl,
-                           ring_len=ring_len)
-        x = x + h
-        x = x + mlp(lp["mlp"], rmsnorm(lp["mlp_norm"], x, cfg.norm_eps),
-                    cfg.activation)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return logits_fn(params, cfg, x), cache
+    for stack, i, w in schedule(cfg, force_window or cfg.sliding_window):
+        x = _block_decode(_at(params["layers"], stack, i), cfg, x,
+                          _at(cache, stack, i), pos, window=w,
+                          prefix_len=prefix_len, block_tbl=block_tbl,
+                          ring_len=ring_len)
+    return logits_fn(params, cfg, final_norm(params, cfg, x)), cache
 
 
 # ---------------------------------------------------------------------------
@@ -278,8 +410,9 @@ def _stripe_runs(S: int, take: int, cache_len: int, lo: int, size: int):
 def _finalize_prefill(params, cfg: ModelConfig, x, cache, true_len):
     """Last-token logits; with ``true_len`` (B,) (right-padded prompts)
     logits come from row position ``true_len - 1`` and ring slots written
-    by pad positions are invalidated (kv_pos -> -1)."""
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    by pad positions are invalidated (kv_pos -> -1), in both trees of an
+    alternating cache."""
+    x = final_norm(params, cfg, x)
     B, S = x.shape[:2]
     if true_len is None:
         return cache, logits_fn(params, cfg, x[:, -1:, :])
@@ -287,10 +420,17 @@ def _finalize_prefill(params, cfg: ModelConfig, x, cache, true_len):
                          device=x.device).reshape(-1).expand(B)
     rows = torch.arange(B, device=x.device)
     last = x[rows, torch.clamp(tl - 1, 0, S - 1).long()][:, None, :]
-    kvp = cache["kv_pos"]                        # (L, B, cache_len)
-    cache["kv_pos"] = torch.where(kvp >= tl[None, :, None],
-                                  torch.full_like(kvp, -1), kvp)
+    for rings in ((cache["local"], cache["global"])
+                  if cfg.local_global_alternating else (cache,)):
+        kvp = rings["kv_pos"]                    # (L, B, cache_len)
+        rings["kv_pos"] = torch.where(kvp >= tl[None, :, None],
+                                      torch.full_like(kvp, -1), kvp)
     return cache, logits_fn(params, cfg, last)
+
+
+def stack_rings(rings):
+    """A list of one layer's rings each -> the layer-stacked cache."""
+    return {name: torch.stack([r[name] for r in rings]) for name in rings[0]}
 
 
 def prefill(params, cfg: ModelConfig, tokens, *, force_window: int = 0,
@@ -298,12 +438,14 @@ def prefill(params, cfg: ModelConfig, tokens, *, force_window: int = 0,
     """tokens (B, S) -> (cache, last-token logits (B, 1, V)).
 
     Runs the trunk layer by layer, capturing each layer's (k, v) into its
-    ring buffer (layer-stacked leaves (L, B, ring, ...)).  ``true_len`` (B,)
-    marks rows right-padded to a bucket length.
+    ring buffer (layer-stacked leaves (L, B, ring, ...); an alternating
+    config's local layers into rings of its window, its global layers into
+    rings of the whole length).  ``true_len`` (B,) marks rows right-padded
+    to a bucket length.
 
     Under an ambient mesh with a real ``model`` axis, ``tokens`` are this
     rank's rows and each layer's (k, v) goes straight into this rank's
-    stripe of the ring (``dist.sharding.cache_specs``' seq layout), so a
+    stripe of its ring (``dist.sharding.cache_specs``' seq layout), so a
     rank never holds more than one layer's whole ring, and that only
     transiently."""
     check_ported(cfg)
@@ -311,20 +453,26 @@ def prefill(params, cfg: ModelConfig, tokens, *, force_window: int = 0,
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     x = residual_constraint(embed_tokens(params, cfg, tokens))
     kind = "prefix" if prefix_len is not None else "causal"
-    ring = ring_length(cfg, max(S, cache_len), force_window=force_window)
-    _, lo, size = cache_stripe(ring)
-    w = force_window or cfg.sliding_window
+    ll, gl = _cache_lengths(cfg, max(S, cache_len),
+                            force_window=force_window)
     cache_dtype = dtype_of(cfg.compute_dtype)
-    rings = []
-    for i in range(cfg.num_layers):
+    rings = {"local": [], "global": [], None: []}
+    for stack, i, w in schedule(cfg, force_window or cfg.sliding_window):
         kv = []
-        x = _block(layer(params["layers"], i), cfg, x, positions=positions,
-                   window=w, kind=kind, prefix_len=prefix_len, capture=kv)
+        x, _ = _block(_at(params["layers"], stack, i), cfg, x,
+                      positions=positions, window=w, kind=kind,
+                      prefix_len=prefix_len, capture=kv)
         x = residual_constraint(x)
         k, v = kv[0]
-        rings.append(_scatter_ring(k.to(cache_dtype), v.to(cache_dtype),
-                                   positions, ring, lo, size))
+        ring = gl if stack == "global" else ll
+        _, lo, size = cache_stripe(ring)
+        rings[stack].append(_scatter_ring(k.to(cache_dtype),
+                                          v.to(cache_dtype), positions,
+                                          ring, lo, size))
         del kv, k, v
-    cache = {name: torch.stack([r[name] for r in rings])
-             for name in rings[0]}
+    if cfg.local_global_alternating:
+        cache = {"local": stack_rings(rings["local"]),
+                 "global": stack_rings(rings["global"])}
+    else:
+        cache = stack_rings(rings[None])
     return _finalize_prefill(params, cfg, x, cache, true_len)

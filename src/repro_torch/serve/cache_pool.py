@@ -2,8 +2,9 @@
 paged block-KV pool.
 
 ``CachePool`` preallocates ``num_slots`` full-length ring lanes, leaves
-``(L, num_slots, ring, ...)``; a request is placed by copying its batch-1
-prefill cache into lane ``slot``.
+``(L, num_slots, ring, ...)`` (an alternating config's two trees, local and
+global rings, alike); a request is placed by copying its batch-1 prefill
+cache into lane ``slot``.
 
 ``PagedCachePool`` holds ONE shared block pool per leaf, ``(L, n_blocks,
 block_size, ...)``, plus a host-side block table ``(num_slots,
@@ -41,8 +42,11 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers.attention import init_attn_cache
-from repro_torch.models.transformer import (check_ported, dtype_of,
-                                            init_cache, ring_length)
+from repro_torch.models.registry import get_model
+from repro_torch.models.transformer import dtype_of, ring_length
+
+# The families whose every layer has one ring geometry (the reference's).
+PAGED_FAMILIES = ("dense", "moe")
 
 
 class _LanePool:
@@ -76,10 +80,9 @@ class CachePool(_LanePool):
     def __init__(self, cfg, num_slots: int, cache_len: int, *,
                  force_window: int = 0, device="cuda"):
         super().__init__(num_slots, cache_len)
-        self.cache = init_cache(cfg, num_slots, cache_len,
-                                force_window=force_window,
-                                dtype=dtype_of(cfg.compute_dtype),
-                                device=device)
+        self.cache = get_model(cfg).init_cache(
+            cfg, num_slots, cache_len, force_window=force_window,
+            dtype=dtype_of(cfg.compute_dtype), device=device)
 
     @property
     def pool_blocks(self) -> int:
@@ -95,10 +98,15 @@ class CachePool(_LanePool):
         return 0.0
 
     def insert(self, req_cache, slot: int) -> None:
-        """Copy a batch-1 prefill cache (leaves (L, 1, ring, ...)) into lane
-        ``slot``."""
-        for name, leaf in self.cache.items():
-            leaf[:, slot] = req_cache[name][:, 0].to(leaf.dtype)
+        """Copy a batch-1 prefill cache (leaves (L, 1, ring, ...), one tree
+        or the local/global pair) into lane ``slot``."""
+        def put(pool, req):
+            for name, leaf in pool.items():
+                if isinstance(leaf, dict):
+                    put(leaf, req[name])
+                else:
+                    leaf[:, slot] = req[name][:, 0].to(leaf.dtype)
+        put(self.cache, req_cache)
 
 
 # ---------------------------------------------------------------------------
@@ -207,7 +215,11 @@ class PagedCachePool(_LanePool):
                  block_size: int = 0, pool_blocks: int = 0,
                  force_window: int = 0, device="cuda"):
         super().__init__(num_slots, cache_len)
-        check_ported(cfg)                      # one ring geometry per layer
+        if cfg.family not in PAGED_FAMILIES or cfg.local_global_alternating:
+            raise ValueError(
+                f"paged KV pools need one uniform ring geometry per layer "
+                f"(families {PAGED_FAMILIES}, no local/global alternation); "
+                f"got {cfg.family!r}")
         ring_len = ring_length(cfg, cache_len, force_window=force_window)
         block_size = block_size or auto_block_size(ring_len)
         if ring_len % block_size:

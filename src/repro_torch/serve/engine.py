@@ -8,8 +8,12 @@ its horizon or stop token and its lane is recycled.  The per-slot batch
 rows keep one fixed shape whatever the batch composition, so the step can
 later be captured in a CUDA graph.
 
-Cache layout: the paged block pool by default (one shared block pool plus
-per-lane block tables; ``paged=False`` gives contiguous lanes).  Paged
+Cache layout: the paged block pool by default where every layer has one
+ring geometry (the dense and MoE families without local/global
+alternation, unless ``REPRO_PAGED_KV=0``: one shared block pool plus
+per-lane block tables), contiguous lanes otherwise or with
+``paged=False``; gemma2's local and global rings keep contiguous lanes, and
+``paged=True`` raises for them, as in the reference.  Paged
 decode grants blocks on demand as a request's write position crosses a
 block boundary; on pool exhaustion the request parks (its lane masked
 inactive) until frees arrive, and if every resident is parked the youngest
@@ -95,8 +99,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.fault.clock import VirtualClock
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models.registry import get_model
-from repro_torch.serve.cache_pool import (CachePool, PagedCachePool,
-                                          PoolExhausted)
+from repro_torch.serve.cache_pool import (PAGED_FAMILIES, CachePool,
+                                          PagedCachePool, PoolExhausted)
 from repro_torch.serve.journal import RequestJournal
 from repro_torch.serve.metrics import EngineMetrics
 from repro_torch.serve.request import (FinishedRequest, GenState,
@@ -106,6 +110,10 @@ from repro_torch.serve.sampling import row_generator, sample_vec
 from repro_torch.serve.scheduler import (FIFOScheduler, SchedulerConfig,
                                          bucket_len)
 
+# right-pad-safe prefill (causal attention only, no recurrence): the
+# reference's set
+_BUCKETABLE = ("dense", "moe")
+
 
 class ForecastEngine:
     """Request-level serving engine: admit -> prefill-into-slot -> batched
@@ -114,7 +122,7 @@ class ForecastEngine:
     def __init__(self, cfg: ModelConfig, params, *, num_slots: int = 4,
                  cache_len: int = 256, max_tokens_in_flight: int = 0,
                  prefill_chunk: int = 0, prefill_bucket: int = 0,
-                 force_window: int = 0, paged: bool = True,
+                 force_window: int = 0, paged: Optional[bool] = None,
                  block_size: int = 0, pool_blocks: int = 0,
                  share_prefixes: Optional[bool] = None,
                  swap_tier: Optional[bool] = None,
@@ -124,12 +132,19 @@ class ForecastEngine:
                  default_deadline_s: Optional[float] = None,
                  default_ttft_slo_s: Optional[float] = None,
                  journal=None, device="cuda"):
+        if prefill_bucket and cfg.family not in _BUCKETABLE:
+            raise ValueError(f"prefill_bucket requires a causal-attention "
+                             f"prefill (families {_BUCKETABLE})")
         self.cfg = cfg
         self.params = params
         self.api = get_model(cfg)
         self.device = torch.device(device)
         self.prefill_bucket = prefill_bucket
         self.force_window = force_window
+        if paged is None:                     # default on where eligible
+            paged = (os.environ.get("REPRO_PAGED_KV", "1") != "0"
+                     and cfg.family in PAGED_FAMILIES
+                     and not cfg.local_global_alternating)
         self.paged = paged
         if paged:
             self.pool = PagedCachePool(cfg, num_slots, cache_len,
@@ -197,8 +212,14 @@ class ForecastEngine:
         # SLO windows anchor at the first submit (requeues and resumes keep
         # it); a shed request's retry starts a fresh one
         self._slo_submit: Dict[str, float] = {}
-        # global-attention rings must hold the whole sequence
-        self._ring_is_global = cfg.sliding_window == 0 and not force_window
+        # global-attention rings must hold the whole sequence: a uniform
+        # config with no window, and an alternating config, whose global
+        # rings are ``cache_len`` long whatever its window (the reference
+        # admits such a request there, and its global layers then wrap)
+        self._ring_is_global = (cfg.family in _BUCKETABLE
+                                and (cfg.local_global_alternating
+                                     or (cfg.sliding_window == 0
+                                         and not force_window)))
 
         # fixed-shape per-slot batch rows: host-side admission and eviction
         # only rewrite rows

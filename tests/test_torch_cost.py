@@ -298,16 +298,17 @@ def test_shape_rule_on_fake_cuda_tensors(name, entry, args, kw):
 
 
 def test_shape_rule_refuses_what_the_kernel_refuses():
-    """smollm-360m's heads (15 / 5: G = 3) have no flash-decode instance:
-    the shape rule raises the kernel's own message, where the plain
-    version would run.  A cross-row NF4 block is refused by qlora's."""
-    args, kw = _decode_inputs("cpu", Hk=5, G=3)
+    """Heads of 15 / 5 (G = 3) at D 128 have no flash-decode instance
+    (smollm-360m's D 64 has one): the shape rule raises the kernel's own
+    message, where the plain version would run.  A cross-row NF4 block is
+    refused by qlora's."""
+    args, kw = _decode_inputs("cpu", Hk=5, G=3, D=128)
     ops.flash_decode(*args, **kw)                     # the plain version
     mode = FakeTensorMode(allow_non_fake_inputs=True)
     fargs = _fake(mode, args, "cuda")
     with mode, pytest.raises(ValueError, match=r"flash_decode kernel: "
                              r"\(G, D\) = \(H/Hk, D\) must be one of .* "
-                             r"got H/Hk = 15/5, D = 64"):
+                             r"got H/Hk = 15/5, D = 128"):
         ops.flash_decode(*fargs, **{k: _fake(mode, x, "cuda")
                                     for k, x in kw.items()})
     x = torch.ones(4, 6, dtype=torch.bfloat16)

@@ -392,7 +392,7 @@ def test_ring_stripe_from_shapes_equals_the_masked_select(S, cache_len,
                                whole[name][:, r * size:(r + 1) * size])
 
 
-def test_cli_writes_the_reference_keys(tmp_path, capsys):
+def test_cli_writes_the_reference_keys(tmp_path, capsys, monkeypatch):
     dryrun.main(["--arch", "qwen3-0.6b", "--shape", "decode_32k", "--mesh",
                  "single", "--outdir", str(tmp_path)])
     assert "OK   qwen3-0.6b x decode_32k x single" in capsys.readouterr().out
@@ -407,6 +407,11 @@ def test_cli_writes_the_reference_keys(tmp_path, capsys):
                                 "temp_bytes", "alias_bytes"}
     assert r["port"] == "torch" and r["num_devices"] == 256
     assert not any(k.startswith("xla_") for k in r)
+    # a pair whose kernel call the shape rule refuses fails the CLI: smollm
+    # with its (G, D) = (3, 64) instance taken out of the kernels' table
+    from repro_torch.kernels import flash_decode as fd
+    monkeypatch.setattr(fd, "HEAD_GEOMETRIES", tuple(
+        g for g in fd.HEAD_GEOMETRIES if g != (3, 64)))
     with pytest.raises(SystemExit):
         dryrun.main(["--arch", "smollm-360m", "--shape", "decode_32k",
                      "--outdir", str(tmp_path)])

@@ -16,7 +16,7 @@ what rounding those f32 outputs allows: |got - want| <= 2**-8 (|got| +
 value).  Block copies
 and empty rows are exact.  Both flash-decode kernels are built for the
 ported configurations' head geometries, (G, D) in {(2, 64), (2, 128), (1,
-32), (1, 128)}, and refuse the rest.  Ring
+32), (1, 128), (3, 64), (4, 128)}, and refuse the rest.  Ring
 and paged are held at the card's split policy and at explicit split
 counts, at lengths (slots or table entries) that no split count divides,
 with idle lanes (q_pos -1) and empty rings or tables, through
@@ -130,7 +130,7 @@ def _assert_matches_plain(args, kw):
     return got
 
 
-HEADS = [(2, 64), (2, 128), (1, 32), (1, 128)]     # (G, D) built
+HEADS = [(2, 64), (2, 128), (1, 32), (1, 128), (3, 64), (4, 128)]  # built
 HEAD_IDS = [f"G{g}-D{d}" for g, d in HEADS]
 
 
@@ -144,7 +144,8 @@ def test_contiguous_kernel_matches_plain(cuda, dtype, G, D):
     assert torch.count_nonzero(got[1]) == 0          # empty row: exactly 0
 
 
-@pytest.mark.parametrize("G,D", [(4, 128), (2, 96), (1, 64), (2, 32)])
+@pytest.mark.parametrize("G,D", [(4, 64), (3, 128), (2, 96), (1, 64),
+                                 (2, 32)])
 def test_kernel_refuses_other_head_geometries(cuda, G, D):
     """Ring and paged alike refuse a geometry they are not built for, and
     count no launch."""
@@ -167,16 +168,20 @@ def test_kernel_refuses_other_head_geometries(cuda, G, D):
                                                         prefix_len=100),
                                 dict(kind="full"), dict(softcap=5.0)],
                          ids=["window", "prefix", "full", "softcap"])
-@pytest.mark.parametrize("G,D", [(2, 128), (1, 128), (1, 32)],
-                         ids=["G2-D128", "G1-D128", "G1-D32"])
+@pytest.mark.parametrize("G,D", [(2, 128), (1, 128), (1, 32), (3, 64),
+                                 (4, 128)],
+                         ids=["G2-D128", "G1-D128", "G1-D32", "G3-D64",
+                              "G4-D128"])
 def test_contiguous_kernel_masks(cuda, kw, G, D):
     q, k, v, kv_pos, pos, _ = _ring(cuda, B=2, S=640, Hk=2, G=G, D=D,
                                     dtype=torch.float32, wrap=True, seed=3)
     _assert_matches_plain((q, k, v, kv_pos, pos), kw)
 
 
-@pytest.mark.parametrize("G,D", [(2, 128), (1, 128), (1, 32)],
-                         ids=["G2-D128", "G1-D128", "G1-D32"])
+@pytest.mark.parametrize("G,D", [(2, 128), (1, 128), (1, 32), (3, 64),
+                                 (4, 128)],
+                         ids=["G2-D128", "G1-D128", "G1-D32", "G3-D64",
+                              "G4-D128"])
 def test_return_partials(cuda, G, D):
     q, k, v, kv_pos, pos, _ = _ring(cuda, B=2, S=4096, Hk=2, G=G, D=D,
                                     dtype=torch.float32, empty_row=0, seed=4)
@@ -253,8 +258,10 @@ def test_paged_kernel_matches_plain(cuda, dtype, G, D, n_splits):
 
 @pytest.mark.parametrize("n_splits", [0, 1, 3, 8],
                          ids=["card", "1", "3", "8"])
-@pytest.mark.parametrize("G,D", [(2, 128), (1, 128), (1, 32)],
-                         ids=["G2-D128", "G1-D128", "G1-D32"])
+@pytest.mark.parametrize("G,D", [(2, 128), (1, 128), (1, 32), (3, 64),
+                                 (4, 128)],
+                         ids=["G2-D128", "G1-D128", "G1-D32", "G3-D64",
+                              "G4-D128"])
 def test_paged_return_partials(cuda, G, D, n_splits):
     """The paged kernel's merged f32 partials (m, l, acc) against the plain
     version's; an idle lane (no granted entry) gives m = -1e30, l = 0,
@@ -479,11 +486,16 @@ def test_launch_counters(cuda):
                            "paged_block_copy": 2}
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "fedtime-llama2-7b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "fedtime-llama2-7b",
+                                  "qwen3-1.7b", "gemma2-27b", "smollm-360m",
+                                  "mixtral-8x7b"])
 def test_smoke_model_on_card_matches_cpu(cuda, arch):
-    """The smoke config in f32 (qwen3-0.6b: G = 2, D 64; fedtime-llama2-7b:
-    G = 1, D 32): prefill + 4 decode steps on the card (the kernels) against
-    the CPU (the plain versions), same weights."""
+    """The smoke config in f32 (qwen3-0.6b, qwen3-1.7b, gemma2-27b's local
+    and global rings, mixtral-8x7b: G = 2, D 64; fedtime-llama2-7b: G = 1,
+    D 32; smollm-360m: G = 3, D 64): prefill + 4 decode steps on the card
+    (the kernels) against the CPU (the plain versions), same weights.
+    qwen2-moe-a2.7b's smoke heads (G 1, D 64) have no instance: its full
+    width (G 1, D 128) runs in chip_smoke.py's phase 12."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.registry import get_model
     cfg = get_smoke_config(arch)

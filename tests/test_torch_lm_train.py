@@ -252,12 +252,12 @@ def test_batch_shapes_match_reference():
         got = registry.decode_batch_shapes(cfg, 5)
         assert {k: s for k, (s, _) in got.items()} == \
             {k: s for k, (s, _) in want.items()}
-    moe = get_smoke_config("qwen3-0.6b").replace(family="moe")
+    ssm = get_smoke_config("qwen3-0.6b").replace(family="ssm")
     for fn, args in ((registry.train_batch_shapes, (2, 8)),
                      (registry.decode_batch_shapes, (2,)),
                      (registry.get_model, ())):
         with pytest.raises(NotImplementedError):
-            fn(moe, *args)
+            fn(ssm, *args)
 
 
 def test_smollm_config_equals_reference():
