@@ -205,6 +205,11 @@ Phases, each printing its numbers beside the card's name and power limit:
         moments exactly the whole's / data ways; the federated step's
         psum the adapter payload (+ count and loss) and its gather the
         payload; every rank alike;
+     d. 2 ranks on the one card: one MoE ``make_train_step`` on (data 2,
+        model 1) at qwen2-moe-a2.7b's published widths in f32, depth cut
+        from 24 to 1 layer (TRAIN_MOE), 512 tokens a rank (one expert
+        group), held to the one-rank step with 10c's limits beside a
+        planted fault (the router's top-1 counts not psummed);
   11. the dry run against the card (after 10, before 6):
      a. ``launch.dryrun.run_one`` in fake worlds of the installed
         PyTorch: qwen3-0.6b at decode_32k and long_500k on the single mesh
@@ -242,13 +247,24 @@ Phases, each printing its numbers beside the card's name and power limit:
      engine); each model's init peak, run peak and launches (set to 0 at
      its start), a few of its own flash-decode calls held to the plain
      version (the long rows' first local and global calls among them);
+  12b. xlstm-350m (family ssm: 20 mLSTM and 4 sLSTM blocks, d_model 1024,
+     vocab 50,304, bf16, no cut), which launches no kernel of the port
+     (every count, set to 0 before, reads 0 after): the fixed batch (4 x
+     512, 64 steps), one 500-token row (the padded chunk path), prefill +
+     3 decode steps against a prefill of those 515 tokens in f32 (a
+     planted wrong token and two prefills at batch 4 and 2 beside), the
+     engine on contiguous lanes (12 requests, 12 slots, Poisson arrivals)
+     with its greedy tokens equal to the fixed-batch path's on the same
+     prompts and each retired lane's state equal bit for bit at the end;
+     weights, init and run peaks, tok/s, ITL, TTFT, the sLSTM prefill
+     loops' wall;
   6. check the model path on the card against the plain path on the CPU at
      the smoke configs in f32: prefill + teacher-forced decode (ring and
      paged) of qwen3-0.6b and of fedtime-llama2-7b (G = 1), of
      qwen3-1.7b, gemma2-27b (ring only: its two ring lengths keep
      contiguous lanes), smollm-360m (G = 3), mixtral-8x7b and
      qwen2-moe-a2.7b (at head_dim 128: its smoke heads have no
-     instance), a 2-round fit
+     instance), xlstm-350m (its contiguous states), a 2-round fit
      on the int8 wire, and 4 steps of ``trainer.fit`` of FedTime's smoke
      config and of each Table 2 model at a small width (step losses within
      TOL_FIT_LOSS).
@@ -1432,23 +1448,25 @@ def phase_main_path(card: str, arch: str) -> dict:
 
 
 @contextlib.contextmanager
-def _checked_logits():
-    """Keeps a finiteness flag of every logits tensor the trunk computes
-    while it is open (a list, yielded)."""
+def _checked_logits(module=None):
+    """Keeps a finiteness flag of every logits tensor the model computes
+    while it is open (a list, yielded): the trunk's, or ``module``'s (a
+    model module that imported ``logits_fn``)."""
     from repro_torch.models import transformer
+    module = module or transformer
     finite = []
-    real = transformer.logits_fn
+    real = module.logits_fn
 
     def checked_logits(*a, **k):
         lg = real(*a, **k)
         finite.append(torch.isfinite(lg).all())
         return lg
 
-    transformer.logits_fn = checked_logits
+    module.logits_fn = checked_logits
     try:
         yield finite
     finally:
-        transformer.logits_fn = real
+        module.logits_fn = real
 
 
 def _run_main_path(card: str, cfg, params) -> dict:
@@ -1713,6 +1731,278 @@ def phase_families(card: str) -> dict:
     print(f"[{card}] phase 12 wall {time.perf_counter() - t_all:.1f} s "
           f"(host clock)")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12b: the recurrent family (xlstm-350m) at full width
+# ---------------------------------------------------------------------------
+
+# The fixed batch is FIXED (4 x 512, 64 steps); then one 500-token row
+# (padded to four 128-token chunks; 16 steps); prefill of a 512-token
+# prompt (a chunk multiple) + XLSTM_K decode steps against a prefill of the
+# prompt and those tokens; the engine on contiguous lanes: XLSTM_ENGINE's
+# Poisson trace, one request a slot.
+XLSTM_SHORT = dict(batch=1, prompt_len=500, gen=16)
+XLSTM_K = 3
+XLSTM_ENGINE = dict(requests=12, slots=12, gen=32, max_prompt=512, rate=1.0)
+# Prefill + XLSTM_K decode steps against one longer prefill, in f32 at
+# the published widths: the chunkwise and the recurrent forms round in
+# another order, and xlstm-350m at random weights amplifies a rounding
+# through its 24 blocks (``tools/xlstm_sensitivity.py``: 1e-6 of
+# relative noise on the embeddings moves position 511's f32 logits by
+# tenths; in bf16 one prompt at batch 4 and at batch 2 gives logits units
+# apart), so the check is made in f32, beside two prefills whose GEMMs
+# round apart and a planted wrong token (read: 0.0299, the two prefills
+# 0.0672, planted 6.25; bf16 3.85).
+XLSTM_LOGIT_TOL = 0.2
+
+
+@contextlib.contextmanager
+def _slstm_walls():
+    """The wall of every ``slstm_block_forward`` call while it is open (a
+    list of seconds, yielded; the card synchronised around each)."""
+    from repro_torch.models import xlstm_model
+    walls = []
+    real = xlstm_model.slstm_block_forward
+
+    def timed(*a, **k):
+        out, wall = _timed("cuda", real, *a, **k)
+        walls.append(wall)
+        return out
+
+    xlstm_model.slstm_block_forward = timed
+    try:
+        yield walls
+    finally:
+        xlstm_model.slstm_block_forward = real
+
+
+@contextlib.contextmanager
+def _retired_lanes():
+    """Snapshots of each lane's state as its request retires (a list of
+    ``(slot, engine step, leaves)``, yielded)."""
+    from repro_torch import tree as tree_util
+    from repro_torch.serve.engine import ForecastEngine
+    real = ForecastEngine._retire
+    snaps = []
+
+    def retire(self, st, reason):
+        axes = tree_util.leaves(self.pool.batch_axes)
+        snaps.append((st.slot, self.step_count, [
+            leaf.select(ax, st.slot).clone() for leaf, ax in
+            zip(tree_util.leaves(self.pool.cache), axes)]))
+        return real(self, st, reason)
+
+    ForecastEngine._retire = retire
+    try:
+        yield snaps
+    finally:
+        ForecastEngine._retire = real
+
+
+def _lanes_path_tokens(cfg, params, trace, slots: int) -> dict:
+    """The fixed-batch path fed the engine's prompts: each prompt
+    prefilled alone (batch 1, as the engine prefills it) into lane i of a
+    pool of ``slots`` lanes, then synchronous greedy decode steps of every
+    lane at once (a decode computes each row alone, so a lane's tokens do
+    not depend on the others')."""
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve.cache_pool import CachePool
+    api = get_model(cfg)
+    pool = CachePool(cfg, slots, 1, device="cuda")
+    first = torch.zeros((slots, 1), dtype=torch.int64, device="cuda")
+    for i, r in enumerate(trace):
+        c1, lg = api.prefill(params, cfg, {"tokens": torch.tensor(
+            [r["prompt"]], device="cuda")})
+        pool.insert(c1, i)
+        first[i, 0] = lg[0, -1].argmax()
+        del c1
+    tok, out = first, [first]
+    for _ in range(max(r["max_new_tokens"] for r in trace) - 1):
+        lg, new = api.decode_step(params, cfg, pool.cache,
+                                  {"token": tok, "pos": 0})
+        pool.cache = new
+        tok = lg[:, -1].argmax(dim=-1)[:, None]
+        out.append(tok)
+    toks = torch.cat(out, 1).cpu().numpy()
+    return {r["id"]: toks[i, :r["max_new_tokens"]].tolist()
+            for i, r in enumerate(trace)}
+
+
+def _xlstm_decode_vs_prefill(cfg, api, params=None) -> tuple:
+    """(logits max error of prefill + XLSTM_K decode steps against a
+    prefill of the prompt and those tokens; the gap between that prefill
+    at batch 4 and at batch 2 on its first two rows; the error with the
+    first decode step fed a wrong token), at the published widths in f32
+    (``params`` None: drawn here) or with ``params``."""
+    if params is None:
+        cfg = cfg.replace(param_dtype="float32", compute_dtype="float32")
+        params = api.init(cfg, torch.Generator(device="cuda").manual_seed(
+            0), device="cuda")
+    P, k, B = FIXED["prompt_len"], XLSTM_K, FIXED["batch"]
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (B, P + k)), device="cuda")
+
+    def decoded(first):
+        cache, lg = api.prefill(params, cfg, {"tokens": toks[:, :P]})
+        for i in range(k):
+            tok = toks[:, P + i:P + i + 1]
+            lg, cache = api.decode_step(params, cfg, cache, {
+                "token": tok if i else first(tok), "pos": P + i})
+        return lg.float()
+
+    def gap(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    _, want = api.prefill(params, cfg, {"tokens": toks})
+    _, half = api.prefill(params, cfg, {"tokens": toks[:2]})
+    return (gap(decoded(lambda t: t), want), gap(want[:2], half),
+            gap(decoded(lambda t: (t + 1) % cfg.vocab_size), want))
+
+
+def phase_recurrent(card: str) -> None:
+    """Phase 12b: serve xlstm-350m at its published widths (24 layers:
+    20 mLSTM and 4 sLSTM blocks, d_model 1024, 4 heads, vocab 50,304, bf16)
+    with random weights drawn on the card from a seed: the fixed batch, a
+    500-token row on the padded chunk path, prefill + decode against a
+    longer prefill, then the engine on contiguous lanes, its greedy tokens
+    against the fixed-batch path fed the same prompts and a retired lane's
+    state held bit for bit.  xLSTM launches no kernel of the port: every
+    launch count, set to 0 before, reads 0 after."""
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_trace, run_engine, \
+        run_fixed_batch
+    from repro_torch.models import xlstm_model
+    from repro_torch.models.registry import get_model
+    t_all = time.perf_counter()
+    for mod in _kernel_modules():
+        mod.reset_launches()
+    cfg = get_config("xlstm-350m")
+    api = get_model(cfg)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                      device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = sum(t.numel() * t.element_size()
+                  for t in tree_util.leaves(params))
+    print(f"[{card}] phase 12b {cfg.name}: {cfg.num_layers} layers (sLSTM "
+          f"every {cfg.xlstm.slstm_every}th), d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads, mLSTM proj {cfg.xlstm.mlstm_proj_factor}"
+          f", conv {cfg.xlstm.conv_width}, chunk {cfg.xlstm.chunk_size}, "
+          f"vocab {cfg.vocab_size}, {cfg.param_dtype}: weights "
+          f"{_gib(weights):.2f} GiB ({weights / 1e9:.3f} GB) drawn in "
+          f"{init_s:.1f} s, init peak "
+          f"{_gib(torch.cuda.max_memory_allocated() - base):.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+
+    # the fixed batch, and one row on the padded chunk path
+    with _slstm_walls() as walls:
+        t0 = time.perf_counter()
+        res = run_fixed_batch(cfg, params, device="cuda", quiet=True,
+                              **FIXED)
+        wall = time.perf_counter() - t0
+    _check(res["finite"], "phase 12b fixed batch: non-finite logits")
+    _check(res["tokens"].shape == (FIXED["batch"], FIXED["gen"] + 1),
+           "phase 12b fixed batch: token shape")
+    print(f"[{card}] phase 12b fixed batch {cfg.name}: prefill "
+          f"{FIXED['batch']}x{FIXED['prompt_len']} "
+          f"{res['prefill_tok_per_s']:.0f} tok/s (its 4 sLSTM blocks' "
+          f"one-position-a-step loops {sum(walls):.3f} s: "
+          + ", ".join(f"{w:.3f}" for w in walls) + " s), decode first step "
+          f"{res['first_step_s']:.3f} s, steady {res['decode_tok_per_s']:.1f}"
+          f" tok/s ({FIXED['gen'] - 1} steps x {FIXED['batch']}), wall "
+          f"{wall:.1f} s")
+    short = run_fixed_batch(cfg, params, device="cuda", quiet=True,
+                            **XLSTM_SHORT)
+    _check(short["finite"] and short["tokens"].shape == (
+        1, XLSTM_SHORT["gen"] + 1), "phase 12b: the 500-token row is "
+           "non-finite or short")
+    chunk = cfg.xlstm.chunk_size
+    print(f"[{card}] phase 12b one {XLSTM_SHORT['prompt_len']}-token row "
+          f"(padded to {-(-XLSTM_SHORT['prompt_len'] // chunk) * chunk}): "
+          f"prefill"
+          f" {short['prefill_tok_per_s']:.0f} tok/s, steady "
+          f"{short['decode_tok_per_s']:.1f} tok/s, finite")
+
+    # prefill + k decode steps against the longer prefill, held in f32
+    err, noise, planted = _xlstm_decode_vs_prefill(cfg, api)
+    bf16 = _xlstm_decode_vs_prefill(cfg, api, params)[0]
+    _check(err <= XLSTM_LOGIT_TOL and planted > XLSTM_LOGIT_TOL,
+           f"phase 12b: prefill + {XLSTM_K} decode steps vs the longer "
+           f"prefill (f32): logits max err {err}, planted {planted}, tol "
+           f"{XLSTM_LOGIT_TOL}")
+    print(f"[{card}] phase 12b prefill {FIXED['batch']}x"
+          f"{FIXED['prompt_len']} + {XLSTM_K} decode steps vs a prefill of "
+          f"{FIXED['prompt_len'] + XLSTM_K} tokens, at full width in f32: "
+          f"logits max_abs_err {err:.4g} (tol {XLSTM_LOGIT_TOL}); two "
+          f"prefills of those tokens at batch 4 and 2 (their GEMMs round "
+          f"apart) {noise:.4g}; planted (decode fed one wrong token) "
+          f"{planted:.4g}; the same comparison in bf16 {bf16:.4g} (random "
+          f"weights amplify a rounding through 24 blocks)")
+
+    # the engine on contiguous lanes
+    E = XLSTM_ENGINE
+    trace = make_trace(cfg, E["requests"], gen=E["gen"],
+                       max_prompt=E["max_prompt"], rate=E["rate"], seed=0)
+    cache_len = max(len(r["prompt"]) for r in trace) + E["gen"]
+    with _retired_lanes() as snaps, \
+            _checked_logits(xlstm_model) as finite:
+        t0 = time.perf_counter()
+        done, summ, engine = run_engine(cfg, params, trace, device="cuda",
+                                        quiet=True, slots=E["slots"],
+                                        cache_len=cache_len)
+        wall = time.perf_counter() - t0
+    _check(not engine.paged, "phase 12b engine: not on contiguous lanes")
+    _check(len(done) == len(trace), "phase 12b engine: not every request "
+           "finished")
+    for r in trace:
+        _check(len(done[r["id"]].tokens) == r["max_new_tokens"],
+               f"phase 12b engine: {r['id']} stopped short")
+    _check(finite and all(bool(f) for f in finite),
+           "phase 12b engine: non-finite logits")
+    last = engine.step_count
+    frozen = [(slot, at) for slot, at, leaves in snaps if at < last]
+    for slot, at, leaves in snaps:
+        now = [leaf.select(ax, slot) for leaf, ax in zip(
+            tree_util.leaves(engine.pool.cache),
+            tree_util.leaves(engine.pool.batch_axes))]
+        _check(all(_bits_equal(a, b) for a, b in zip(now, leaves)),
+               f"phase 12b engine: retired lane {slot} (step {at}) drifted "
+               f"by step {last}")
+    _check(len(frozen) >= 1, "phase 12b engine: no lane retired before the "
+           "last step")
+    got = {r["id"]: done[r["id"]].tokens.tolist() for r in trace}
+    want = _lanes_path_tokens(cfg, params, trace, E["slots"])
+    _check(got == want, "phase 12b engine: greedy tokens differ from the "
+           "fixed-batch path's on the same prompts: " + str(
+               [i for i in got if got[i] != want[i]]))
+    lens = sorted(len(r["prompt"]) for r in trace)
+    print(f"[{card}] phase 12b engine {cfg.name}, contiguous lanes: "
+          f"{summ['requests']} requests (prompts {lens[0]}-{lens[-1]} "
+          f"tokens, {sum(n % chunk != 0 for n in lens)} padded), "
+          f"{summ['decode_tokens']} decode tokens in {summ['decode_steps']} "
+          f"steps, {summ['steady_tok_per_s']:.1f} tok/s steady, itl p50 "
+          f"{summ['itl_p50_s'] * 1e3:.2f} ms, ttft p50 "
+          f"{summ['ttft_p50_s'] * 1e3:.1f} ms, {len(finite)} logits tensors "
+          f"finite, greedy tokens equal to the fixed-batch path's on the "
+          f"same prompts, {len(frozen)} retired lanes held bit for bit "
+          f"through up to {max(last - at for _, at in frozen)} later steps; "
+          f"wall {wall:.1f} s")
+    launches = {k: v for mod in _kernel_modules()
+                for k, v in mod.LAUNCHES.items()}
+    _check(not any(launches.values()), f"phase 12b: a kernel launched on "
+           f"the xLSTM path, which reaches none: {launches}")
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"[{card}] phase 12b {cfg.name}: run peak {_gib(peak):.2f} GiB "
+          f"(weights {_gib(weights):.2f}); kernel launches {launches}; "
+          f"phase 12b wall {time.perf_counter() - t_all:.1f} s (host clock)")
+    del params, engine
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -4494,6 +4784,21 @@ TRAIN_MESH = dict(layers=4, steps=3, world=4, timeout_s=420,
                         "fed": ((4, 1), ("data", "model"))})
 
 
+# 10d: the MoE step on a 2-rank data mesh of the one card, at
+# qwen2-moe-a2.7b's published widths (d_model 2048, 16/16 heads of 128, 60
+# experts top-4 of 1408 plus 4 shared, vocab 151,936) in f32, depth cut from
+# 24 to 1 layer (1.19 B parameters; rank 0 holds the mesh run, the
+# gathered moments and the one-rank run beside it, ~40 GB, while the other
+# rank shares the card); one step at batch 4 x 256, so each rank holds 512
+# tokens, one of the reference's 512-token expert groups (its capacity and
+# drops are the reference's); -1 labels on every other position of data
+# rank 0's rows.  Held to the one-rank step on the global batch with phase
+# 10's limits; planted beside: the router's top-1 counts not psummed (each
+# rank's aux of its own counts, the rule the psum replaced).
+TRAIN_MOE = dict(arch="qwen2-moe-a2.7b", layers=1, world=2, batch=4,
+                 seq=256, timeout_s=600)
+
+
 def _train_errors(got, want, mu1, lr: float) -> tuple:
     """Parameters against a reference run, each leaf against its largest
     |want|: (the largest share of a leaf's elements beyond
@@ -4719,6 +5024,98 @@ def _train_mesh_rank(cfg, batch: int, seq: int, device="cuda"):
     return out
 
 
+def _train_moe_rank(cfg, device="cuda"):
+    """10d in one rank of the 2-rank world: the mesh step and the planted
+    one; rank 0 also runs the one-rank step on the global batch and holds
+    the mesh step to it.  Rank 1 frees the card before rank 0's one-rank
+    run (a barrier)."""
+    import torch.distributed as dist
+    from repro_torch.dist import collectives
+    from repro_torch.dist.sharding import data_specs, local_shard, use_mesh
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.adamw import adamw_init, zero1_gather, zero1_init
+    rank, ways = dist.get_rank(), TRAIN_MOE["world"]
+    batch, lr = TRAIN_MOE["batch"], TRAIN["lr"]
+    mesh = make_mesh((ways, 1), ("data", "model"), device_type=device)
+    params = get_model(cfg).init(
+        cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    b = _train_batches(cfg, 1, batch, TRAIN_MOE["seq"], device)[0]
+    b["labels"][:batch // ways, ::2] = -1
+    mine = local_shard(b, data_specs(b, mesh), mesh)
+    step = steps.make_train_step(cfg, lr=lr)
+    counts = (cfg.num_layers, cfg.moe.num_experts)
+    with use_mesh(mesh):
+        psum = collectives.psum          # planted: the counts not psummed
+        collectives.psum = lambda x, m, axes: (
+            x.clone() if tuple(x.shape) == counts else psum(x, m, axes))
+        try:
+            _, _, planted = step(params, zero1_init(params, mesh), mine, 0)
+        finally:
+            collectives.psum = psum
+        _sync(device)
+        (p, st, loss), wall = _timed(device, step, params,
+                                     zero1_init(params, mesh), mine, 0)
+    whole = zero1_gather(st, params, mesh)
+    del st
+    r = dict(loss=float(loss), planted=float(planted), wall=wall,
+             checksum=_checksum(p), peak_gib=_peak_gib(device))
+    if rank:
+        del p, whole, params
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        p1, st1, l1 = steps.make_train_step(cfg, lr=lr)(
+            params, adamw_init(params), b, 0)
+        r["one_rank"] = dict(loss=float(l1), read=(
+            _loss_error([float(loss)], [float(l1)]),
+            _train_errors(p, p1, st1["mu"], lr), _moment_error(whole, st1)))
+        r["peak_gib"] = _peak_gib(device)
+        del p1, st1, p, whole, params
+    r["launches"] = {k: v for mod in _kernel_modules()
+                     for k, v in mod.LAUNCHES.items()}
+    dist.barrier()
+    return r
+
+
+def _phase_train_moe(card: str, device: str) -> dict:
+    """10d: returns each rank's kernel launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn_local
+    cfg = get_config(TRAIN_MOE["arch"]).replace(
+        num_layers=TRAIN_MOE["layers"], param_dtype="float32",
+        compute_dtype="float32")
+    t0 = time.perf_counter()
+    ranks = spawn_local(TRAIN_MOE["world"], _train_moe_rank, cfg, device,
+                        device_type=device, timeout_s=TRAIN_MOE["timeout_s"])
+    wall = time.perf_counter() - t0
+    one = ranks[0]["one_rank"]
+    _check(len({r["checksum"] for r in ranks}) == 1,
+           "phase 10d: the ranks' parameters differ")
+    _check(_train_within(*one["read"], 1),
+           f"phase 10d: mesh vs one rank over the limits: {one}")
+    planted = abs(ranks[0]["planted"] - one["loss"]) / one["loss"]
+    _check(planted > TOL_TRAIN_LOSS, f"phase 10d: the planted fault's loss "
+           f"is within {TOL_TRAIN_LOSS} of the one-rank loss: {planted}")
+    print(f"[{card}] phase 10d make_train_step on (data 2, model 1), 2 ranks"
+          f" on one card over gloo, {cfg.name} at published widths (d_model"
+          f" {cfg.d_model}, {cfg.moe.num_experts} experts top-"
+          f"{cfg.moe.top_k} + {cfg.moe.num_shared_experts} shared, vocab "
+          f"{cfg.vocab_size}, f32), {cfg.num_layers} of its 24 layers, one "
+          f"step at {TRAIN_MOE['batch']} x {TRAIN_MOE['seq']} (512 tokens a "
+          f"rank, one expert group), -1 labels on data rank 0's rows: loss "
+          f"{ranks[0]['loss']:.6f} vs one rank {one['loss']:.6f}; "
+          f"{_train_reading(*one['read'], 1)}; planted (router counts not "
+          f"psummed): loss {ranks[0]['planted']:.6f}, {planted:.3g} "
+          f"relative; step wall {max(r['wall'] for r in ranks):.2f} s (host "
+          f"clock, slowest rank, gloo staging through the host); peak a "
+          f"rank " + ", ".join(f"{r['peak_gib']:.2f}" for r in ranks)
+          + f" GiB; 10d wall {wall:.1f} s with the world's start")
+    return [r["launches"] for r in ranks]
+
+
 def phase_train(card: str, device="cuda", full: bool = True,
                 batch: int = None, seq: int = None) -> None:
     """Phase 10: the training launcher, which reaches no kernel (every
@@ -4876,9 +5273,14 @@ def phase_train(card: str, device="cuda", full: bool = True,
               + " s (host clock, slowest rank; gloo staging through the "
               f"host on one card, not a link's speed); peak a rank "
               + ", ".join(f"{r['peak_gib']:.2f}" for r in rs) + " GiB")
+    if full:
+        torch.cuda.empty_cache()
+        moe_launches = _phase_train_moe(card, device)
     launches = {k: v for mod in _kernel_modules()
                 for k, v in mod.LAUNCHES.items()}
     rank_launches = [rk["launches"] for rk in ranks]
+    if full:
+        rank_launches += moe_launches
     _check(not any(launches.values()) and
            not any(v for rl in rank_launches for v in rl.values()),
            f"phase 10: a kernel launched on the train path, which reaches "
@@ -5228,9 +5630,10 @@ def _to(tree, dev):
 # Phase 6's smoke configs besides SERVED's: qwen3-1.7b, gemma2-27b (its
 # local and global rings; no paged pool), smollm-360m (G 3, D 64),
 # mixtral-8x7b and qwen2-moe-a2.7b, whose smoke heads (G 1, D 64) have no
-# kernel instance and run at D 128 here (G 1, D 128: its full width's).
+# kernel instance and run at D 128 here (G 1, D 128: its full width's),
+# and xlstm-350m (its recurrent states; no paged pool, no kernel).
 PHASE6_EXTRA = ("qwen3-1.7b", "gemma2-27b", "smollm-360m", "mixtral-8x7b",
-                "qwen2-moe-a2.7b")
+                "qwen2-moe-a2.7b", "xlstm-350m")
 
 
 def phase_reference(card: str, arch: str) -> None:
@@ -5252,7 +5655,7 @@ def phase_reference(card: str, arch: str) -> None:
     table = torch.tensor([[3, 9, 0, 6], [1, 11, 4, -1], [10, 2, 7, 5]],
                          dtype=torch.int32)
     layouts = (("ring",) if cfg.local_global_alternating
-               else ("ring", "paged"))
+               or cfg.family == "ssm" else ("ring", "paged"))
     outs = {}
     for dev in ("cpu", "cuda"):
         p = _to(params, dev)
@@ -5395,6 +5798,8 @@ def main() -> None:
         for name in ("flash_decode", "flash_decode_paged",
                      "paged_block_copy"):
             rows[name][f"phase 12 {arch}"] = {"launches": counts[name]}
+    torch.cuda.empty_cache()
+    phase_recurrent(card)
 
     for arch in SERVED + PHASE6_EXTRA:
         phase_reference(card, arch)

@@ -81,6 +81,27 @@ def _check_dense(params, cfg: ModelConfig) -> None:
                          f"{cfg.num_layers} {cfg.name} routers")
 
 
+def _check_xlstm(params, cfg: ModelConfig) -> None:
+    """An xLSTM tree: the embedding table, the ``(nG, nM)`` stack of mLSTM
+    blocks and the ``(nG,)`` stack of sLSTM blocks."""
+    k = cfg.xlstm.slstm_every if cfg.xlstm is not None else 0
+    if not k or cfg.num_layers % k:
+        raise ValueError(f"params_from_jax: {cfg.name} is not an xLSTM "
+                         f"config")
+    nG, nM, d = cfg.num_layers // k, k - 1, cfg.d_model
+    d_inner = int(cfg.xlstm.mlstm_proj_factor * d)
+    want = {("embed", "table"): (cfg.vocab_size, d),
+            ("mlstm", "block", "up", "w"): (nG, nM, d, 2 * d_inner),
+            ("mlstm", "block", "down", "w"): (nG, nM, d_inner, d),
+            ("slstm", "block", "w_in", "w"): (nG, d, 4 * d),
+            ("final_norm", "scale"): (d,)}
+    for path, shape in want.items():
+        got = _shape(params, *path)
+        if got != shape:
+            raise ValueError(f"params_from_jax: {'/'.join(path)} is {got}, "
+                             f"not {shape} of {cfg.name}")
+
+
 def _check_fedtime(params, cfg: ModelConfig) -> None:
     """The FedTime tree: patch embedding, a block stack whose attention
     weights are plain ``w`` or NF4 ``w_nf4``/``absmax`` (with or without
@@ -121,11 +142,14 @@ def _check_fedtime(params, cfg: ModelConfig) -> None:
 def params_from_jax(tree, cfg: ModelConfig, device="cuda"):
     """The reference's parameter tree (leaves as numpy arrays) -> the port's
     parameters on ``device``.  A tree with a ``patch`` embedding is a
-    FedTime model and is checked as one; any other must describe ``cfg``'s
-    dense or MoE model.  Raises if the tree does not match ``cfg``."""
+    FedTime model and is checked as one, one with ``mlstm`` stacks an
+    xLSTM model; any other must describe ``cfg``'s dense or MoE model.
+    Raises if the tree does not match ``cfg``."""
     params = tree_to_torch(tree, device)
     if "patch" in params:
         _check_fedtime(params, cfg)
+    elif "mlstm" in params:
+        _check_xlstm(params, cfg)
     else:
         _check_dense(params, cfg)
     return params

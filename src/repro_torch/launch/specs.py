@@ -20,7 +20,10 @@ and ``launch.dryrun.measure`` runs the step in it.
 Parameters are what the port holds: whole on every rank (tensor-parallel
 projections are not ported), where the reference shards them over
 ``model``.  ``in_specs`` says so (every parameter ``()``), so what the dry
-run reports is the port's own layout.
+run reports is the port's own layout.  A recurrent family's state is
+likewise whole over ``model`` (``_rows_only``): the port has no
+model-parallel recurrent decode, so each model rank holds its rows' whole
+state, where the reference's rule shards it.
 """
 
 from __future__ import annotations
@@ -34,9 +37,9 @@ from repro_torch import tree as tree_util
 from repro_torch.configs.base import SHAPES_BY_NAME, ModelConfig
 from repro_torch.core.lora import (FAMILY_TARGETS, attach_lora, lora_tree,
                                    quantize_base)
-from repro_torch.dist.sharding import (cache_specs, data_specs, local_shard,
-                                       opt_state_specs)
-from repro_torch.launch.steps import decode_force_window
+from repro_torch.dist.sharding import (_maybe_spec, cache_specs, data_specs,
+                                       local_shard, opt_state_specs)
+from repro_torch.launch.steps import RECURRENT_FAMILIES, decode_force_window
 from repro_torch.models.registry import (decode_batch_shapes, get_model,
                                          train_batch_shapes)
 from repro_torch.optim.adamw import adamw_init, zero1_init
@@ -93,6 +96,21 @@ def param_shapes(cfg: ModelConfig, *, fed: bool = False, mode=None):
 def _fake_batch(shapes: dict) -> dict:
     return {k: torch.zeros(shp, dtype=dt, device=FAKE_DEVICE)
             for k, (shp, dt) in shapes.items()}
+
+
+def _rows_only(specs):
+    """A cache spec tree with ``model`` taken out of every entry: a
+    recurrent state split over the batch's rows only."""
+    if isinstance(specs, dict):
+        return {k: _rows_only(v) for k, v in specs.items()}
+    return _maybe_spec([None if e == "model" else e for e in specs])
+
+
+def _cache_specs(cfg, cache, mesh):
+    """The port's layout of a cache: the reference's rule, but whole over
+    ``model`` for a recurrent family."""
+    specs = cache_specs(cache, mesh)
+    return _rows_only(specs) if cfg.family in RECURRENT_FAMILIES else specs
 
 
 def _meta_cache(cfg, batch: int, seq: int, force_window: int):
@@ -155,13 +173,14 @@ def step_args(cfg: ModelConfig, kind: str, batch: int, seq: int,
             rows = _fake_batch(train_batch_shapes(cfg, batch, seq))
             rows.pop("labels")
             b_spec = data_specs(rows, mesh or one)
-            c_spec = cache_specs(_meta_cache(cfg, batch, seq, 0),
-                                 mesh or one)
+            c_spec = _cache_specs(cfg, _meta_cache(cfg, batch, seq, 0),
+                                  mesh or one)
             return ("prefill", (params, place(rows, b_spec)),
                     (p_spec, b_spec), (c_spec, ()))
 
         fw = decode_force_window(cfg, seq)
-        c_spec = cache_specs(_meta_cache(cfg, batch, seq, fw), mesh or one)
+        c_spec = _cache_specs(cfg, _meta_cache(cfg, batch, seq, fw),
+                              mesh or one)
         cache = place(get_model(cfg).init_cache(
             cfg, batch, seq, force_window=fw, dtype=torch.bfloat16,
             device=FAKE_DEVICE), c_spec)

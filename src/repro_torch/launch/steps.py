@@ -33,6 +33,14 @@ rows ``[m B / accum, (m + 1) B / accum)`` of the global batch, which may
 span ranks: a rank runs its share of each microbatch it meets, over that
 microbatch's global count.  Means taken per rank and then averaged would
 differ wherever labels are -1 and the ranks' counts differ.
+
+An MoE model's router aux loss is that of each global microbatch too
+(``_router_share``): the top-1 counts are psummed before the product.
+Its token groups are each rank's own (``min(512, the rank's tokens)``),
+which are the reference's groups only where a rank's tokens in a
+microbatch are a multiple of the reference's group, ``min(512, the
+microbatch's global tokens)``; elsewhere the capacity differs (a kept
+divergence, ``tests/test_torch_moe_mesh.py``).
 """
 
 from __future__ import annotations
@@ -49,9 +57,16 @@ from repro_torch.dist import collectives
 from repro_torch.dist.sharding import (_axis_candidates, _mesh_shape,
                                        current_mesh)
 from repro_torch.fault.guard import logits_finite
+from repro_torch.models.layers.moe import router_aux
 from repro_torch.models.registry import get_model
 from repro_torch.optim.adamw import adamw_update_zero1
+from repro_torch.serve.cache_pool import cache_batch_axes, freeze_inactive
 from repro_torch.serve.sampling import sample_vec
+
+
+# Families whose decode rewrites every lane's state (the reference's
+# contiguous-lane freeze applies to them).
+RECURRENT_FAMILIES = ("ssm", "hybrid")
 
 
 def _mesh_update(params, grads, opt_state, step, *, lr):
@@ -101,24 +116,27 @@ def _grad_dtype(accum: int):
             else torch.float32)
 
 
-def _value_and_grad(loss_sum, leaves, like, batch, accum: int):
+def _value_and_grad(loss_parts, leaves, like, batch, accum: int, cfg):
     """(loss, gradients of ``leaves``) of the reference's loss of the
     global batch, this rank holding its rows of ``batch``.
 
-    ``loss_sum(tree, batch) -> (summed token loss, count)`` of the tree
-    made of ``like``'s structure and ``leaves``, differentiated through
-    fresh aliases of them (the given tensors never require a gradient).
-    The counts are taken from the labels first, since every share needs
-    its microbatch's global count before its backward pass.  Each
-    microbatch's share is
-    its summed loss over its global count; the shares' gradients are summed
-    in ``_grad_dtype``, and on a mesh psummed over the batch's axes in f32.
-    The loss returned is the global loss on every rank."""
+    ``loss_parts(tree, batch) -> (summed token loss, count, router
+    stats)`` (the registry's) of the tree made of ``like``'s structure and
+    ``leaves``, differentiated through fresh aliases of them (the given
+    tensors never require a gradient).  The counts are taken from the
+    labels first, since every share needs its microbatch's global count
+    before its backward pass.  Each microbatch's share is its summed loss
+    over its global count, plus, for an MoE model, the rank's share of the
+    router's aux loss over the microbatch's global tokens (``_router_share``);
+    the shares' gradients are summed in ``_grad_dtype``, and on a mesh
+    psummed over the batch's axes in f32.  The loss returned is the global
+    loss on every rank."""
     mesh = current_mesh()
     axes, ways, block = row_split(mesh)
     accum = max(accum, 1)
     labels = batch["labels"]
     rows = _micro_rows(labels.shape[0], ways, block, accum)
+    mb_tokens = labels.shape[0] * ways // accum * labels.shape[1]
     zero = torch.zeros((), dtype=torch.int64, device=labels.device)
     cnt = torch.stack([(labels[r[0]:r[1]] >= 0).sum() if r else zero
                        for r in rows])
@@ -131,12 +149,18 @@ def _value_and_grad(loss_sum, leaves, like, batch, accum: int):
         torch.zeros(x.shape, dtype=acc_dt, device=x.device) for x in leaves]
     for m, r in enumerate(rows):
         if r is None:
+            if cfg.family == "moe":
+                _router_share(cfg, None, mb_tokens, mesh, axes,
+                              labels.device)
             continue
         mb = {k: v[r[0]:r[1]] for k, v in batch.items()}
         live = [x.detach().requires_grad_(True) for x in leaves]
         with torch.enable_grad():
-            tot, _ = loss_sum(tree_util.unflatten(like, live), mb)
+            tot, _, stats = loss_parts(tree_util.unflatten(like, live), mb)
             part = tot / denom[m]
+            if stats is not None:
+                part = part + _router_share(cfg, stats, mb_tokens, mesh,
+                                            axes, labels.device)
             got = torch.autograd.grad(part, live, allow_unused=True)
         got = [torch.zeros_like(x) if g is None else g
                for x, g in zip(leaves, got)]
@@ -147,7 +171,7 @@ def _value_and_grad(loss_sum, leaves, like, batch, accum: int):
             grads = [(a.float() + g.float()).to(acc_dt)
                      for a, g in zip(grads, got)]
         loss = loss + part.detach()
-        del got, part, tot
+        del got, part, tot, stats
     if axes:
         grads = [collectives.psum(g.float(), mesh, axes).to(
             acc_dt or g.dtype) for g in grads]
@@ -156,6 +180,26 @@ def _value_and_grad(loss_sum, leaves, like, batch, accum: int):
         loss = loss / accum
         grads = [g / accum for g in grads]
     return loss, grads
+
+
+def _router_share(cfg: ModelConfig, stats, tokens: int, mesh, axes, device):
+    """This rank's share of a microbatch's router aux loss: ``router_aux``
+    of the top-1 counts of the whole microbatch (psummed over ``axes``)
+    beside the rank's own probability sums, over the microbatch's global
+    ``tokens``.  The aux is linear in the probability sums, so the ranks'
+    shares add up to the reference's aux of the global microbatch, and
+    their gradients (the counts carry none) to its gradient.  A rank that
+    holds no row of the microbatch (``stats`` None) adds zero counts to
+    the psum, which every rank of the group must join."""
+    shape = (cfg.num_layers, cfg.moe.num_experts)
+    counts = (torch.zeros(shape, device=device) if stats is None
+              else stats[:, 0].detach())
+    if axes:
+        counts = collectives.psum(counts, mesh, axes)
+    if stats is None:
+        return None
+    return router_aux(cfg, torch.stack([counts, stats[:, 1]], dim=1),
+                      tokens)
 
 
 def make_train_step(cfg: ModelConfig, *, lr: float = 1e-4, accum: int = 1):
@@ -175,8 +219,8 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 1e-4, accum: int = 1):
 
     def train_step(params, opt_state, batch, step):
         loss, grads = _value_and_grad(
-            lambda p, mb: api.loss_sum(p, cfg, mb),
-            tree_util.leaves(params), params, batch, accum)
+            lambda p, mb: api.loss_parts(p, cfg, mb),
+            tree_util.leaves(params), params, batch, accum, cfg)
         params, opt_state = _mesh_update(
             params, tree_util.unflatten(params, grads), opt_state,
             int(step) + 1, lr=lr)
@@ -199,8 +243,8 @@ def make_fed_train_step(cfg: ModelConfig, *, lr: float = 1e-3):
     def fed_train_step(params, opt_state, batch, step):
         adapters = lora_tree(params)
         loss, grads = _value_and_grad(
-            lambda ad, mb: api.loss_sum(merge_lora(params, ad), cfg, mb),
-            tree_util.leaves(adapters), adapters, batch, 1)
+            lambda ad, mb: api.loss_parts(merge_lora(params, ad), cfg, mb),
+            tree_util.leaves(adapters), adapters, batch, 1, cfg)
         adapters, opt_state = _mesh_update(
             adapters, tree_util.unflatten(adapters, grads), opt_state,
             int(step) + 1, lr=lr)
@@ -240,6 +284,13 @@ def make_serve_step(cfg: ModelConfig, *, force_window: int = 0,
         token passes through unchanged.  With a paged pool the batch also
         carries ``block_tbl`` (B, T) int32 and ``ring_len``.
 
+    A recurrent family (``RECURRENT_FAMILIES``: its decode rewrites every
+    lane's state) has its new state written back into ``cache`` in place,
+    for the active lanes only on a ragged batch
+    (``serve.cache_pool.freeze_inactive``), as the reference freezes a
+    contiguous ragged batch; the attention families' rings guard their own
+    writes and take no select.
+
     ``sampling=True`` also reads per-slot ``temperature``/``top_k``/``top_p``
     ((B,) tensors) and ``generators`` (a list of B ``torch.Generator`` or
     None; None rows decode greedily), routing logits through
@@ -260,10 +311,12 @@ def make_serve_step(cfg: ModelConfig, *, force_window: int = 0,
     it.  ``ok`` stays on the device beside the token.
     """
     api = get_model(cfg)
+    axes = (cache_batch_axes(api, cfg) if cfg.family in RECURRENT_FAMILIES
+            else None)
 
     def serve_step(params, cache, batch):
-        logits, cache = api.decode_step(params, cfg, cache, batch,
-                                        force_window=force_window)
+        logits, new_cache = api.decode_step(params, cfg, cache, batch,
+                                            force_window=force_window)
         lg = logits[:, -1, :]
         if guard:
             poison = batch["poison"].to(lg.device)
@@ -277,12 +330,14 @@ def make_serve_step(cfg: ModelConfig, *, force_window: int = 0,
         else:
             next_token = lg.argmax(dim=-1).to(torch.int32)[:, None]
         pos = torch.as_tensor(batch["pos"])
-        if pos.ndim == 1:
-            active = pos.to(next_token.device) >= 0
+        active = pos.to(next_token.device) >= 0 if pos.ndim == 1 else None
+        if active is not None:
             next_token = torch.where(active[:, None], next_token,
                                      batch["token"].to(next_token.dtype))
             if guard:
                 ok = ok | ~active
+        cache = (new_cache if axes is None else
+                 freeze_inactive(cache, new_cache, active, axes))
         if guard:
             return next_token, ok, cache
         return next_token, cache

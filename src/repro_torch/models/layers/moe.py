@@ -88,12 +88,30 @@ def _expert_compute(params, cfg: ModelConfig, disp, comb, xg):
     return torch.einsum("Ggec,Gecd->Ggd", comb, expert_out)
 
 
+def router_aux(cfg: ModelConfig, stats: torch.Tensor, tokens) -> torch.Tensor:
+    """The Switch load-balance loss, ``E · Σ_e frac_tokens_e · frac_probs_e
+    · coef``, from router statistics ``(..., 2, E)`` over ``tokens``
+    tokens (``[..., 0, :]`` each expert's top-1 count, ``[..., 1, :]`` its
+    summed probability), summed over any leading (layer) axes.
+
+    It is linear in the probability sums: over ranks that each hold some of
+    the tokens, the global loss is the sum over ranks of ``router_aux`` of
+    the global counts beside the rank's own probability sums, in value and
+    in gradient (the counts carry none)."""
+    m = cfg.moe
+    frac = stats / tokens
+    return m.num_experts * torch.sum(frac[..., 0, :] * frac[..., 1, :]) * \
+        m.router_aux_loss_coef
+
+
 def moe_block(params, cfg: ModelConfig, x: torch.Tensor, *,
               group_size: int = 512):
-    """x: (B, S, d) -> (y, aux_loss).  Capacity-dropped tokens fall through
-    with zero routed contribution (shared experts / residual still apply).
-    The token count must be a multiple of the group (``min(group_size,
-    B S)``), as the reference asserts."""
+    """x: (B, S, d) -> (y, router statistics (2, E)), whose
+    ``router_aux`` over the B S tokens is the reference's aux loss.
+    Capacity-dropped tokens fall through with zero routed contribution
+    (shared experts / residual still apply).  The token count must be a
+    multiple of the group (``min(group_size, B S)``), as the reference
+    asserts."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
@@ -144,8 +162,7 @@ def moe_block(params, cfg: ModelConfig, x: torch.Tensor, *,
     if "shared" in params:
         y = y + mlp(params["shared"], x, cfg.activation)
 
-    # load-balance auxiliary loss (Switch-style), f32, on each token's top-1
-    frac_tokens = F.one_hot(expert_idx[..., 0], E).float().mean(dim=(0, 1))
-    frac_probs = probs.mean(dim=(0, 1))
-    aux = E * torch.sum(frac_tokens * frac_probs) * m.router_aux_loss_coef
-    return y, aux
+    # the load-balance (Switch) loss's statistics, f32, on each token's
+    # top-1 choice
+    return y, torch.stack([F.one_hot(expert_idx[..., 0], E).float().sum(
+        (0, 1)), probs.sum(dim=(0, 1))])

@@ -1,26 +1,28 @@
 """Model API: family dispatch for init / loss / prefill / decode.
 
   init(cfg, generator, device)                       -> params
-  loss(params, cfg, batch)                           -> scalar LM cross-entropy
-  loss_sum(params, cfg, batch)                       -> (summed loss, count)
+  loss(params, cfg, batch)                           -> scalar LM loss
+  loss_parts(params, cfg, batch)                     -> (ce sum, count,
+                                                         router stats)
   prefill(params, cfg, batch, ...)                   -> (cache, last logits)
   decode_step(params, cfg, cache, batch, ...)        -> (logits, cache)
   init_cache(cfg, batch_size, seq_len, ...)          -> cache
 
-``loss_sum`` (the port's addition) is ``loss`` before its division by the
-count of labels >= 0, for a caller that divides by a count taken over more
-rows than it holds (``launch.steps`` on a mesh).
+``loss_parts`` (the port's addition) is ``loss`` taken apart for a caller
+that divides by a count taken over more rows than it holds and reduces the
+router's statistics over them (``launch.steps`` on a mesh): the summed
+token loss, the count of labels >= 0, and for an MoE model the router's
+per-layer, per-expert sums ``(L, 2, E)`` (``models.layers.moe.
+router_stats``; None for the other families).  An MoE model's ``loss`` is
+``ce sum / count + moe.router_aux(cfg, stats, tokens)``, the router's aux
+loss summed over layers, as the reference's.
 
 Batch dicts: train ``{"tokens": (B, S), "labels": (B, S)}`` (labels -1 =
 ignore); prefill ``{"tokens": (B, S)}``; decode ``{"token": (B, 1), "pos":
 scalar or (B,)}`` plus ``block_tbl``/``ring_len`` for a paged pool.  The
-dense and MoE families are ported; the others raise.
-
-An MoE model's ``loss`` adds the router's aux loss (summed over layers) to
-the cross-entropy, as the reference's does.  Its ``loss_sum`` returns
-``(ce_sum + aux * max(count, 1), count)``, so that one rank's
-``loss_sum`` over its count is ``loss``; on a mesh the aux term a rank
-adds is that of its own rows, weighted by its share of the labels.
+dense, MoE and ssm (xLSTM) families are ported; the others raise.  An ssm
+prefill refuses ``true_len`` (bucketing pads through the recurrence), as
+the reference's does.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ from types import SimpleNamespace
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import transformer, xlstm_model
+from repro_torch.models.layers.moe import router_aux
 from repro_torch.models.losses import chunked_ce, chunked_ce_sum
 
 
@@ -39,9 +42,9 @@ def _dense_api():
         h = transformer.forward(params, cfg, batch["tokens"])
         return chunked_ce(h, params, cfg, batch["labels"])
 
-    def loss_sum(params, cfg, batch):
+    def loss_parts(params, cfg, batch):
         h = transformer.forward(params, cfg, batch["tokens"])
-        return chunked_ce_sum(h, params, cfg, batch["labels"])
+        return (*chunked_ce_sum(h, params, cfg, batch["labels"]), None)
 
     def prefill(params, cfg, batch, *, force_window=0, cache_len=0,
                 true_len=None):
@@ -57,7 +60,7 @@ def _dense_api():
                                        ring_len=batch.get("ring_len"))
 
     return SimpleNamespace(init=transformer.init, loss=loss,
-                           loss_sum=loss_sum, prefill=prefill,
+                           loss_parts=loss_parts, prefill=prefill,
                            decode_step=decode_step,
                            init_cache=transformer.init_cache)
 
@@ -67,19 +70,48 @@ def _moe_api():
     api = _dense_api()
 
     def loss(params, cfg, batch):
-        h, aux = transformer.forward_aux(params, cfg, batch["tokens"])
-        return chunked_ce(h, params, cfg, batch["labels"]) + aux
+        h, stats = transformer.forward_aux(params, cfg, batch["tokens"])
+        return chunked_ce(h, params, cfg, batch["labels"]) + \
+            router_aux(cfg, stats, batch["tokens"].numel())
 
-    def loss_sum(params, cfg, batch):
-        h, aux = transformer.forward_aux(params, cfg, batch["tokens"])
-        tot, count = chunked_ce_sum(h, params, cfg, batch["labels"])
-        return tot + aux * count.clamp(min=1), count
+    def loss_parts(params, cfg, batch):
+        h, stats = transformer.forward_aux(params, cfg, batch["tokens"])
+        return (*chunked_ce_sum(h, params, cfg, batch["labels"]), stats)
 
-    api.loss, api.loss_sum = loss, loss_sum
+    api.loss, api.loss_parts = loss, loss_parts
     return api
 
 
-_FAMILIES = {"dense": _dense_api, "moe": _moe_api}
+def _ssm_api():
+    def loss(params, cfg, batch):
+        h = xlstm_model.forward(params, cfg, batch["tokens"])
+        return chunked_ce(h, params, cfg, batch["labels"])
+
+    def loss_parts(params, cfg, batch):
+        h = xlstm_model.forward(params, cfg, batch["tokens"])
+        return (*chunked_ce_sum(h, params, cfg, batch["labels"]), None)
+
+    def prefill(params, cfg, batch, *, force_window=0, cache_len=0,
+                true_len=None):
+        if true_len is not None:
+            raise ValueError("prefill bucketing (true_len) is only supported "
+                             "for attention-ring-cache families (dense/moe)")
+        return xlstm_model.prefill(params, cfg, batch["tokens"],
+                                   force_window=force_window,
+                                   cache_len=cache_len)
+
+    def decode_step(params, cfg, cache, batch, *, force_window=0):
+        return xlstm_model.decode_step(params, cfg, cache, batch["token"],
+                                       batch["pos"],
+                                       force_window=force_window)
+
+    return SimpleNamespace(init=xlstm_model.init, loss=loss,
+                           loss_parts=loss_parts, prefill=prefill,
+                           decode_step=decode_step,
+                           init_cache=xlstm_model.init_cache)
+
+
+_FAMILIES = {"dense": _dense_api, "moe": _moe_api, "ssm": _ssm_api}
 
 
 def get_model(cfg: ModelConfig):

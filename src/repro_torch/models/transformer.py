@@ -5,7 +5,8 @@ and the MoE family (mixtral-8x7b, qwen2-moe-a2.7b: the reference's
 ``moe_transformer``), whose blocks take the capacity-dispatched MoE block
 (``models.layers.moe``) as their FFN half, under ``"moe_norm"``/``"moe"``
 where a dense block has ``"mlp_norm"``/``"mlp"``.  ``forward_aux`` returns
-the MoE router's aux loss, summed over layers, beside the hidden states.
+the MoE router's statistics a layer beside the hidden states
+(``moe.router_aux`` makes the reference's aux loss of them).
 
 Parameters are a nested dict of tensors laid out as the reference's pytree:
 every leaf under ``"layers"`` carries a leading layer axis (the reference
@@ -157,7 +158,7 @@ def _post_norm(p, name: str, cfg: ModelConfig, h):
 
 def _ffn_half(p, cfg: ModelConfig, x):
     """The block's FFN half -> (x, aux): the MLP (aux None) or the MoE
-    block (aux its router's loss, f32)."""
+    block (aux its router's statistics (2, E), ``moe.router_aux``)."""
     gemma = cfg.post_block_norm
     if cfg.family == "moe":
         h, aux = moe_block(p["moe"], cfg, rmsnorm(p["moe_norm"], x,
@@ -195,12 +196,11 @@ def final_norm(params, cfg: ModelConfig, x):
 
 def _trunk(params, cfg: ModelConfig, x, *, positions, prefix_len, remat,
            kind):
-    """Embedded input -> (final hidden, the MoE blocks' aux loss summed
-    over layers in f32; None for a dense trunk)."""
+    """Embedded input -> (final hidden, the MoE blocks' router statistics
+    (L, 2, E) in f32; None for a dense trunk)."""
     kind = "prefix" if prefix_len is not None else kind
     x = residual_constraint(x)
-    aux = (torch.zeros((), dtype=torch.float32, device=x.device)
-           if cfg.family == "moe" else None)
+    stats = []
     for stack, i, w in schedule(cfg, cfg.sliding_window):
         lp = _at(params["layers"], stack, i)
         kw = dict(positions=positions, window=w, kind=kind,
@@ -211,9 +211,10 @@ def _trunk(params, cfg: ModelConfig, x, *, positions, prefix_len, remat,
         else:
             x, aux_l = _block(lp, cfg, x, **kw)
         x = residual_constraint(x)
-        if aux is not None:
-            aux = aux + aux_l
-    return final_norm(params, cfg, x), aux
+        if aux_l is not None:
+            stats.append(aux_l)
+    return final_norm(params, cfg, x), \
+        torch.stack(stats) if stats else None
 
 
 def forward_hidden(params, cfg: ModelConfig, x, *, positions,
@@ -231,9 +232,10 @@ def forward_hidden(params, cfg: ModelConfig, x, *, positions,
 
 def forward_aux(params, cfg: ModelConfig, tokens, *, prefix_len=None,
                 remat: bool = True):
-    """tokens (B, S) -> (final hidden (B, S, d), aux loss (f32)): the MoE
-    router's loss summed over layers (the reference's
-    ``moe_transformer.forward``), None for a dense model."""
+    """tokens (B, S) -> (final hidden (B, S, d), the MoE router's
+    statistics (L, 2, E), f32; None for a dense model).  Their
+    ``moe.router_aux`` over the B S tokens is the reference's aux loss
+    summed over layers (``moe_transformer.forward``)."""
     check_ported(cfg)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=tokens.device)

@@ -1,10 +1,14 @@
 """Cache pools for the serving engine: contiguous per-slot lanes and the
 paged block-KV pool.
 
-``CachePool`` preallocates ``num_slots`` full-length ring lanes, leaves
+``CachePool`` preallocates ``num_slots`` full-length lanes: ring leaves
 ``(L, num_slots, ring, ...)`` (an alternating config's two trees, local and
-global rings, alike); a request is placed by copying its batch-1 prefill
-cache into lane ``slot``.
+global rings, alike), or an xLSTM model's recurrent states ``(nG, nM,
+num_slots, ...)`` and ``(nG, num_slots, ...)``; a request is placed by
+copying its batch-1 prefill cache into lane ``slot``, each leaf at its own
+batch axis (``cache_batch_axes``).  A recurrent state is rewritten for
+every lane at every step, so the serve step keeps an inactive lane's state
+with ``freeze_inactive``; an attention ring guards its own writes.
 
 ``PagedCachePool`` holds ONE shared block pool per leaf, ``(L, n_blocks,
 block_size, ...)``, plus a host-side block table ``(num_slots,
@@ -40,6 +44,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from repro_torch import tree as tree_util
 from repro_torch.kernels import ops
 from repro_torch.models.layers.attention import init_attn_cache
 from repro_torch.models.registry import get_model
@@ -47,6 +52,41 @@ from repro_torch.models.transformer import dtype_of, ring_length
 
 # The families whose every layer has one ring geometry (the reference's).
 PAGED_FAMILIES = ("dense", "moe")
+
+
+def cache_batch_axes(api, cfg):
+    """Each cache leaf's batch axis, as a tree like the cache: the one axis
+    that differs between ``init_cache`` at batch 1 and 2 (of 8 positions),
+    made on the ``meta`` device (shapes only, no memory)."""
+    a1 = api.init_cache(cfg, 1, 8, device="meta")
+    a2 = api.init_cache(cfg, 2, 8, device="meta")
+
+    def axis_of(x, y):
+        diff = [i for i, (d1, d2) in enumerate(zip(x.shape, y.shape))
+                if d1 != d2]
+        if len(diff) != 1:
+            raise ValueError(f"cannot locate batch axis: {tuple(x.shape)} vs "
+                             f"{tuple(y.shape)}")
+        return diff[0]
+
+    return tree_util.map_(axis_of, a1, a2)
+
+
+def _expand(mask, axis: int, ndim: int):
+    """(B,) bool -> broadcastable to an ``ndim`` leaf with B at ``axis``."""
+    return mask.reshape((1,) * axis + (-1,) + (1,) * (ndim - axis - 1))
+
+
+def freeze_inactive(old_cache, new_cache, active, axes):
+    """Write ``new_cache`` into ``old_cache`` in place, leaf by leaf at its
+    batch axis, for the active lanes only (every lane with ``active``
+    None): a retired or empty lane's recurrent state never drifts while
+    others decode.  Returns ``old_cache``."""
+    def put(o, n, ax):
+        o.copy_(n if active is None else
+                torch.where(_expand(active, ax, n.ndim), n, o))
+    tree_util.map_(put, old_cache, new_cache, axes)
+    return old_cache
 
 
 class _LanePool:
@@ -75,14 +115,16 @@ class _LanePool:
 
 
 class CachePool(_LanePool):
-    """``num_slots`` ring lanes carved out of one preallocated cache."""
+    """``num_slots`` lanes carved out of one preallocated cache."""
 
     def __init__(self, cfg, num_slots: int, cache_len: int, *,
                  force_window: int = 0, device="cuda"):
         super().__init__(num_slots, cache_len)
-        self.cache = get_model(cfg).init_cache(
+        api = get_model(cfg)
+        self.cache = api.init_cache(
             cfg, num_slots, cache_len, force_window=force_window,
             dtype=dtype_of(cfg.compute_dtype), device=device)
+        self.batch_axes = cache_batch_axes(api, cfg)
 
     @property
     def pool_blocks(self) -> int:
@@ -98,15 +140,11 @@ class CachePool(_LanePool):
         return 0.0
 
     def insert(self, req_cache, slot: int) -> None:
-        """Copy a batch-1 prefill cache (leaves (L, 1, ring, ...), one tree
-        or the local/global pair) into lane ``slot``."""
-        def put(pool, req):
-            for name, leaf in pool.items():
-                if isinstance(leaf, dict):
-                    put(leaf, req[name])
-                else:
-                    leaf[:, slot] = req[name][:, 0].to(leaf.dtype)
-        put(self.cache, req_cache)
+        """Copy a batch-1 prefill cache (a tree like the pool's, batch 1)
+        into lane ``slot``, each leaf at its batch axis."""
+        def put(leaf, req, ax):
+            leaf.select(ax, slot).copy_(req.select(ax, 0))
+        tree_util.map_(put, self.cache, req_cache, self.batch_axes)
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,10 @@ Cache layout: the paged block pool by default where every layer has one
 ring geometry (the dense and MoE families without local/global
 alternation, unless ``REPRO_PAGED_KV=0``: one shared block pool plus
 per-lane block tables), contiguous lanes otherwise or with
-``paged=False``; gemma2's local and global rings keep contiguous lanes, and
-``paged=True`` raises for them, as in the reference.  Paged
+``paged=False``; gemma2's local and global rings and an xLSTM model's
+recurrent states keep contiguous lanes, and ``paged=True`` raises for
+them, as in the reference.  A recurrent state is O(1) in the sequence,
+so no ``cache_len`` bound applies to it.  Paged
 decode grants blocks on demand as a request's write position crosses a
 block boundary; on pool exhaustion the request parks (its lane masked
 inactive) until frees arrive, and if every resident is parked the youngest
@@ -110,6 +112,11 @@ from repro_torch.serve.sampling import row_generator, sample_vec
 from repro_torch.serve.scheduler import (FIFOScheduler, SchedulerConfig,
                                          bucket_len)
 
+# families whose batch dict is {"tokens"} and whose decode takes per-slot
+# ragged positions (attention rings guard their writes, recurrent states
+# are frozen by the serve step): the reference's set, of which the port
+# has every family but hybrid
+_SERVABLE = ("dense", "moe", "ssm", "hybrid")
 # right-pad-safe prefill (causal attention only, no recurrence): the
 # reference's set
 _BUCKETABLE = ("dense", "moe")
@@ -132,9 +139,14 @@ class ForecastEngine:
                  default_deadline_s: Optional[float] = None,
                  default_ttft_slo_s: Optional[float] = None,
                  journal=None, device="cuda"):
+        if cfg.family not in _SERVABLE:
+            raise ValueError(f"family {cfg.family!r} not servable by the "
+                             f"engine (supported: {_SERVABLE})")
         if prefill_bucket and cfg.family not in _BUCKETABLE:
             raise ValueError(f"prefill_bucket requires a causal-attention "
-                             f"prefill (families {_BUCKETABLE})")
+                             f"prefill (families {_BUCKETABLE}); "
+                             f"{cfg.family!r} carries recurrent state "
+                             f"through pad tokens")
         self.cfg = cfg
         self.params = params
         self.api = get_model(cfg)

@@ -28,6 +28,7 @@ from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models.registry import get_model as jax_get_model
 from repro_torch import bridge
 from repro_torch.configs import get_smoke_config
+from repro_torch.models.layers.moe import router_aux
 from repro_torch.models.registry import get_model
 
 ATOL = 1e-4
@@ -145,8 +146,9 @@ def test_forward_hidden(models):
         from repro_torch.models import transformer as ttf
         want, jaux = jmt.forward(jparams, jcfg, jnp.asarray(tokens),
                                  remat=False)
-        got, aux = ttf.forward_aux(params, cfg, torch.as_tensor(tokens),
-                                   remat=False)
+        got, stats = ttf.forward_aux(params, cfg, torch.as_tensor(tokens),
+                                     remat=False)
+        aux = router_aux(cfg, stats, tokens.size)
         _close(aux, jaux, LOSS_ATOL)
         assert float(aux) > 0
     else:
@@ -249,8 +251,9 @@ def test_decode_paged(models):
 
 def test_loss_with_aux(models):
     """The registry's training loss (cross-entropy over labels with -1
-    entries; an MoE model's plus its aux loss), and ``loss_sum`` over its
-    count equal to it."""
+    entries; an MoE model's plus its aux loss), and ``loss_parts``'
+    summed loss over its count plus ``router_aux`` of its router
+    statistics equal to it."""
     jcfg, japi, jparams, cfg, api, params = models
     rng = np.random.default_rng(11)
     tokens = rng.integers(0, cfg.vocab_size, (2, 16))
@@ -262,8 +265,16 @@ def test_loss_with_aux(models):
              "labels": torch.as_tensor(labels)}
     got = api.loss(params, cfg, batch)
     _close(got, want, LOSS_ATOL)
-    tot, count = api.loss_sum(params, cfg, batch)
+    tot, count, stats = api.loss_parts(params, cfg, batch)
     assert int(count) == 27
+    if cfg.family == "moe":
+        assert tuple(stats.shape) == (cfg.num_layers, 2,
+                                      cfg.moe.num_experts)
+        assert torch.equal(stats[:, 0].sum(-1),
+                           torch.full((cfg.num_layers,), 32.0))
+        tot = tot + router_aux(cfg, stats, tokens.size) * count
+    else:
+        assert stats is None
     _close(tot / count, want, LOSS_ATOL)
 
 
@@ -320,9 +331,9 @@ def test_moe_block_drops_tokens(slabs, monkeypatch):
     x = np.random.default_rng(4).standard_normal(
         (4, 32, cfg.d_model)).astype(np.float32)
     jy, jaux = jmoe(jp, jcfg, jnp.asarray(x), group_size=32)
-    y, aux = moe_block(p, cfg, torch.from_numpy(x), group_size=32)
+    y, stats = moe_block(p, cfg, torch.from_numpy(x), group_size=32)
     _close(y, jy)
-    _close(aux, jaux, 1e-6)
+    _close(router_aux(cfg, stats, x.shape[0] * x.shape[1]), jaux, 1e-6)
     # the drops are real: without the shared expert, some token gets no
     # routed output at all
     del p["shared"]
