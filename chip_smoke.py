@@ -19,6 +19,9 @@ Phases, each printing its numbers beside the card's name and power limit:
      - the wire hop, int8 and bf16, full and quantize-only, at the fit's
        upload size (8,388,608 adapter elements in rows of 128) and at a
        ragged 1001 rows, equal bit for bit;
+     - zamba2-2.7b's (Hk=32, G=1, D=80) at the fixed batch's ring in
+       bf16, f32 and int8, and the engine's pool (built, though its
+       contiguous lanes never run one);
      - phase 12's new flash-decode instances at its call shapes:
        smollm-360m (Hk=5, G=3, D=64) and mixtral-8x7b (Hk=8, G=4,
        D=128) at the fixed batch's ring and the engine's pool (and
@@ -169,13 +172,13 @@ Phases, each printing its numbers beside the card's name and power limit:
      stripe of the cache (``launch.steps.make_prefill_step`` and
      ``make_serve_step`` under ``dist.sharding.use_mesh``):
      a. qwen3-0.6b at full width and depth on (data 2, model 2): B 4, a
-        960-token prompt, a 1024-slot ring (512 slots a model rank, 2 rows
-        a data rank), 64 greedy steps; bf16, int8 (``REPRO_KV_INT8=1``)
-        and ragged (lane 1 inactive from step 10);
+        992-token prompt, a 1024-slot ring (512 slots a model rank, 2 rows
+        a data rank), 32 greedy steps that fill it; bf16, int8
+        (``REPRO_KV_INT8=1``) and ragged (lane 1 inactive from step 10);
      b. a paged pool of its width striped over (data 1, model 4): a
-        shared block, a -1 entry, lane 1 inactive from step 5, 32 steps;
+        shared block, a -1 entry, lane 1 inactive from step 5, 16 steps;
      c. fedtime-llama2-7b's backbone at full width and depth (Hk 32, G 1,
-        D 128) on (data 1, model 4), 32 steps;
+        D 128) on (data 1, model 4), 16 steps;
      each held at every step to the unsharded run of the whole batch fed
      the same tokens (logits within SHARD_LOGIT_TOL, each differing
      greedy choice printed with both runs' leads), beside a planted fault
@@ -258,13 +261,22 @@ Phases, each printing its numbers beside the card's name and power limit:
      prompts and each retired lane's state equal bit for bit at the end;
      weights, init and run peaks, tok/s, ITL, TTFT, the sLSTM prefill
      loops' wall;
+  12c. zamba2-2.7b (family hybrid: 54 Mamba2 layers and 2 weight-shared
+     attention blocks applied 9 times, d_model 2560, bf16, no cut) through
+     phase 12b's geometry, every decode step launching exactly 9 ring
+     flash-decodes of the (G, D) = (1, 80) instance and no paged one (the
+     counts set to 0 at its start, checked against its decode steps),
+     three of its own calls held to the plain version, the f32 hold at
+     HYBRID_LOGIT_TOL, the engine's tokens and retired lanes (states and
+     rings) as 12b's;
   6. check the model path on the card against the plain path on the CPU at
      the smoke configs in f32: prefill + teacher-forced decode (ring and
      paged) of qwen3-0.6b and of fedtime-llama2-7b (G = 1), of
      qwen3-1.7b, gemma2-27b (ring only: its two ring lengths keep
      contiguous lanes), smollm-360m (G = 3), mixtral-8x7b and
      qwen2-moe-a2.7b (at head_dim 128: its smoke heads have no
-     instance), xlstm-350m (its contiguous states), a 2-round fit
+     instance), xlstm-350m (its contiguous states), zamba2-2.7b (ring
+     only, at head_dim 80: its smoke heads have no instance), a 2-round fit
      on the int8 wire, and 4 steps of ``trainer.fit`` of FedTime's smoke
      config and of each Table 2 model at a small width (step losses within
      TOL_FIT_LOSS).
@@ -456,7 +468,7 @@ def _quant(x):
 
 def _decode_case(rows, S: int, int8: bool, paged: bool, *, n_blocks=0,
                  Hk=8, G=2, D=128, bs=16, seed=0, device="cuda",
-                 wrap=False):
+                 wrap=False, f32=False):
     """Inputs of one decode call with Hk KV heads of D and G queries each:
     one row per entry of ``rows`` (its position; -1 is an idle lane, which
     must come out 0).
@@ -466,7 +478,9 @@ def _decode_case(rows, S: int, int8: bool, paged: bool, *, n_blocks=0,
     drops).  The paged pool
     (``n_blocks`` blocks of ``bs``) shares its first two blocks between all
     active rows, and leaves the table entries past each row's position,
-    and every entry of an idle lane, ungranted (-1)."""
+    and every entry of an idle lane, ungranted (-1).  The cache and q are
+    bf16, or with ``int8`` codes and a bf16 q, or with ``f32`` f32
+    throughout (an f32 model's decode)."""
     dev = device
     B = len(rows)
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -510,6 +524,10 @@ def _decode_case(rows, S: int, int8: bool, paged: bool, *, n_blocks=0,
     k = torch.randn(kv_shape, generator=g, device=dev)
     v = torch.randn(kv_shape, generator=g, device=dev)
     kw = {}
+    if f32:
+        if tbl is not None:
+            kw["block_tables"] = tbl
+        return (q, k, v, kv_pos, q_pos), kw
     if int8:
         k, ks = _quant(k)
         v, vs = _quant(v)
@@ -772,7 +790,9 @@ def phase_kernels(card: str, timer: Timer) -> dict:
     3b's one-row ring of 8208 slots and phase 4d's 32-block pool), at phase
     12's new instances (smollm-360m's G 3 and mixtral-8x7b's G 4, ring and
     pool, and qwen2-moe-a2.7b's; gemma2-27b's local layer with its softcap
-    and window over a ring that wrapped, its library call flex_attention)
+    and window over a ring that wrapped, its library call flex_attention),
+    at phase 12c's (1, 80) instance (zamba2-2.7b's ring in bf16, f32 and
+    int8, and a pool, built though its contiguous lanes never run one)
     and at longer caches (S = 1024, 4096; bf16 and int8;
     qwen3-0.6b's heads); a copy-on-write event of each paged engine's pool.
     Returns the JSON rows: qwen3-0.6b's, with the other configs' nested
@@ -817,6 +837,20 @@ def phase_kernels(card: str, timer: Timer) -> dict:
             cases.append((None, f"phase 12 {arch}: fixed batch ring, int8",
                           [P + gen - 1] * FIXED["batch"], P + gen, True,
                           False, 0, hw))
+    # phase 12c's calls: zamba2-2.7b's shared attention (G 1, D 80, 32 KV
+    # heads) at the fixed batch's ring in bf16, f32 (phase 12c's f32 hold)
+    # and int8, and the engine's pool, which its contiguous lanes never run
+    # but the (1, 80) instance builds
+    _, Hk, G, D = _hybrid_heads()
+    hw = dict(Hk=Hk, G=G, D=D)
+    for kv in ("bf16", "f32", "int8"):
+        cases.append((HYBRID if kv == "bf16" else f"{HYBRID} {kv}",
+                      f"phase 12c {HYBRID}: fixed batch ring, {kv}",
+                      [P + gen - 1] * FIXED["batch"], P + gen, kv == "int8",
+                      False, 0, dict(hw, f32=kv == "f32")))
+    cases.append((HYBRID, f"phase 12c {HYBRID}: engine pool (built, off "
+                  f"its contiguous path)", engine_rows, S_eng, False, True,
+                  ENGINE_POOL_BLOCKS, hw))
     _, Hk, G, D = heads[SERVED[0]]
     hw = dict(Hk=Hk, G=G, D=D)
     cases += [(None, f"main path {SERVED[0]}: phase 3b's generate ring",
@@ -835,7 +869,8 @@ def phase_kernels(card: str, timer: Timer) -> dict:
         name = "flash_decode_paged" if paged else "flash_decode"
         hw = {k: opts[k] for k in ("Hk", "G", "D")}
         args, kw = _decode_case(q_rows, S, int8, paged, n_blocks=n_blocks,
-                                wrap=opts.get("wrap", False), **hw)
+                                wrap=opts.get("wrap", False),
+                                f32=opts.get("f32", False), **hw)
         for k in ("window", "softcap"):
             if opts.get(k):
                 kw[k] = opts[k]
@@ -850,7 +885,8 @@ def phase_kernels(card: str, timer: Timer) -> dict:
         tbl = kw.get("block_tables")
         meta = (args[3].numel() * 4 +
                 (tbl.numel() * 4 if tbl is not None else 0))
-        nbytes = (q.numel() * 2 + slots * row_bytes + meta + B * H * D * 2)
+        nbytes = (q.numel() * q.element_size() + slots * row_bytes + meta
+                  + B * H * D * q.element_size())
         flops = 4 * (H // Hk) * D * Hk * slots
         bound, by = _bound_ms(nbytes, flops)
         _cost_rule(f"{name} {label}", fd.flash_decode_cost(*args, **kw),
@@ -1737,15 +1773,17 @@ def phase_families(card: str) -> dict:
 # phase 12b: the recurrent family (xlstm-350m) at full width
 # ---------------------------------------------------------------------------
 
-# The fixed batch is FIXED (4 x 512, 64 steps); then one 500-token row
-# (padded to four 128-token chunks; 16 steps); prefill of a 512-token
-# prompt (a chunk multiple) + XLSTM_K decode steps against a prefill of the
-# prompt and those tokens; the engine on contiguous lanes: XLSTM_ENGINE's
-# Poisson trace, one request a slot.
-XLSTM_SHORT = dict(batch=1, prompt_len=500, gen=16)
-XLSTM_K = 3
-XLSTM_ENGINE = dict(requests=12, slots=12, gen=32, max_prompt=512, rate=1.0)
-# Prefill + XLSTM_K decode steps against one longer prefill, in f32 at
+# The recurrent families' traffic (phases 12b and 12c): the fixed batch
+# is FIXED (4 x 512, 64 steps); then one 500-token row (padded to four
+# 128-token chunks; 16 steps); prefill of a 512-token prompt (a chunk
+# multiple) + RECURRENT_K decode steps against a prefill of the prompt and
+# those tokens; the engine on contiguous lanes: RECURRENT_ENGINE's Poisson
+# trace, one request a slot.
+RECURRENT_SHORT = dict(batch=1, prompt_len=500, gen=16)
+RECURRENT_K = 3
+RECURRENT_ENGINE = dict(requests=12, slots=12, gen=32, max_prompt=512,
+                        rate=1.0)
+# Prefill + RECURRENT_K decode steps against one longer prefill, in f32 at
 # the published widths: the chunkwise and the recurrent forms round in
 # another order, and xlstm-350m at random weights amplifies a rounding
 # through its 24 blocks (``tools/xlstm_sensitivity.py``: 1e-6 of
@@ -1800,27 +1838,31 @@ def _retired_lanes():
         ForecastEngine._retire = real
 
 
-def _lanes_path_tokens(cfg, params, trace, slots: int) -> dict:
+def _lanes_path_tokens(cfg, params, trace, slots: int,
+                       cache_len: int) -> dict:
     """The fixed-batch path fed the engine's prompts: each prompt
     prefilled alone (batch 1, as the engine prefills it) into lane i of a
-    pool of ``slots`` lanes, then synchronous greedy decode steps of every
-    lane at once (a decode computes each row alone, so a lane's tokens do
-    not depend on the others')."""
+    pool of ``slots`` lanes of ``cache_len``, then synchronous greedy
+    decode steps of every lane at once, each at its own position (a decode
+    computes each row alone, so a lane's tokens do not depend on the
+    others')."""
     from repro_torch.models.registry import get_model
     from repro_torch.serve.cache_pool import CachePool
     api = get_model(cfg)
-    pool = CachePool(cfg, slots, 1, device="cuda")
+    pool = CachePool(cfg, slots, cache_len, device="cuda")
     first = torch.zeros((slots, 1), dtype=torch.int64, device="cuda")
+    pos = torch.zeros((slots,), dtype=torch.int32, device="cuda")
     for i, r in enumerate(trace):
         c1, lg = api.prefill(params, cfg, {"tokens": torch.tensor(
-            [r["prompt"]], device="cuda")})
+            [r["prompt"]], device="cuda")}, cache_len=cache_len)
         pool.insert(c1, i)
         first[i, 0] = lg[0, -1].argmax()
+        pos[i] = len(r["prompt"])
         del c1
     tok, out = first, [first]
-    for _ in range(max(r["max_new_tokens"] for r in trace) - 1):
+    for t in range(max(r["max_new_tokens"] for r in trace) - 1):
         lg, new = api.decode_step(params, cfg, pool.cache,
-                                  {"token": tok, "pos": 0})
+                                  {"token": tok, "pos": pos + t})
         pool.cache = new
         tok = lg[:, -1].argmax(dim=-1)[:, None]
         out.append(tok)
@@ -1829,22 +1871,24 @@ def _lanes_path_tokens(cfg, params, trace, slots: int) -> dict:
             for i, r in enumerate(trace)}
 
 
-def _xlstm_decode_vs_prefill(cfg, api, params=None) -> tuple:
-    """(logits max error of prefill + XLSTM_K decode steps against a
+def _decode_vs_prefill(cfg, api, params=None) -> tuple:
+    """(logits max error of prefill + RECURRENT_K decode steps against a
     prefill of the prompt and those tokens; the gap between that prefill
     at batch 4 and at batch 2 on its first two rows; the error with the
     first decode step fed a wrong token), at the published widths in f32
-    (``params`` None: drawn here) or with ``params``."""
+    (``params`` None: drawn here) or with ``params``.  The prefill's rings
+    (a hybrid's) hold the decode steps too."""
     if params is None:
         cfg = cfg.replace(param_dtype="float32", compute_dtype="float32")
         params = api.init(cfg, torch.Generator(device="cuda").manual_seed(
             0), device="cuda")
-    P, k, B = FIXED["prompt_len"], XLSTM_K, FIXED["batch"]
+    P, k, B = FIXED["prompt_len"], RECURRENT_K, FIXED["batch"]
     toks = torch.as_tensor(np.random.default_rng(3).integers(
         0, cfg.vocab_size, (B, P + k)), device="cuda")
 
     def decoded(first):
-        cache, lg = api.prefill(params, cfg, {"tokens": toks[:, :P]})
+        cache, lg = api.prefill(params, cfg, {"tokens": toks[:, :P]},
+                                cache_len=P + k)
         for i in range(k):
             tok = toks[:, P + i:P + i + 1]
             lg, cache = api.decode_step(params, cfg, cache, {
@@ -1918,27 +1962,29 @@ def phase_recurrent(card: str) -> None:
           f" tok/s ({FIXED['gen'] - 1} steps x {FIXED['batch']}), wall "
           f"{wall:.1f} s")
     short = run_fixed_batch(cfg, params, device="cuda", quiet=True,
-                            **XLSTM_SHORT)
+                            **RECURRENT_SHORT)
     _check(short["finite"] and short["tokens"].shape == (
-        1, XLSTM_SHORT["gen"] + 1), "phase 12b: the 500-token row is "
-           "non-finite or short")
+        1, RECURRENT_SHORT["gen"] + 1), "phase 12b: the 500-token row is "
+        "non-finite or short")
     chunk = cfg.xlstm.chunk_size
-    print(f"[{card}] phase 12b one {XLSTM_SHORT['prompt_len']}-token row "
-          f"(padded to {-(-XLSTM_SHORT['prompt_len'] // chunk) * chunk}): "
-          f"prefill"
+    print(f"[{card}] phase 12b one {RECURRENT_SHORT['prompt_len']}-token "
+          f"row (padded to "
+          f"{-(-RECURRENT_SHORT['prompt_len'] // chunk) * chunk}): prefill"
           f" {short['prefill_tok_per_s']:.0f} tok/s, steady "
           f"{short['decode_tok_per_s']:.1f} tok/s, finite")
 
     # prefill + k decode steps against the longer prefill, held in f32
-    err, noise, planted = _xlstm_decode_vs_prefill(cfg, api)
-    bf16 = _xlstm_decode_vs_prefill(cfg, api, params)[0]
+    err, noise, planted = _decode_vs_prefill(cfg, api)
+    bf16 = _decode_vs_prefill(cfg, api, params)[0]
     _check(err <= XLSTM_LOGIT_TOL and planted > XLSTM_LOGIT_TOL,
-           f"phase 12b: prefill + {XLSTM_K} decode steps vs the longer "
-           f"prefill (f32): logits max err {err}, planted {planted}, tol "
+           f"phase 12b: prefill + {RECURRENT_K} decode steps vs the "
+           f"longer prefill (f32): logits max err {err}, planted {planted}, "
+           f"tol "
            f"{XLSTM_LOGIT_TOL}")
     print(f"[{card}] phase 12b prefill {FIXED['batch']}x"
-          f"{FIXED['prompt_len']} + {XLSTM_K} decode steps vs a prefill of "
-          f"{FIXED['prompt_len'] + XLSTM_K} tokens, at full width in f32: "
+          f"{FIXED['prompt_len']} + {RECURRENT_K} decode steps vs a prefill "
+          f"of {FIXED['prompt_len'] + RECURRENT_K} tokens, at full width in "
+          f"f32: "
           f"logits max_abs_err {err:.4g} (tol {XLSTM_LOGIT_TOL}); two "
           f"prefills of those tokens at batch 4 and 2 (their GEMMs round "
           f"apart) {noise:.4g}; planted (decode fed one wrong token) "
@@ -1946,7 +1992,7 @@ def phase_recurrent(card: str) -> None:
           f"weights amplify a rounding through 24 blocks)")
 
     # the engine on contiguous lanes
-    E = XLSTM_ENGINE
+    E = RECURRENT_ENGINE
     trace = make_trace(cfg, E["requests"], gen=E["gen"],
                        max_prompt=E["max_prompt"], rate=E["rate"], seed=0)
     cache_len = max(len(r["prompt"]) for r in trace) + E["gen"]
@@ -1977,7 +2023,7 @@ def phase_recurrent(card: str) -> None:
     _check(len(frozen) >= 1, "phase 12b engine: no lane retired before the "
            "last step")
     got = {r["id"]: done[r["id"]].tokens.tolist() for r in trace}
-    want = _lanes_path_tokens(cfg, params, trace, E["slots"])
+    want = _lanes_path_tokens(cfg, params, trace, E["slots"], cache_len)
     _check(got == want, "phase 12b engine: greedy tokens differ from the "
            "fixed-batch path's on the same prompts: " + str(
                [i for i in got if got[i] != want[i]]))
@@ -2003,6 +2049,248 @@ def phase_recurrent(card: str) -> None:
           f"phase 12b wall {time.perf_counter() - t_all:.1f} s (host clock)")
     del params, engine
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 12c: the hybrid family (zamba2-2.7b) at full width
+# ---------------------------------------------------------------------------
+
+# zamba2-2.7b at its published widths and depth, no cut: 54 Mamba2 layers
+# and 9 applications of 2 weight-shared attention blocks (32 heads of 80,
+# G 1: flash-decode's (1, 80) instance), through the recurrent families'
+# traffic (RECURRENT_SHORT, RECURRENT_K, RECURRENT_ENGINE), so the two are
+# read at one geometry.
+HYBRID = "zamba2-2.7b"
+# Prefill + RECURRENT_K decode steps against one longer prefill, in f32 at the
+# published widths: the chunked and the recurrent SSD forms and the
+# flash-decode kernel against the prefill's attention round in another
+# order, so the hold is made in f32 beside two prefills whose GEMMs round
+# apart and a planted wrong token, as phase 12b's (read: 1.06e-4, the two
+# prefills 9.2e-5, planted 4.93; bf16 0.242: Mamba2's decays are at most
+# 1, and zamba2 does not amplify a rounding as xlstm-350m does).
+HYBRID_LOGIT_TOL = 0.01
+
+
+def _hybrid_heads():
+    """(layers, Hk, G, D) of phase 12c's shared attention: one ring a
+    group, 9 at the published depth."""
+    from repro_torch.configs import get_config
+    cfg = get_config(HYBRID)
+    return (cfg.num_layers // cfg.hybrid.shared_attn_every,
+            cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads,
+            cfg.head_dim)
+
+
+@contextlib.contextmanager
+def _counted_calls(module, name: str):
+    """How many times ``module.name`` is called while it is open (a
+    one-element list, yielded)."""
+    real = getattr(module, name)
+    calls = [0]
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return real(*a, **k)
+
+    setattr(module, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def _launch_delta(before: dict, label: str, steps: int,
+                  per_step: int) -> dict:
+    """The flash-decode launches since ``before``, checked to be exactly
+    ``per_step`` ring launches a decode step and no paged launch or block
+    copy.  Returns the counts now."""
+    from repro_torch.kernels import flash_decode as fd
+    now = dict(fd.LAUNCHES)
+    delta = {k: now[k] - before[k] for k in now}
+    _check(delta == {"flash_decode": per_step * steps,
+                     "flash_decode_paged": 0, "paged_block_copy": 0},
+           f"phase 12c {label}: launches {delta} for {steps} decode "
+           f"steps, not {per_step} ring launches each")
+    return now
+
+
+def phase_hybrid(card: str) -> dict:
+    """Phase 12c: serve zamba2-2.7b at its published widths (54 Mamba2
+    layers, d_model 2560, 80 SSM heads of 64, state 64; 2 shared blocks
+    applied 9 times, 32 heads of 80; vocab 32,000; bf16) with random
+    weights drawn on the card from a seed: the fixed batch, a 500-token
+    row on the padded chunk path, prefill + decode against a longer
+    prefill in f32, then the engine on contiguous lanes, its greedy tokens
+    against the fixed-batch path fed the same prompts and a retired lane's
+    state held bit for bit.  Every decode step launches one ring
+    flash-decode (the (1, 80) instance) a shared-block application and
+    nothing else; a few of those calls are held to the plain version.
+    Returns the launch counts, set to 0 at the start and read at the end."""
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.launch.serve import make_trace, run_engine, \
+        run_fixed_batch
+    from repro_torch.models import zamba2
+    from repro_torch.models.registry import get_model
+    t_all = time.perf_counter()
+    for mod in _kernel_modules():
+        mod.reset_launches()
+    cfg = get_config(HYBRID)
+    api = get_model(cfg)
+    nG = cfg.num_layers // cfg.hybrid.shared_attn_every
+    G = cfg.num_heads // cfg.num_kv_heads
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                      device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = sum(t.numel() * t.element_size()
+                  for t in tree_util.leaves(params))
+    init_peak = _gib(torch.cuda.max_memory_allocated() - base)
+    print(f"[{card}] phase 12c {cfg.name}: {cfg.num_layers} Mamba2 layers "
+          f"(d_inner {cfg.ssm.expand * cfg.d_model}, "
+          f"{cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} SSM heads of "
+          f"{cfg.ssm.head_dim}, state {cfg.ssm.state_dim}, conv "
+          f"{cfg.ssm.conv_width}, chunk {cfg.ssm.chunk_size}) and "
+          f"{cfg.hybrid.num_shared_blocks} shared blocks applied {nG} times "
+          f"({cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, G = "
+          f"{G}; {cfg.activation} d_ff {cfg.d_ff}), d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab_size}, {cfg.param_dtype}: weights "
+          f"{_gib(weights):.2f} GiB ({weights / 1e9:.3f} GB, "
+          f"{sum(t.numel() for t in tree_util.leaves(params)) / 1e9:.3f} B "
+          f"parameters) drawn in {init_s:.1f} s, init peak {init_peak:.2f} "
+          f"GiB")
+    torch.cuda.reset_peak_memory_stats()
+
+    # the fixed batch and one row on the padded chunk path, then the
+    # engine, under one recorder of the run's own flash-decode calls
+    counts = dict(fd.LAUNCHES)
+    # every 360th call: the fixed batch's first and 361st (of 64 x 9), the
+    # engine's first (after the padded row's 16 x 9)
+    with _CallRecorder(fd, every=360, keep=3) as rec:
+        with _counted_calls(zamba2, "decode_step") as steps:
+            t0 = time.perf_counter()
+            res = run_fixed_batch(cfg, params, device="cuda", quiet=True,
+                                  **FIXED)
+            wall = time.perf_counter() - t0
+        counts = _launch_delta(counts, "fixed batch", steps[0], nG)
+        _check(res["finite"], "phase 12c fixed batch: non-finite logits")
+        _check(res["tokens"].shape == (FIXED["batch"], FIXED["gen"] + 1),
+               "phase 12c fixed batch: token shape")
+        _check(steps[0] == FIXED["gen"], f"phase 12c fixed batch: "
+               f"{steps[0]} decode steps")
+        print(f"[{card}] phase 12c fixed batch {cfg.name}: prefill "
+              f"{FIXED['batch']}x{FIXED['prompt_len']} "
+              f"{res['prefill_tok_per_s']:.0f} tok/s, decode first step "
+              f"{res['first_step_s']:.3f} s, steady "
+              f"{res['decode_tok_per_s']:.1f} tok/s ({FIXED['gen'] - 1} "
+              f"steps x {FIXED['batch']}), {nG} ring flash-decode launches "
+              f"a step, wall {wall:.1f} s")
+        with _counted_calls(zamba2, "decode_step") as steps:
+            short = run_fixed_batch(cfg, params, device="cuda", quiet=True,
+                                    **RECURRENT_SHORT)
+        counts = _launch_delta(counts, "the 500-token row", steps[0], nG)
+        _check(short["finite"] and short["tokens"].shape == (
+            1, RECURRENT_SHORT["gen"] + 1), "phase 12c: the 500-token row is "
+               "non-finite or short")
+        chunk = cfg.ssm.chunk_size
+        print(f"[{card}] phase 12c one {RECURRENT_SHORT['prompt_len']}-token "
+              f"row (padded to "
+              f"{-(-RECURRENT_SHORT['prompt_len'] // chunk) * chunk}): "
+              f"prefill {short['prefill_tok_per_s']:.0f} tok/s, steady "
+              f"{short['decode_tok_per_s']:.1f} tok/s, finite")
+
+        # the engine on contiguous lanes
+        E = RECURRENT_ENGINE
+        trace = make_trace(cfg, E["requests"], gen=E["gen"],
+                           max_prompt=E["max_prompt"], rate=E["rate"],
+                           seed=0)
+        cache_len = max(len(r["prompt"]) for r in trace) + E["gen"]
+        with _retired_lanes() as snaps, \
+                _checked_logits(zamba2) as finite, \
+                _counted_calls(zamba2, "decode_step") as steps:
+            t0 = time.perf_counter()
+            done, summ, engine = run_engine(
+                cfg, params, trace, device="cuda", quiet=True,
+                slots=E["slots"], cache_len=cache_len)
+            wall = time.perf_counter() - t0
+        counts = _launch_delta(counts, "engine", steps[0], nG)
+    _check(not engine.paged and set(engine.pool.cache) == {"mamba", "attn"},
+           "phase 12c engine: not on contiguous lanes")
+    _check(len(done) == len(trace), "phase 12c engine: not every request "
+           "finished")
+    for r in trace:
+        _check(len(done[r["id"]].tokens) == r["max_new_tokens"],
+               f"phase 12c engine: {r['id']} stopped short")
+    _check(finite and all(bool(f) for f in finite),
+           "phase 12c engine: non-finite logits")
+    _check(steps[0] == summ["decode_steps"], f"phase 12c engine: "
+           f"{steps[0]} decode calls for {summ['decode_steps']} steps")
+    last = engine.step_count
+    frozen = [(slot, at) for slot, at, leaves in snaps if at < last]
+    for slot, at, leaves in snaps:
+        now = [leaf.select(ax, slot) for leaf, ax in zip(
+            tree_util.leaves(engine.pool.cache),
+            tree_util.leaves(engine.pool.batch_axes))]
+        _check(all(_bits_equal(a, b) for a, b in zip(now, leaves)),
+               f"phase 12c engine: retired lane {slot} (step {at}) drifted "
+               f"by step {last}")
+    _check(len(frozen) >= 1, "phase 12c engine: no lane retired before the "
+           "last step")
+    got = {r["id"]: done[r["id"]].tokens.tolist() for r in trace}
+    want = _lanes_path_tokens(cfg, params, trace, E["slots"], cache_len)
+    _check(got == want, "phase 12c engine: greedy tokens differ from the "
+           "fixed-batch path's on the same prompts: " + str(
+               [i for i in got if got[i] != want[i]]))
+    lens = sorted(len(r["prompt"]) for r in trace)
+    print(f"[{card}] phase 12c engine {cfg.name}, contiguous lanes: "
+          f"{summ['requests']} requests (prompts {lens[0]}-{lens[-1]} "
+          f"tokens, {sum(n % chunk != 0 for n in lens)} padded), "
+          f"{summ['decode_tokens']} decode tokens in {summ['decode_steps']} "
+          f"steps, {summ['steady_tok_per_s']:.1f} tok/s steady, itl p50 "
+          f"{summ['itl_p50_s'] * 1e3:.2f} ms (p99 "
+          f"{summ['itl_p99_s'] * 1e3:.2f}), ttft p50 "
+          f"{summ['ttft_p50_s'] * 1e3:.1f} ms (p99 "
+          f"{summ['ttft_p99_s'] * 1e3:.1f}), {len(finite)} logits tensors "
+          f"finite, greedy tokens equal to the fixed-batch path's on the "
+          f"same prompts, {len(frozen)} retired lanes held bit for bit "
+          f"(states and rings) through up to "
+          f"{max(last - at for _, at in frozen)} later steps; wall "
+          f"{wall:.1f} s")
+    held = _hold_recorded("phase 12c", rec, G)
+    _check(held >= 3, f"phase 12c: only {held} of its own flash-decode "
+           f"calls held to the plain version")
+    peak = _gib(torch.cuda.max_memory_allocated() - base)
+    print(f"[{card}] phase 12c {cfg.name}: run peak {peak:.2f} GiB "
+          f"(weights {_gib(weights):.2f}); {held} of its own flash-decode "
+          f"calls held to the plain version; main-path launches {counts}")
+    launches = counts
+
+    # prefill + k decode steps against the longer prefill, held in f32
+    # (after the main path's counts are read: its launches are the check's)
+    err, noise, planted = _decode_vs_prefill(cfg, api)
+    bf16 = _decode_vs_prefill(cfg, api, params)[0]
+    _check(err <= HYBRID_LOGIT_TOL and planted > HYBRID_LOGIT_TOL,
+           f"phase 12c: prefill + {RECURRENT_K} decode steps vs the longer "
+           f"prefill (f32): logits max err {err}, planted {planted}, tol "
+           f"{HYBRID_LOGIT_TOL}")
+    print(f"[{card}] phase 12c prefill {FIXED['batch']}x"
+          f"{FIXED['prompt_len']} + {RECURRENT_K} decode steps vs a prefill "
+          f"of {FIXED['prompt_len'] + RECURRENT_K} tokens, at full width in "
+          f"f32: "
+          f"logits max_abs_err {err:.4g} (tol {HYBRID_LOGIT_TOL}); two "
+          f"prefills of those tokens at batch 4 and 2 (their GEMMs round "
+          f"apart) {noise:.4g}; planted (decode fed one wrong token) "
+          f"{planted:.4g}; the same comparison in bf16 {bf16:.4g}")
+    print(f"[{card}] phase 12c wall {time.perf_counter() - t_all:.1f} s "
+          f"(host clock)")
+    del params, engine
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -4126,20 +4414,23 @@ def phase_mesh(card: str, device="cuda", shapes=None, geoms=None, S=None,
 # phase 9: sharded serving, 4 ranks on the one card over gloo
 # ---------------------------------------------------------------------------
 
-# 9a: qwen3-0.6b on (data 2, model 2): B 4, a 960-token prompt, a ring of
-# 1024 slots (512 a model rank, 2 rows a data rank); bf16, int8 and ragged
-# (lane 1 inactive from step 10).  9b: a paged pool of qwen3-0.6b's width
-# striped over (data 1, model 4).  9c: fedtime-llama2-7b's backbone at full
-# width on (data 1, model 4).
-SHARD = dict(B=4, prompt=960, ring=1024, seed=0, idle_lane=1, idle_from=10,
+# 9a: qwen3-0.6b on (data 2, model 2): B 4, a 992-token prompt, a ring of
+# 1024 slots (512 a model rank, 2 rows a data rank) that its 32 steps fill
+# to the last slot; bf16, int8 and ragged (lane 1 inactive from step 10).
+# 9b: a paged pool of qwen3-0.6b's width striped over (data 1, model 4).
+# 9c: fedtime-llama2-7b's backbone at full width on (data 1, model 4).
+SHARD = dict(B=4, prompt=992, ring=1024, seed=0, idle_lane=1, idle_from=10,
              block=16, paged_idle_from=5, shared=(2, 0, 10), ungranted=(3, 20))
+# Steps cut from 64 / 32 / 32 (after a 960-token prompt) to keep the whole
+# script well inside its time limit as it grows: with them it took 1050.1 s
+# of its 1200 on an H100 host.
 SHARD_RUNS = {
     "9a": dict(arch="qwen3-0.6b", mesh=((2, 2), ("data", "model")),
-               steps=64, runs=("bf16", "int8", "ragged")),
+               steps=32, runs=("bf16", "int8", "ragged")),
     "9b": dict(arch="qwen3-0.6b", mesh=((1, 4), ("data", "model")),
-               steps=32, runs=("paged",)),
+               steps=16, runs=("paged",)),
     "9c": dict(arch="fedtime-llama2-7b", mesh=((1, 4), ("data", "model")),
-               steps=32, runs=("bf16",)),
+               steps=16, runs=("bf16",)),
 }
 SHARD_WORLD = 4
 SHARD_TIMEOUT_S = 420
@@ -5629,11 +5920,15 @@ def _to(tree, dev):
 
 # Phase 6's smoke configs besides SERVED's: qwen3-1.7b, gemma2-27b (its
 # local and global rings; no paged pool), smollm-360m (G 3, D 64),
-# mixtral-8x7b and qwen2-moe-a2.7b, whose smoke heads (G 1, D 64) have no
-# kernel instance and run at D 128 here (G 1, D 128: its full width's),
-# and xlstm-350m (its recurrent states; no paged pool, no kernel).
+# mixtral-8x7b (G 2, D 64), qwen2-moe-a2.7b, whose smoke heads (G 1, D 64)
+# have no kernel instance and run at D 128 here (G 1, D 128: its full
+# width's), xlstm-350m (its recurrent states; no paged pool, no kernel) and
+# zamba2-2.7b, whose smoke heads (G 1, D 64) run at D 80 here (its full
+# width's instance; contiguous rings, no paged pool).
 PHASE6_EXTRA = ("qwen3-1.7b", "gemma2-27b", "smollm-360m", "mixtral-8x7b",
-                "qwen2-moe-a2.7b", "xlstm-350m")
+                "qwen2-moe-a2.7b", "xlstm-350m", "zamba2-2.7b")
+# Phase 6's head widths where a smoke config's heads have no instance.
+PHASE6_HEAD_DIM = {"qwen2-moe-a2.7b": 128, "zamba2-2.7b": 80}
 
 
 def phase_reference(card: str, arch: str) -> None:
@@ -5644,8 +5939,8 @@ def phase_reference(card: str, arch: str) -> None:
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.registry import get_model
     cfg = get_smoke_config(arch)
-    if arch == "qwen2-moe-a2.7b":
-        cfg = cfg.replace(head_dim=128)
+    if arch in PHASE6_HEAD_DIM:
+        cfg = cfg.replace(head_dim=PHASE6_HEAD_DIM[arch])
     api = get_model(cfg)
     params = api.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     rng = np.random.default_rng(0)
@@ -5655,7 +5950,7 @@ def phase_reference(card: str, arch: str) -> None:
     table = torch.tensor([[3, 9, 0, 6], [1, 11, 4, -1], [10, 2, 7, 5]],
                          dtype=torch.int32)
     layouts = (("ring",) if cfg.local_global_alternating
-               or cfg.family == "ssm" else ("ring", "paged"))
+               or cfg.family in ("ssm", "hybrid") else ("ring", "paged"))
     outs = {}
     for dev in ("cpu", "cuda"):
         p = _to(params, dev)
@@ -5800,6 +6095,10 @@ def main() -> None:
             rows[name][f"phase 12 {arch}"] = {"launches": counts[name]}
     torch.cuda.empty_cache()
     phase_recurrent(card)
+    hybrid_launches = phase_hybrid(card)
+    for name in ("flash_decode", "flash_decode_paged", "paged_block_copy"):
+        rows[name][f"phase 12c {HYBRID}"] = {
+            "launches": hybrid_launches[name]}
 
     for arch in SERVED + PHASE6_EXTRA:
         phase_reference(card, arch)

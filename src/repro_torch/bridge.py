@@ -102,6 +102,30 @@ def _check_xlstm(params, cfg: ModelConfig) -> None:
                              f"not {shape} of {cfg.name}")
 
 
+def _check_hybrid(params, cfg: ModelConfig) -> None:
+    """A Zamba2 tree: the embedding table, the ``(nG, nM)`` stack of Mamba2
+    layers and the ``(n,)`` stack of shared blocks, which read 2 d_model
+    and write d_model."""
+    hy = cfg.hybrid
+    if hy is None or cfg.ssm is None or cfg.num_layers % hy.shared_attn_every:
+        raise ValueError(f"params_from_jax: {cfg.name} is not a hybrid "
+                         f"config")
+    nG, nM = cfg.num_layers // hy.shared_attn_every, hy.shared_attn_every
+    d, n = cfg.d_model, hy.num_shared_blocks
+    d_inner = cfg.ssm.expand * d
+    want = {("embed", "table"): (cfg.vocab_size, d),
+            ("mamba", "block", "out_proj", "w"): (nG, nM, d_inner, d),
+            ("mamba", "norm", "scale"): (nG, nM, d),
+            ("shared", "attn", "wq", "w"): (n, 2 * d, cfg.q_dim),
+            ("shared", "mlp", "down", "w"): (n, cfg.d_ff, d),
+            ("lm_head", "w"): (d, cfg.vocab_size)}
+    for path, shape in want.items():
+        got = _shape(params, *path)
+        if got != shape:
+            raise ValueError(f"params_from_jax: {'/'.join(path)} is {got}, "
+                             f"not {shape} of {cfg.name}")
+
+
 def _check_fedtime(params, cfg: ModelConfig) -> None:
     """The FedTime tree: patch embedding, a block stack whose attention
     weights are plain ``w`` or NF4 ``w_nf4``/``absmax`` (with or without
@@ -143,13 +167,16 @@ def params_from_jax(tree, cfg: ModelConfig, device="cuda"):
     """The reference's parameter tree (leaves as numpy arrays) -> the port's
     parameters on ``device``.  A tree with a ``patch`` embedding is a
     FedTime model and is checked as one, one with ``mlstm`` stacks an
-    xLSTM model; any other must describe ``cfg``'s dense or MoE model.
+    xLSTM model, one with ``mamba`` stacks a Zamba2 model; any other must
+    describe ``cfg``'s dense or MoE model.
     Raises if the tree does not match ``cfg``."""
     params = tree_to_torch(tree, device)
     if "patch" in params:
         _check_fedtime(params, cfg)
     elif "mlstm" in params:
         _check_xlstm(params, cfg)
+    elif "mamba" in params:
+        _check_hybrid(params, cfg)
     else:
         _check_dense(params, cfg)
     return params

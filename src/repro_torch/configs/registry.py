@@ -18,6 +18,7 @@ _ARCH_MODULES: Dict[str, str] = {
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "mixtral-8x7b": "mixtral_8x7b",
     "xlstm-350m": "xlstm_350m",
+    "zamba2-2.7b": "zamba2_2_7b",
     "fedtime-llama2-7b": "fedtime_llama2_7b",
 }
 

@@ -20,7 +20,8 @@ from repro_torch.core.quant import nf4_quantize
 DEFAULT_TARGETS = ("wq", "wk", "wv", "wo")
 FAMILY_TARGETS = {"dense": DEFAULT_TARGETS,
                   "moe": DEFAULT_TARGETS + ("router",),
-                  "ssm": DEFAULT_TARGETS + ("up", "down")}  # xLSTM blocks
+                  "ssm": DEFAULT_TARGETS + ("up", "down"),  # xLSTM blocks
+                  "hybrid": DEFAULT_TARGETS + ("in_proj", "out_proj")}
 
 # sites that stay un-quantized even under QLoRA (small / numerically touchy)
 NO_QUANT = ("router", "embed", "lm_head", "vis_proj", "frame_proj")

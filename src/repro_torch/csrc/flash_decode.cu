@@ -25,8 +25,9 @@
 //     whole table entries, floor(i * T / n) .. floor((i + 1) * T / n), so
 //     an uneven last split is allowed in both;
 //   * loads in flight: a lane group of D * elem / 16 lanes (16 for a bf16
-//     row of 128) owns a slot, each lane one 16-byte vector of its K and V
-//     rows, so a warp takes several slots per load; each warp keeps two
+//     row of 128), rounded up to a power of two, owns a slot, each lane one
+//     16-byte vector of its K and V rows, so a warp takes several slots per
+//     load; each warp keeps two
 //     register buffers of U = 4 slots per lane group and issues the next
 //     pass's rows before it computes on the current one, so a pass's loads
 //     wait behind one memory latency, not one per slot (the slot positions,
@@ -65,16 +66,22 @@
 // Head geometries: the kernel is instantiated for the (G, D) pairs of the
 // ported configurations only (with_heads below): G = 2 with D 64
 // (qwen3-0.6b's smoke config) or 128 (qwen3-0.6b, qwen3-1.7b, gemma2-27b),
-// G = 1 (multi-head attention) with D 32 (fedtime-llama2-7b's smoke config)
-// or 128 (fedtime-llama2-7b, qwen2-moe-a2.7b), G = 3 with D 64 (smollm-360m)
-// and G = 4 with D 128 (mixtral-8x7b), each for the three cache types and
-// both layouts: 36 kernels.  A lane keeps G query rows and G accumulators of
+// G = 1 (multi-head attention) with D 32 (fedtime-llama2-7b's smoke config),
+// 80 (zamba2-2.7b's shared attention) or 128 (fedtime-llama2-7b,
+// qwen2-moe-a2.7b), G = 3 with D 64 (smollm-360m) and G = 4 with D 128
+// (mixtral-8x7b), each for the three cache types and both layouts: 42
+// kernels.  A lane keeps G query rows and G accumulators of
 // VE floats in registers, so G = 4 at D 128 in f32 is the instance nearest
 // to spilling: ptxas's report (chip_smoke.py, phase 1) says what it holds.  A slot is owned by a lane group of D * elem / 16 lanes, which at
 // D 32 is 4 lanes for bf16, 8 for f32 and 2 for int8; the dot products are
 // summed over the group by xor shuffles of LPS / 2 .. 1 and the groups of a
 // warp merged by shuffles of LPS .. 16, which holds for any LPS that
-// divides 32.
+// divides 32.  A row of D * elem / 16 vectors that is not a power of two
+// (D 80: 10 for bf16, 20 for f32, 5 for int8) takes the next power of two
+// of lanes (16, 32, 8); the lanes past the row are idle: their query and
+// rows are zeros, loaded from nowhere, so they add exactly 0 to every dot
+// product and hold a zero accumulator, which they never write.  At a power
+// of two every lane is live and the kernel is the one it was.
 //
 // Plain C interface, loaded with ctypes.  Every entry point returns
 // cudaGetLastError() (or the launch's own error) after its launch, or -1
@@ -206,10 +213,14 @@ template <typename KT, int D, int G, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const __grid_constant__ DecodeArgs a) {
   constexpr int VE = 16 / static_cast<int>(sizeof(KT));  // elems a vector
-  constexpr int LPS = D / VE;                             // lanes a slot
+  constexpr int NV = D / VE;                              // vectors a row
+  // lanes a slot: the least power of two >= NV (NV itself but at D 80)
+  constexpr int LPS = NV <= 1 ? 1 : NV <= 2 ? 2 : NV <= 4 ? 4
+                      : NV <= 8 ? 8 : NV <= 16 ? 16 : 32;
   constexpr int SPW = 32 / LPS;                           // slots a load
   constexpr int U = kUnroll;
   constexpr int kPass = kWarps * SPW * U;                 // slots a pass
+  static_assert(D % VE == 0 && NV <= 32, "a row is whole 16-byte vectors");
   static_assert(LPS >= 1 && LPS <= 32 && 32 % LPS == 0, "lane groups");
 
   const KT* __restrict__ k = static_cast<const KT*>(a.k);
@@ -225,6 +236,7 @@ decode_kernel(const __grid_constant__ DecodeArgs a) {
   const int lane = threadIdx.x & 31;
   const int grp = lane / LPS;         // the lane group: one slot at a time
   const int c = lane % LPS;           // the lane's vector of the row
+  const bool live = NV == LPS || c < NV;   // else idle: past the row
   const bool quant = a.k_scale != nullptr;
   const int H = Hk * G;
 
@@ -235,9 +247,11 @@ decode_kernel(const __grid_constant__ DecodeArgs a) {
     const size_t off = (static_cast<size_t>(b) * H + h * G + g) * D + c * VE;
 #pragma unroll
     for (int i = 0; i < VE; ++i)
-      qr[g][i] = a.q_f32 ? static_cast<const float*>(a.q)[off + i]
-                         : __bfloat162float(static_cast<const __nv_bfloat16*>(
-                               a.q)[off + i]);
+      qr[g][i] = !live ? 0.f
+                 : a.q_f32 ? static_cast<const float*>(a.q)[off + i]
+                           : __bfloat162float(
+                                 static_cast<const __nv_bfloat16*>(
+                                     a.q)[off + i]);
   }
   const int qp = a.q_pos ? a.q_pos[static_cast<long long>(b) * a.q_pos_stride]
                          : a.q_pos_val;
@@ -307,7 +321,7 @@ decode_kernel(const __grid_constant__ DecodeArgs a) {
       f.v[u] = f.k[u];
       f.ks[u] = 0x3f80;               // bf16 1.0
       f.vs[u] = 0x3f80;
-      if (f.ok[u]) {                  // kept: granted and inside [lo, hi)
+      if (f.ok[u] && live) {          // kept: granted and inside [lo, hi)
         const size_t row = PAGED ? static_cast<size_t>(rw[u])
                                  : row0 + base + u * SPW;
         const size_t hr = row * Hk + h;
@@ -457,7 +471,7 @@ decode_kernel(const __grid_constant__ DecodeArgs a) {
   __shared__ float part_m[G];
   __shared__ float part_l[G];
   __shared__ float part_acc[G][D];
-  if (grp == 0) {
+  if (grp == 0 && live) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       if (c == 0) {
@@ -597,6 +611,7 @@ int with_heads(int G, int D, Fn&& fn) {
   if (G == 2 && D == 64) return fn(IntC<64>{}, IntC<2>{});
   if (G == 2 && D == 128) return fn(IntC<128>{}, IntC<2>{});
   if (G == 1 && D == 32) return fn(IntC<32>{}, IntC<1>{});
+  if (G == 1 && D == 80) return fn(IntC<80>{}, IntC<1>{});
   if (G == 1 && D == 128) return fn(IntC<128>{}, IntC<1>{});
   if (G == 3 && D == 64) return fn(IntC<64>{}, IntC<3>{});
   if (G == 4 && D == 128) return fn(IntC<128>{}, IntC<4>{});

@@ -29,16 +29,24 @@ from repro_torch.models.layers.norms import init_rmsnorm, rmsnorm
 _NEG_INF = torch.finfo(torch.float32).min
 
 
-def init_attention(generator: torch.Generator, cfg, *, layers: int = 0,
-                   dtype=torch.float32, device=None):
-    """q/k/v/o projections (+ per-head qk RMSNorm scales)."""
+def init_attention(generator: torch.Generator, cfg, *, q_in: int | None = None,
+                   kv_in: int | None = None, out_dim: int | None = None,
+                   layers: int = 0, dtype=torch.float32, device=None):
+    """q/k/v/o projections (+ per-head qk RMSNorm scales).  ``q_in`` /
+    ``kv_in`` are the query and key/value inputs' widths and ``out_dim``
+    the output's (each ``d_model`` by default; ``kv_in`` defaults to
+    ``q_in``), as in the reference: zamba2's shared block reads
+    ``concat(h, x0)``, 2 d_model wide, and writes d_model."""
     dh = cfg.resolved_head_dim()
+    q_in = q_in or cfg.d_model
+    kv_in = kv_in or q_in
+    out_dim = out_dim or cfg.d_model
     kw = dict(layers=layers, dtype=dtype, device=device)
     p = {
-        "wq": init_dense(generator, cfg.d_model, cfg.num_heads * dh, **kw),
-        "wk": init_dense(generator, cfg.d_model, cfg.num_kv_heads * dh, **kw),
-        "wv": init_dense(generator, cfg.d_model, cfg.num_kv_heads * dh, **kw),
-        "wo": init_dense(generator, cfg.num_heads * dh, cfg.d_model, **kw),
+        "wq": init_dense(generator, q_in, cfg.num_heads * dh, **kw),
+        "wk": init_dense(generator, kv_in, cfg.num_kv_heads * dh, **kw),
+        "wv": init_dense(generator, kv_in, cfg.num_kv_heads * dh, **kw),
+        "wo": init_dense(generator, cfg.num_heads * dh, out_dim, **kw),
     }
     if cfg.qk_norm:
         p["q_norm"] = init_rmsnorm(dh, layers=layers, device=device)

@@ -20,9 +20,9 @@ loss summed over layers, as the reference's.
 Batch dicts: train ``{"tokens": (B, S), "labels": (B, S)}`` (labels -1 =
 ignore); prefill ``{"tokens": (B, S)}``; decode ``{"token": (B, 1), "pos":
 scalar or (B,)}`` plus ``block_tbl``/``ring_len`` for a paged pool.  The
-dense, MoE and ssm (xLSTM) families are ported; the others raise.  An ssm
-prefill refuses ``true_len`` (bucketing pads through the recurrence), as
-the reference's does.
+dense, MoE, ssm (xLSTM) and hybrid (Zamba2) families are ported; encdec
+and vlm raise.  An ssm or hybrid prefill refuses ``true_len`` (bucketing
+pads through the recurrence), as the reference's does.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from types import SimpleNamespace
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer, xlstm_model
+from repro_torch.models import transformer, xlstm_model, zamba2
 from repro_torch.models.layers.moe import router_aux
 from repro_torch.models.losses import chunked_ce, chunked_ce_sum
 
@@ -82,13 +82,16 @@ def _moe_api():
     return api
 
 
-def _ssm_api():
+def _recurrent_api(module):
+    """The API of a family whose prefill carries a recurrent state through
+    the prompt (``ssm``: xLSTM; ``hybrid``: Zamba2): ``module`` is its
+    model module."""
     def loss(params, cfg, batch):
-        h = xlstm_model.forward(params, cfg, batch["tokens"])
+        h = module.forward(params, cfg, batch["tokens"])
         return chunked_ce(h, params, cfg, batch["labels"])
 
     def loss_parts(params, cfg, batch):
-        h = xlstm_model.forward(params, cfg, batch["tokens"])
+        h = module.forward(params, cfg, batch["tokens"])
         return (*chunked_ce_sum(h, params, cfg, batch["labels"]), None)
 
     def prefill(params, cfg, batch, *, force_window=0, cache_len=0,
@@ -96,22 +99,29 @@ def _ssm_api():
         if true_len is not None:
             raise ValueError("prefill bucketing (true_len) is only supported "
                              "for attention-ring-cache families (dense/moe)")
-        return xlstm_model.prefill(params, cfg, batch["tokens"],
-                                   force_window=force_window,
-                                   cache_len=cache_len)
+        return module.prefill(params, cfg, batch["tokens"],
+                              force_window=force_window, cache_len=cache_len)
 
     def decode_step(params, cfg, cache, batch, *, force_window=0):
-        return xlstm_model.decode_step(params, cfg, cache, batch["token"],
-                                       batch["pos"],
-                                       force_window=force_window)
+        return module.decode_step(params, cfg, cache, batch["token"],
+                                  batch["pos"], force_window=force_window)
 
-    return SimpleNamespace(init=xlstm_model.init, loss=loss,
+    return SimpleNamespace(init=module.init, loss=loss,
                            loss_parts=loss_parts, prefill=prefill,
                            decode_step=decode_step,
-                           init_cache=xlstm_model.init_cache)
+                           init_cache=module.init_cache)
 
 
-_FAMILIES = {"dense": _dense_api, "moe": _moe_api, "ssm": _ssm_api}
+def _ssm_api():
+    return _recurrent_api(xlstm_model)
+
+
+def _hybrid_api():
+    return _recurrent_api(zamba2)
+
+
+_FAMILIES = {"dense": _dense_api, "moe": _moe_api, "ssm": _ssm_api,
+             "hybrid": _hybrid_api}
 
 
 def get_model(cfg: ModelConfig):

@@ -3,12 +3,14 @@ paged block-KV pool.
 
 ``CachePool`` preallocates ``num_slots`` full-length lanes: ring leaves
 ``(L, num_slots, ring, ...)`` (an alternating config's two trees, local and
-global rings, alike), or an xLSTM model's recurrent states ``(nG, nM,
-num_slots, ...)`` and ``(nG, num_slots, ...)``; a request is placed by
-copying its batch-1 prefill cache into lane ``slot``, each leaf at its own
-batch axis (``cache_batch_axes``).  A recurrent state is rewritten for
-every lane at every step, so the serve step keeps an inactive lane's state
-with ``freeze_inactive``; an attention ring guards its own writes.
+global rings, alike), an xLSTM model's recurrent states ``(nG, nM,
+num_slots, ...)`` and ``(nG, num_slots, ...)``, or a Zamba2 model's
+``{"mamba": {ssm_state, conv_buf} (nG, nM, num_slots, ...), "attn": rings
+(nG, num_slots, ring, ...)}``; a request is placed by copying its batch-1
+prefill cache into lane ``slot``, each leaf at its own batch axis
+(``cache_batch_axes``).  A recurrent state is rewritten for every lane at
+every step, so the serve step keeps an inactive lane's state with
+``freeze_inactive``; an attention ring guards its own writes.
 
 ``PagedCachePool`` holds ONE shared block pool per leaf, ``(L, n_blocks,
 block_size, ...)``, plus a host-side block table ``(num_slots,
@@ -81,8 +83,12 @@ def freeze_inactive(old_cache, new_cache, active, axes):
     """Write ``new_cache`` into ``old_cache`` in place, leaf by leaf at its
     batch axis, for the active lanes only (every lane with ``active``
     None): a retired or empty lane's recurrent state never drifts while
-    others decode.  Returns ``old_cache``."""
+    others decode.  A leaf the decode returned as it was given (a hybrid
+    model's attention ring, written in place and guarded by the ring
+    itself) is left alone.  Returns ``old_cache``."""
     def put(o, n, ax):
+        if n is o:
+            return
         o.copy_(n if active is None else
                 torch.where(_expand(active, ax, n.ndim), n, o))
     tree_util.map_(put, old_cache, new_cache, axes)

@@ -12,10 +12,12 @@ Cache layout: the paged block pool by default where every layer has one
 ring geometry (the dense and MoE families without local/global
 alternation, unless ``REPRO_PAGED_KV=0``: one shared block pool plus
 per-lane block tables), contiguous lanes otherwise or with
-``paged=False``; gemma2's local and global rings and an xLSTM model's
-recurrent states keep contiguous lanes, and ``paged=True`` raises for
-them, as in the reference.  A recurrent state is O(1) in the sequence,
-so no ``cache_len`` bound applies to it.  Paged
+``paged=False``; gemma2's local and global rings, an xLSTM model's
+recurrent states and a Zamba2 model's states and rings keep contiguous
+lanes, and ``paged=True`` raises for them, as in the reference.  A purely
+recurrent state is O(1) in the sequence, so no ``cache_len`` bound applies
+to an xLSTM model; a Zamba2 model's global rings bound it as any global
+ring does.  Paged
 decode grants blocks on demand as a request's write position crosses a
 block boundary; on pool exhaustion the request parks (its lane masked
 inactive) until frees arrive, and if every resident is parked the youngest
@@ -114,8 +116,7 @@ from repro_torch.serve.scheduler import (FIFOScheduler, SchedulerConfig,
 
 # families whose batch dict is {"tokens"} and whose decode takes per-slot
 # ragged positions (attention rings guard their writes, recurrent states
-# are frozen by the serve step): the reference's set, of which the port
-# has every family but hybrid
+# are frozen by the serve step): the reference's set
 _SERVABLE = ("dense", "moe", "ssm", "hybrid")
 # right-pad-safe prefill (causal attention only, no recurrence): the
 # reference's set
@@ -225,13 +226,16 @@ class ForecastEngine:
         # it); a shed request's retry starts a fresh one
         self._slo_submit: Dict[str, float] = {}
         # global-attention rings must hold the whole sequence: a uniform
-        # config with no window, and an alternating config, whose global
-        # rings are ``cache_len`` long whatever its window (the reference
-        # admits such a request there, and its global layers then wrap)
+        # config with no window, an alternating config, whose global rings
+        # are ``cache_len`` long whatever its window (the reference admits
+        # such a request there, and its global layers then wrap), and a
+        # hybrid, whose shared attention is always global.  Windowed
+        # configs wrap by design; an xLSTM state is O(1).
         self._ring_is_global = (cfg.family in _BUCKETABLE
                                 and (cfg.local_global_alternating
                                      or (cfg.sliding_window == 0
-                                         and not force_window)))
+                                         and not force_window))
+                                or cfg.family == "hybrid")
 
         # fixed-shape per-slot batch rows: host-side admission and eviction
         # only rewrite rows

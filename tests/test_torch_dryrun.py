@@ -40,14 +40,14 @@ from repro_torch import configs
 from repro_torch import tree as tree_util
 from repro_torch.core.lora import lora_tree
 from repro_torch.launch import dryrun, specs
-from repro_torch.launch.hlo_cost import analyze
+from repro_torch.launch.hlo_cost import analyze, count
 from repro_torch.launch.mesh import (PRODUCTION_MESH_SHAPES, dry_world,
                                      make_production_mesh)
 from repro_torch.launch.steps import (make_fed_train_step,
                                       make_prefill_step, make_serve_step,
                                       make_train_step)
 from repro_torch.models.layers import attention
-from repro_torch.models import transformer
+from repro_torch.models import transformer, zamba2
 
 ARCHS = ("qwen3-0.6b", "smollm-360m", "fedtime-llama2-7b")
 SHAPES = [s.name for s in configs.INPUT_SHAPES]
@@ -93,7 +93,7 @@ def test_input_shapes_equal_the_reference():
 
 
 @pytest.mark.parametrize("fed", [False, True])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ("zamba2-2.7b",))
 def test_param_shapes_equal_the_reference(arch, fed):
     """Full width: every leaf's path, shape and type, fakes against the
     reference's ``jax.eval_shape`` tree (with ``fed``: LoRA at the
@@ -210,10 +210,10 @@ def test_dry_world_refuses_a_running_group_and_always_leaves():
 B, S = 2, 64
 
 
-def _smoke_steps(arch):
-    """{kind: (port step, reference jitted step, reference args)} at B x S
-    on ``arch``'s smoke config."""
-    jcfg = jconfigs.get_smoke_config(arch)
+def _smoke_steps(arch, **over):
+    """{kind: (reference step, reference args)} at B x S on ``arch``'s
+    smoke config (with the fields in ``over`` replaced)."""
+    jcfg = jconfigs.get_smoke_config(arch).replace(**over)
     key = jax.random.PRNGKey(0)
     api = jget_model(jcfg)
     jp = jax.eval_shape(lambda k: api.init(jcfg, k), key)
@@ -263,6 +263,39 @@ def test_counted_flops_against_the_reference_compiled_step():
     logits = 2 * B * S * cfg.d_model * cfg.vocab_size
     assert ref["train"] == 1_308_622_848
     assert got["train"] - ref["train"] == logits
+
+
+def test_counted_flops_of_the_hybrid_against_the_reference():
+    """zamba2-2.7b's smoke config at B 2 x S 64, its heads at D 80 (the
+    kernel's instance, which the serve step's shape rule asks for; the
+    smoke heads, G 1 D 64, have none): prefill and serve count the
+    reference's FLOPs exactly (the Mamba2 layers' projections and chunk
+    products, the shared blocks' attention and MLP, 1,099,956,224 and
+    17,336,320).  Train recomputes what the reference recomputes, each
+    group and each Mamba2 layer inside it, but torch's non-reentrant
+    checkpoint ends a group's recompute once it holds every tensor the
+    backward saved, before the group's last Mamba2 layer (whose input that
+    layer's own checkpoint saved), where the reference's compiled step
+    recomputes it: 2 layers' forwards fewer, each counted here by the
+    port's counter.  Without recompute the port counts the chunked
+    cross-entropy's recompute of the logits, 2 B S d V, less 524,288 more
+    (read: 33,030,144), so train counts 191,627,264 fewer in all."""
+    cfg = configs.get_smoke_config("zamba2-2.7b").replace(head_dim=80)
+    ref = {k: _reference_flops(*v) for k, v in
+           _smoke_steps("zamba2-2.7b", head_dim=80).items()}
+    got = {k: analyze(_port_count(cfg, k)[0])["flops_per_device"]
+           for k in ("train", "prefill", "decode")}
+    assert ref["prefill"] == got["prefill"] == 1_099_956_224
+    assert ref["decode"] == got["decode"] == 17_336_320
+    params = zamba2.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with torch.no_grad():
+        one = analyze(count(zamba2._mamba_layer, transformer.layer(
+            transformer.layer(params["mamba"], 0), 0), cfg,
+            torch.zeros(B, S, cfg.d_model))[1])["flops_per_device"]
+    logits = 2 * B * S * cfg.d_model * cfg.vocab_size
+    assert ref["train"] == 4_814_012_416
+    assert ref["train"] - got["train"] == 2 * one - (logits - 524_288) \
+        == 191_627_264
 
 
 def _real(x):

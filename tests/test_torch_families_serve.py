@@ -16,8 +16,9 @@ that came with them, against the JAX package:
     scale, and draws at most one layer slice in f32 at a time;
   * bridge round trips of gemma2's pair tree and an MoE tree (bf16), bit
     for bit;
-  * the flash-decode shape rule takes (G, D) = (3, 64) and (4, 128) and
-    still refuses an uninstantiated pair (fake CUDA tensors);
+  * the flash-decode shape rule takes (G, D) = (3, 64), (4, 128) and
+    zamba2-2.7b's (1, 80) and still refuses an uninstantiated pair (fake
+    CUDA tensors);
   * ``FAMILY_TARGETS["moe"]`` adds the router, whose adapters take the
     reference's shapes.
 """
@@ -285,7 +286,8 @@ def test_bridge_round_trip_pair_and_moe_trees(arch):
 
 
 @pytest.mark.parametrize("G,D,built", [(3, 64, True), (4, 128, True),
-                                       (3, 128, False), (4, 64, False)])
+                                       (1, 80, True), (3, 128, False),
+                                       (4, 64, False), (2, 80, False)])
 @pytest.mark.parametrize("paged", [False, True], ids=["ring", "paged"])
 def test_head_geometries_on_fake_cuda_tensors(G, D, built, paged):
     """The shape rule (the kernel's own argument checks) takes the new

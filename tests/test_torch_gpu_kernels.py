@@ -16,7 +16,9 @@ what rounding those f32 outputs allows: |got - want| <= 2**-8 (|got| +
 value).  Block copies
 and empty rows are exact.  Both flash-decode kernels are built for the
 ported configurations' head geometries, (G, D) in {(2, 64), (2, 128), (1,
-32), (1, 128), (3, 64), (4, 128)}, and refuse the rest.  Ring
+32), (1, 128), (3, 64), (4, 128), (1, 80)}, and refuse the rest; at D 80
+a row is not a power of two of 16-byte vectors, so part of each lane
+group idles.  Ring
 and paged are held at the card's split policy and at explicit split
 counts, at lengths (slots or table entries) that no split count divides,
 with idle lanes (q_pos -1) and empty rings or tables, through
@@ -130,7 +132,8 @@ def _assert_matches_plain(args, kw):
     return got
 
 
-HEADS = [(2, 64), (2, 128), (1, 32), (1, 128), (3, 64), (4, 128)]  # built
+HEADS = [(2, 64), (2, 128), (1, 32), (1, 128), (3, 64), (4, 128),
+         (1, 80)]                                                  # built
 HEAD_IDS = [f"G{g}-D{d}" for g, d in HEADS]
 
 
@@ -169,9 +172,9 @@ def test_kernel_refuses_other_head_geometries(cuda, G, D):
                                 dict(kind="full"), dict(softcap=5.0)],
                          ids=["window", "prefix", "full", "softcap"])
 @pytest.mark.parametrize("G,D", [(2, 128), (1, 128), (1, 32), (3, 64),
-                                 (4, 128)],
+                                 (4, 128), (1, 80)],
                          ids=["G2-D128", "G1-D128", "G1-D32", "G3-D64",
-                              "G4-D128"])
+                              "G4-D128", "G1-D80"])
 def test_contiguous_kernel_masks(cuda, kw, G, D):
     q, k, v, kv_pos, pos, _ = _ring(cuda, B=2, S=640, Hk=2, G=G, D=D,
                                     dtype=torch.float32, wrap=True, seed=3)
@@ -179,9 +182,9 @@ def test_contiguous_kernel_masks(cuda, kw, G, D):
 
 
 @pytest.mark.parametrize("G,D", [(2, 128), (1, 128), (1, 32), (3, 64),
-                                 (4, 128)],
+                                 (4, 128), (1, 80)],
                          ids=["G2-D128", "G1-D128", "G1-D32", "G3-D64",
-                              "G4-D128"])
+                              "G4-D128", "G1-D80"])
 def test_return_partials(cuda, G, D):
     q, k, v, kv_pos, pos, _ = _ring(cuda, B=2, S=4096, Hk=2, G=G, D=D,
                                     dtype=torch.float32, empty_row=0, seed=4)
@@ -259,9 +262,9 @@ def test_paged_kernel_matches_plain(cuda, dtype, G, D, n_splits):
 @pytest.mark.parametrize("n_splits", [0, 1, 3, 8],
                          ids=["card", "1", "3", "8"])
 @pytest.mark.parametrize("G,D", [(2, 128), (1, 128), (1, 32), (3, 64),
-                                 (4, 128)],
+                                 (4, 128), (1, 80)],
                          ids=["G2-D128", "G1-D128", "G1-D32", "G3-D64",
-                              "G4-D128"])
+                              "G4-D128", "G1-D80"])
 def test_paged_return_partials(cuda, G, D, n_splits):
     """The paged kernel's merged f32 partials (m, l, acc) against the plain
     version's; an idle lane (no granted entry) gives m = -1e30, l = 0,
@@ -294,8 +297,9 @@ def test_paged_kernel_masks(cuda, dtype, kw):
 @pytest.mark.parametrize("n_splits", [0, 1, 3, 8],
                          ids=["card", "1", "3", "8"])
 @pytest.mark.parametrize("S", [577, 100, 1])
-@pytest.mark.parametrize("Hk,G,D", [(8, 2, 128), (32, 1, 128), (4, 1, 32)],
-                         ids=["qwen3", "fedtime", "fedtime-smoke"])
+@pytest.mark.parametrize("Hk,G,D", [(8, 2, 128), (32, 1, 128), (4, 1, 32),
+                                    (32, 1, 80)],
+                         ids=["qwen3", "fedtime", "fedtime-smoke", "zamba2"])
 def test_ring_kernel_splits(cuda, S, n_splits, Hk, G, D):
     """The card's split policy (0) and explicit counts, at ring lengths no
     count divides and at one slot, at the served configs' heads; lane 1

@@ -242,9 +242,10 @@ def test_loss_and_gradient_match_reference(arch):
 
 
 def test_batch_shapes_match_reference():
-    """The dense, MoE and ssm families' batch shapes are the reference's;
-    a family still unported (``hybrid``) raises."""
-    for arch in ARCHS + ("mixtral-8x7b", "xlstm-350m"):
+    """The dense, MoE, ssm and hybrid families' batch shapes are the
+    reference's (zamba2-2.7b's at full width too); a family still
+    unported (``encdec``) raises."""
+    for arch in ARCHS + ("mixtral-8x7b", "xlstm-350m", "zamba2-2.7b"):
         jcfg, cfg = jax_smoke_config(arch), get_smoke_config(arch)
         want = jregistry.train_batch_shapes(jcfg, 3, 40)
         got = registry.train_batch_shapes(cfg, 3, 40)
@@ -255,12 +256,19 @@ def test_batch_shapes_match_reference():
         got = registry.decode_batch_shapes(cfg, 5)
         assert {k: s for k, (s, _) in got.items()} == \
             {k: s for k, (s, _) in want.items()}
-    hybrid = get_smoke_config("qwen3-0.6b").replace(family="hybrid")
+    jcfg, cfg = jax_config("zamba2-2.7b"), get_config("zamba2-2.7b")
+    for fn, jfn, args in ((registry.train_batch_shapes,
+                           jregistry.train_batch_shapes, (256, 4096)),
+                          (registry.decode_batch_shapes,
+                           jregistry.decode_batch_shapes, (128,))):
+        assert {k: s for k, (s, _) in fn(cfg, *args).items()} == \
+            {k: s for k, (s, _) in jfn(jcfg, *args).items()}
+    encdec = get_smoke_config("qwen3-0.6b").replace(family="encdec")
     for fn, args in ((registry.train_batch_shapes, (2, 8)),
                      (registry.decode_batch_shapes, (2,)),
                      (registry.get_model, ())):
         with pytest.raises(NotImplementedError):
-            fn(hybrid, *args)
+            fn(encdec, *args)
 
 
 def test_smollm_config_equals_reference():
