@@ -468,14 +468,16 @@ def _quant(x):
 
 def _decode_case(rows, S: int, int8: bool, paged: bool, *, n_blocks=0,
                  Hk=8, G=2, D=128, bs=16, seed=0, device="cuda",
-                 wrap=False, f32=False):
+                 wrap=False, f32=False, cross=False):
     """Inputs of one decode call with Hk KV heads of D and G queries each:
     one row per entry of ``rows`` (its position; -1 is an idle lane, which
     must come out 0).
     The ring holds positions 0..q_pos of each row; with ``wrap`` (rows past
     the ring) it holds the last S positions of each row, slot p mod S, and
     row 1's first quarter of slots one lap older (positions a window of S
-    drops).  The paged pool
+    drops).  With ``cross`` the ring is an encoder-decoder's memory: every
+    slot 0..S-1 valid, read with ``kind="full"`` at q position 0 (``rows``
+    then only counts the rows).  The paged pool
     (``n_blocks`` blocks of ``bs``) shares its first two blocks between all
     active rows, and leaves the table entries past each row's position,
     and every entry of an idle lane, ungranted (-1).  The cache and q are
@@ -486,7 +488,14 @@ def _decode_case(rows, S: int, int8: bool, paged: bool, *, n_blocks=0,
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((B, 1, Hk * G, D), generator=g, device=dev)
     q_pos = torch.tensor(rows, dtype=torch.int32, device=dev)
-    if paged:
+    if cross:
+        q_pos = torch.zeros_like(q_pos)
+    if cross:
+        kv_shape = (B, S, Hk, D)
+        kv_pos = torch.arange(S, dtype=torch.int32, device=dev).expand(
+            B, S).contiguous()
+        tbl = None
+    elif paged:
         T = S // bs
         n_blocks = n_blocks or B * T + 8
         perm = torch.randperm(n_blocks, generator=g, device=dev).tolist()
@@ -523,7 +532,7 @@ def _decode_case(rows, S: int, int8: bool, paged: bool, *, n_blocks=0,
         tbl = None
     k = torch.randn(kv_shape, generator=g, device=dev)
     v = torch.randn(kv_shape, generator=g, device=dev)
-    kw = {}
+    kw = {"kind": "full"} if cross else {}
     if f32:
         if tbl is not None:
             kw["block_tables"] = tbl
@@ -531,10 +540,11 @@ def _decode_case(rows, S: int, int8: bool, paged: bool, *, n_blocks=0,
     if int8:
         k, ks = _quant(k)
         v, vs = _quant(v)
-        kw = {"k_scale": ks, "v_scale": vs}
     else:
         k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
     q = q.to(torch.bfloat16)
+    if int8:
+        kw.update(k_scale=ks, v_scale=vs)
     if tbl is not None:
         kw["block_tables"] = tbl
     return (q, k, v, kv_pos, q_pos), kw
@@ -548,14 +558,15 @@ def _needed_slots(args, kw):
     B = q.shape[0]
     tbl = kw.get("block_tables")
     window = kw.get("window", 0)
+    kind = kw.get("kind", "causal")
     if tbl is None:
-        keep = fd._slot_mask(kv_pos, q_pos[:, None], 0, kind="causal",
+        keep = fd._slot_mask(kv_pos, q_pos[:, None], 0, kind=kind,
                              window=window)
         return int(keep.sum())
     bs = k.shape[1]
     T = tbl.shape[1]
     _, _, gpos, _, _ = fd.paged_gather(k, v, kv_pos, None, None, tbl)
-    keep = fd._slot_mask(gpos, q_pos[:, None], 0, kind="causal",
+    keep = fd._slot_mask(gpos, q_pos[:, None], 0, kind=kind,
                          window=window)
     phys = (tbl.clamp(min=0).long()[:, :, None] * bs
             + torch.arange(bs, device=tbl.device)).reshape(B, T * bs)
@@ -575,7 +586,8 @@ def _sdpa_inputs(args, kw):
     if ks is not None:
         k = (k.float() * ks.float()).to(torch.bfloat16)
         v = (v.float() * vs.float()).to(torch.bfloat16)
-    mask = fd._slot_mask(kv_pos, q_pos[:, None], 0, kind="causal",
+    mask = fd._slot_mask(kv_pos, q_pos[:, None], 0,
+                         kind=kw.get("kind", "causal"),
                          window=kw.get("window", 0))
     return (q.transpose(1, 2), k.transpose(1, 2).contiguous(),
             v.transpose(1, 2).contiguous(), mask[:, None, None, :])
@@ -792,7 +804,10 @@ def phase_kernels(card: str, timer: Timer) -> dict:
     pool, and qwen2-moe-a2.7b's; gemma2-27b's local layer with its softcap
     and window over a ring that wrapped, its library call flex_attention),
     at phase 12c's (1, 80) instance (zamba2-2.7b's ring in bf16, f32 and
-    int8, and a pool, built though its contiguous lanes never run one)
+    int8, and a pool, built though its contiguous lanes never run one),
+    at phase 12d's (1, 64) instance (seamless-m4t-medium's self ring in
+    bf16, f32 and int8, a pool, and its cross calls over a 512- and a
+    4096-slot memory)
     and at longer caches (S = 1024, 4096; bf16 and int8;
     qwen3-0.6b's heads); a copy-on-write event of each paged engine's pool.
     Returns the JSON rows: qwen3-0.6b's, with the other configs' nested
@@ -851,6 +866,27 @@ def phase_kernels(card: str, timer: Timer) -> dict:
     cases.append((HYBRID, f"phase 12c {HYBRID}: engine pool (built, off "
                   f"its contiguous path)", engine_rows, S_eng, False, True,
                   ENGINE_POOL_BLOCKS, hw))
+    # phase 12d's calls: seamless-m4t-medium (G 1, D 64, 16 KV heads): its
+    # self ring at the fixed batch's shape in bf16, f32 (phase 12d's f32
+    # hold) and int8, a pool (built, off its path: the family is served
+    # on contiguous lanes), and its cross calls over the memory: the fixed
+    # batch's 512 frames at B 4 and the long source's 4096 at B 1
+    _, Hk, G, D = _encdec_heads()
+    hw = dict(Hk=Hk, G=G, D=D)
+    for kv in ("bf16", "f32", "int8"):
+        cases.append((ENCDEC if kv == "bf16" else f"{ENCDEC} {kv}",
+                      f"phase 12d {ENCDEC}: fixed batch self ring, {kv}",
+                      [P + gen - 1] * FIXED["batch"], P + gen, kv == "int8",
+                      False, 0, dict(hw, f32=kv == "f32")))
+    cases.append((ENCDEC, f"phase 12d {ENCDEC}: engine pool (built, off "
+                  f"its path)", engine_rows, S_eng, False, True,
+                  ENGINE_POOL_BLOCKS, hw))
+    for rows_n, F_src in ((FIXED["batch"], P),
+                          (ENCDEC_LONG["batch"], ENCDEC_LONG["frames"])):
+        cases.append((f"{ENCDEC} cross {F_src}", f"phase 12d {ENCDEC}: "
+                      f"cross attention over {F_src} memory slots",
+                      [0] * rows_n, F_src, False, False, 0,
+                      dict(hw, cross=True)))
     _, Hk, G, D = heads[SERVED[0]]
     hw = dict(Hk=Hk, G=G, D=D)
     cases += [(None, f"main path {SERVED[0]}: phase 3b's generate ring",
@@ -870,7 +906,8 @@ def phase_kernels(card: str, timer: Timer) -> dict:
         hw = {k: opts[k] for k in ("Hk", "G", "D")}
         args, kw = _decode_case(q_rows, S, int8, paged, n_blocks=n_blocks,
                                 wrap=opts.get("wrap", False),
-                                f32=opts.get("f32", False), **hw)
+                                f32=opts.get("f32", False),
+                                cross=opts.get("cross", False), **hw)
         for k in ("window", "softcap"):
             if opts.get(k):
                 kw[k] = opts[k]
@@ -1877,7 +1914,8 @@ def _decode_vs_prefill(cfg, api, params=None) -> tuple:
     at batch 4 and at batch 2 on its first two rows; the error with the
     first decode step fed a wrong token), at the published widths in f32
     (``params`` None: drawn here) or with ``params``.  The prefill's rings
-    (a hybrid's) hold the decode steps too."""
+    (a hybrid's, an encoder-decoder's) hold the decode steps too; an
+    encoder-decoder's prefills read one source, ``_seeded_frames``."""
     if params is None:
         cfg = cfg.replace(param_dtype="float32", compute_dtype="float32")
         params = api.init(cfg, torch.Generator(device="cuda").manual_seed(
@@ -1885,10 +1923,17 @@ def _decode_vs_prefill(cfg, api, params=None) -> tuple:
     P, k, B = FIXED["prompt_len"], RECURRENT_K, FIXED["batch"]
     toks = torch.as_tensor(np.random.default_rng(3).integers(
         0, cfg.vocab_size, (B, P + k)), device="cuda")
+    # an encoder-decoder's source: P seeded frames a row, the same for
+    # every prefill (zero frames would make the memory degenerate)
+    src = ({"frames": _seeded_frames(cfg, B, P, 4)}
+           if cfg.family == "encdec" else {})
+
+    def rows(n):
+        return {name: x[:n] for name, x in src.items()}
 
     def decoded(first):
-        cache, lg = api.prefill(params, cfg, {"tokens": toks[:, :P]},
-                                cache_len=P + k)
+        cache, lg = api.prefill(params, cfg, {"tokens": toks[:, :P],
+                                              **src}, cache_len=P + k)
         for i in range(k):
             tok = toks[:, P + i:P + i + 1]
             lg, cache = api.decode_step(params, cfg, cache, {
@@ -1898,8 +1943,8 @@ def _decode_vs_prefill(cfg, api, params=None) -> tuple:
     def gap(a, b):
         return float((a.float() - b.float()).abs().max())
 
-    _, want = api.prefill(params, cfg, {"tokens": toks})
-    _, half = api.prefill(params, cfg, {"tokens": toks[:2]})
+    _, want = api.prefill(params, cfg, {"tokens": toks, **src})
+    _, half = api.prefill(params, cfg, {"tokens": toks[:2], **rows(2)})
     return (gap(decoded(lambda t: t), want), gap(want[:2], half),
             gap(decoded(lambda t: (t + 1) % cfg.vocab_size), want))
 
@@ -2100,7 +2145,7 @@ def _counted_calls(module, name: str):
 
 
 def _launch_delta(before: dict, label: str, steps: int,
-                  per_step: int) -> dict:
+                  per_step: int, phase: str = "12c") -> dict:
     """The flash-decode launches since ``before``, checked to be exactly
     ``per_step`` ring launches a decode step and no paged launch or block
     copy.  Returns the counts now."""
@@ -2109,7 +2154,7 @@ def _launch_delta(before: dict, label: str, steps: int,
     delta = {k: now[k] - before[k] for k in now}
     _check(delta == {"flash_decode": per_step * steps,
                      "flash_decode_paged": 0, "paged_block_copy": 0},
-           f"phase 12c {label}: launches {delta} for {steps} decode "
+           f"phase {phase} {label}: launches {delta} for {steps} decode "
            f"steps, not {per_step} ring launches each")
     return now
 
@@ -2289,6 +2334,174 @@ def phase_hybrid(card: str) -> dict:
     print(f"[{card}] phase 12c wall {time.perf_counter() - t_all:.1f} s "
           f"(host clock)")
     del params, engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 12d: the encoder-decoder family (seamless-m4t-medium) at full width
+# ---------------------------------------------------------------------------
+
+# seamless-m4t-medium at its published widths and depth, no cut: 12
+# bidirectional encoder layers over stub frame embeddings and 12 decoder
+# layers with self- and cross-attention (16/16 heads of 64, G 1:
+# flash-decode's (1, 64) instance for both), vocab 256,206, tied.  The
+# fixed batch is FIXED (4 rows of 512 frames and 512-token prompts, 64
+# steps; a ring of 576 slots); the long source is one row of 4096 frames
+# (the encoder's blockwise path at its threshold) with a 64-token prompt
+# and 16 steps, its cross decode over 4096 memory slots.  Frames are drawn
+# from numpy with a seed: zero frames make the memory degenerate.
+ENCDEC = "seamless-m4t-medium"
+ENCDEC_LONG = dict(batch=1, frames=4096, prompt_len=64, gen=16)
+# Prefill + RECURRENT_K decode steps against one longer prefill over the
+# same frames, in f32 at the published widths: the flash-decode kernel
+# (self ring and cross memory) against the prefill's sdpa rounds in
+# another order; beside it two prefills whose GEMMs round apart and a
+# planted wrong token, as phases 12b and 12c.  The tied embedding (std
+# 0.02) keeps the logits small, and one wrong token among 515 moves the
+# last logits little (read on an H100: the hold 2.56e-6, planted 5.36e-3,
+# which phase 12c's 0.01 would not tell apart).
+ENCDEC_LOGIT_TOL = 1e-3
+
+
+def _encdec_heads():
+    """(decoder layers, Hk, G, D) of phase 12d's attention."""
+    from repro_torch.configs import get_config
+    cfg = get_config(ENCDEC)
+    return (cfg.num_layers, cfg.num_kv_heads,
+            cfg.num_heads // cfg.num_kv_heads, cfg.head_dim)
+
+
+def _seeded_frames(cfg, rows: int, frames: int, seed: int,
+                   device="cuda") -> torch.Tensor:
+    """``rows`` x ``frames`` stub frame embeddings of ``cfg``'s width,
+    standard normal from numpy with ``seed``, in bf16 (the batch's type)."""
+    x = np.random.default_rng(seed).standard_normal(
+        (rows, frames, cfg.d_model)).astype(np.float32)
+    return torch.from_numpy(x).to(device=device, dtype=torch.bfloat16)
+
+
+def phase_encdec(card: str) -> dict:
+    """Phase 12d: serve seamless-m4t-medium at its published widths (12
+    encoder and 12 decoder layers, d_model 1024, 16/16 heads of 64, GELU
+    d_ff 4096, vocab 256,206, tied, bf16) with random weights drawn on the
+    card from a seed, through the fixed-batch launcher over seeded frames:
+    the fixed batch, then one row of 4096 frames (the encoder's blockwise
+    path), then prefill + decode against a longer prefill in f32.  Every
+    decode step launches exactly 24 ring flash-decodes (the (1, 64)
+    instance): 12 self-ring calls and 12 cross calls over the memory, no
+    paged launch; a few of those calls (self and cross) are held to the
+    plain version.  Returns the launch counts, set to 0 at the start and
+    read at the end of the main path."""
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.launch.serve import run_fixed_batch
+    from repro_torch.models import encdec
+    from repro_torch.models.layers import attention
+    from repro_torch.models.registry import get_model
+    t_all = time.perf_counter()
+    for mod in _kernel_modules():
+        mod.reset_launches()
+    cfg = get_config(ENCDEC)
+    api = get_model(cfg)
+    L = cfg.num_layers
+    G = cfg.num_heads // cfg.num_kv_heads
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                      device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = sum(t.numel() * t.element_size()
+                  for t in tree_util.leaves(params))
+    init_peak = _gib(torch.cuda.max_memory_allocated() - base)
+    print(f"[{card}] phase 12d {cfg.name}: {cfg.encdec.encoder_layers} "
+          f"encoder and {L} decoder layers ({cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads of {cfg.head_dim}, G = {G}; "
+          f"{cfg.activation} d_ff {cfg.d_ff}), d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab_size} (tied), {cfg.encdec.max_source_len} source "
+          f"slots, {cfg.param_dtype}: weights {_gib(weights):.2f} GiB "
+          f"({weights / 1e9:.3f} GB, "
+          f"{sum(t.numel() for t in tree_util.leaves(params)) / 1e9:.3f} B "
+          f"parameters) drawn in {init_s:.1f} s, init peak {init_peak:.2f} "
+          f"GiB")
+    torch.cuda.reset_peak_memory_stats()
+
+    counts = dict(fd.LAUNCHES)
+    per_step = 2 * L                       # a self ring and a cross call
+    runs = ((f"fixed batch {FIXED['batch']} x {FIXED['prompt_len']} frames "
+             f"and tokens", FIXED, _seeded_frames(
+                 cfg, FIXED["batch"], FIXED["prompt_len"], 1), 0),
+            (f"long source: {ENCDEC_LONG['frames']} frames, "
+             f"{ENCDEC_LONG['prompt_len']}-token prompt",
+             {k: ENCDEC_LONG[k] for k in ("batch", "prompt_len", "gen")},
+             _seeded_frames(cfg, ENCDEC_LONG["batch"],
+                            ENCDEC_LONG["frames"], 2),
+             cfg.encdec.encoder_layers))
+    # every 501st ring call: the fixed batch's first (layer 0's self
+    # ring), 502nd (a cross call) and 1003rd (a self ring), of 64 x 24
+    with _CallRecorder(fd, every=501, keep=3) as rec:
+        for label, shape, frames, blockwise in runs:
+            with _counted_calls(encdec, "decode_step") as steps, \
+                    _counted_calls(encdec, "attn_cross_decode") as cross, \
+                    _counted_calls(attention, "_sdpa_blockwise") as blocks:
+                t0 = time.perf_counter()
+                res = run_fixed_batch(cfg, params, device="cuda",
+                                      quiet=True, inputs={"frames": frames},
+                                      **shape)
+                wall = time.perf_counter() - t0
+            counts = _launch_delta(counts, label, steps[0], per_step, "12d")
+            _check(res["finite"], f"phase 12d {label}: non-finite logits")
+            _check(res["tokens"].shape == (shape["batch"], shape["gen"] + 1),
+                   f"phase 12d {label}: token shape")
+            _check(steps[0] == shape["gen"] and cross[0] == L * steps[0],
+                   f"phase 12d {label}: {steps[0]} decode steps, "
+                   f"{cross[0]} cross decodes")
+            _check(blocks[0] == blockwise, f"phase 12d {label}: "
+                   f"{blocks[0]} blockwise attention calls, not {blockwise}"
+                   f" (the encoder's layers at F >= 4096)")
+            print(f"[{card}] phase 12d {label}: prefill (encode + decoder) "
+                  f"{res['prefill_tok_per_s']:.0f} tok/s, decode first step "
+                  f"{res['first_step_s']:.3f} s, steady "
+                  f"{res['decode_tok_per_s']:.1f} tok/s ({shape['gen'] - 1} "
+                  f"steps x {shape['batch']}), {per_step} ring flash-decode "
+                  f"launches a step ({L} self, {L} cross over "
+                  f"{frames.shape[1]} memory slots), {blocks[0]} blockwise "
+                  f"encoder attention calls, wall {wall:.1f} s")
+    held = _hold_recorded("phase 12d", rec, G)
+    crossed = sum(kw.get("kind") == "full" for _, _, kw, _ in rec.calls)
+    _check(held >= 3 and crossed >= 1, f"phase 12d: {held} of its own "
+           f"flash-decode calls held to the plain version, {crossed} of "
+           f"them cross calls")
+    peak = _gib(torch.cuda.max_memory_allocated() - base)
+    print(f"[{card}] phase 12d {cfg.name}: run peak {peak:.2f} GiB (weights "
+          f"{_gib(weights):.2f}); {held} of its own flash-decode calls held "
+          f"to the plain version ({crossed} cross); main-path launches "
+          f"{counts}")
+    launches = counts
+
+    # prefill + k decode steps against the longer prefill, held in f32
+    # (after the main path's counts are read: its launches are the check's)
+    err, noise, planted = _decode_vs_prefill(cfg, api)
+    bf16 = _decode_vs_prefill(cfg, api, params)[0]
+    _check(err <= ENCDEC_LOGIT_TOL and planted > ENCDEC_LOGIT_TOL,
+           f"phase 12d: prefill + {RECURRENT_K} decode steps vs the longer "
+           f"prefill (f32): logits max err {err}, planted {planted}, tol "
+           f"{ENCDEC_LOGIT_TOL}")
+    print(f"[{card}] phase 12d prefill {FIXED['batch']}x"
+          f"{FIXED['prompt_len']} (frames and tokens) + {RECURRENT_K} "
+          f"decode steps vs a prefill of {FIXED['prompt_len'] + RECURRENT_K}"
+          f" tokens over the same frames, at full width in f32: logits "
+          f"max_abs_err {err:.4g} (tol {ENCDEC_LOGIT_TOL}); two prefills "
+          f"at batch 4 and 2 (their GEMMs round apart) {noise:.4g}; planted "
+          f"(decode fed one wrong token) {planted:.4g}; the same comparison "
+          f"in bf16 {bf16:.4g}")
+    print(f"[{card}] phase 12d wall {time.perf_counter() - t_all:.1f} s "
+          f"(host clock)")
+    del params
     torch.cuda.empty_cache()
     return launches
 
@@ -5064,13 +5277,15 @@ TOL_TRAIN_MOMENT = 1e-3
 # 151,936) in f32, depth cut from 28 to 4 layers (each rank holds the
 # whole model, its gradients and a gathered copy, rank 0 the one-rank run
 # beside, four ranks on one card; gloo stages each step's gradient psum
-# and parameter gather through the host), 3 steps each at batch 8 x 256
-# with -1 labels on every other position of data rank 0's rows.  Each is
+# and parameter gather through the host), 2 steps each at batch 8 x 256
+# with -1 labels on every other position of data rank 0's rows (3 steps
+# before PR 34's cut: the second step already takes its gradient at
+# parameters and moments the first updated).  Each is
 # held to the one-rank step on the same global batch with the limits
 # above; planted beside: one step with each rank's own count in place of
 # the count's psum, times the data ways (a per-rank mean averaged over the
 # ranks, what the reference's global count rules out).
-TRAIN_MESH = dict(layers=4, steps=3, world=4, timeout_s=420,
+TRAIN_MESH = dict(layers=4, steps=2, world=4, timeout_s=420,
                   runs={"train": ((2, 2), ("data", "model")),
                         "fed": ((4, 1), ("data", "model"))})
 
@@ -5085,7 +5300,8 @@ TRAIN_MESH = dict(layers=4, steps=3, world=4, timeout_s=420,
 # drops are the reference's); -1 labels on every other position of data
 # rank 0's rows.  Held to the one-rank step on the global batch with phase
 # 10's limits; planted beside: the router's top-1 counts not psummed (each
-# rank's aux of its own counts, the rule the psum replaced).
+# rank's aux of its own counts, the rule the psum replaced), read as the
+# loss of the step's own loss path (a full planted step until PR 34).
 TRAIN_MOE = dict(arch="qwen2-moe-a2.7b", layers=1, world=2, batch=4,
                  seq=256, timeout_s=600)
 
@@ -5317,9 +5533,13 @@ def _train_mesh_rank(cfg, batch: int, seq: int, device="cuda"):
 
 def _train_moe_rank(cfg, device="cuda"):
     """10d in one rank of the 2-rank world: the mesh step and the planted
-    one; rank 0 also runs the one-rank step on the global batch and holds
+    loss; rank 0 also runs the one-rank step on the global batch and holds
     the mesh step to it.  Rank 1 frees the card before rank 0's one-rank
-    run (a barrier)."""
+    run (a barrier).  The planted reading is a loss, so it runs the step's
+    own loss path (``steps._value_and_grad``) differentiated for the final
+    norm alone: no backward through the trunk and no psum of the whole
+    gradient (4.8 GB through the host).  The same path without the plant
+    must read the mesh step's loss."""
     import torch.distributed as dist
     from repro_torch.dist import collectives
     from repro_torch.dist.sharding import data_specs, local_shard, use_mesh
@@ -5337,21 +5557,31 @@ def _train_moe_rank(cfg, device="cuda"):
     mine = local_shard(b, data_specs(b, mesh), mesh)
     step = steps.make_train_step(cfg, lr=lr)
     counts = (cfg.num_layers, cfg.moe.num_experts)
+    api = get_model(cfg)
+
+    def loss_only():
+        return float(steps._value_and_grad(
+            lambda t, mb: api.loss_parts(dict(params, final_norm=t), cfg,
+                                         mb),
+            [params["final_norm"]["scale"]], params["final_norm"], mine, 1,
+            cfg)[0])
+
     with use_mesh(mesh):
         psum = collectives.psum          # planted: the counts not psummed
         collectives.psum = lambda x, m, axes: (
             x.clone() if tuple(x.shape) == counts else psum(x, m, axes))
         try:
-            _, _, planted = step(params, zero1_init(params, mesh), mine, 0)
+            planted = loss_only()
         finally:
             collectives.psum = psum
+        unplanted = loss_only()
         _sync(device)
         (p, st, loss), wall = _timed(device, step, params,
                                      zero1_init(params, mesh), mine, 0)
     whole = zero1_gather(st, params, mesh)
     del st
-    r = dict(loss=float(loss), planted=float(planted), wall=wall,
-             checksum=_checksum(p), peak_gib=_peak_gib(device))
+    r = dict(loss=float(loss), planted=planted, unplanted=unplanted,
+             wall=wall, checksum=_checksum(p), peak_gib=_peak_gib(device))
     if rank:
         del p, whole, params
         if device == "cuda":
@@ -5390,6 +5620,10 @@ def _phase_train_moe(card: str, device: str) -> dict:
     planted = abs(ranks[0]["planted"] - one["loss"]) / one["loss"]
     _check(planted > TOL_TRAIN_LOSS, f"phase 10d: the planted fault's loss "
            f"is within {TOL_TRAIN_LOSS} of the one-rank loss: {planted}")
+    path = max(abs(r["unplanted"] - r["loss"]) / r["loss"] for r in ranks)
+    _check(path <= TOL_TRAIN_LOSS, f"phase 10d: the planted reading's loss "
+           f"path without the plant reads {path} relative of the mesh "
+           f"step's loss")
     print(f"[{card}] phase 10d make_train_step on (data 2, model 1), 2 ranks"
           f" on one card over gloo, {cfg.name} at published widths (d_model"
           f" {cfg.d_model}, {cfg.moe.num_experts} experts top-"
@@ -5400,7 +5634,8 @@ def _phase_train_moe(card: str, device: str) -> dict:
           f"{ranks[0]['loss']:.6f} vs one rank {one['loss']:.6f}; "
           f"{_train_reading(*one['read'], 1)}; planted (router counts not "
           f"psummed): loss {ranks[0]['planted']:.6f}, {planted:.3g} "
-          f"relative; step wall {max(r['wall'] for r in ranks):.2f} s (host "
+          f"relative (the same loss path unplanted {path:.3g} of the step's)"
+          f"; step wall {max(r['wall'] for r in ranks):.2f} s (host "
           f"clock, slowest rank, gloo staging through the host); peak a "
           f"rank " + ", ".join(f"{r['peak_gib']:.2f}" for r in ranks)
           + f" GiB; 10d wall {wall:.1f} s with the world's start")
@@ -5430,6 +5665,8 @@ def phase_train(card: str, device="cuda", full: bool = True,
     common = ["--batch", str(batch), "--seq", str(seq), "--lr",
               str(TRAIN["lr"]), "--device", device]
 
+    parts = {}                                # host-clock walls, s
+
     # 10a: a full fine-tune through the launcher
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -5458,7 +5695,10 @@ def phase_train(card: str, device="cuda", full: bool = True,
           f"steady, {run.tokens_per_s:.0f} tok/s over the loop; peak "
           f"device memory {_peak_gib(device):.2f} GiB; wall {wall:.1f} s")
     del run
+    parts["10a launcher"] = wall
+    t0 = time.perf_counter()
     _train_card_vs_cpu(card, device)
+    parts["10a card vs CPU"] = time.perf_counter() - t0
 
     # 10b: the federated step on the paper's backbone
     cfg = (get_config if full else get_smoke_config)("fedtime-llama2-7b")
@@ -5466,6 +5706,7 @@ def phase_train(card: str, device="cuda", full: bool = True,
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    t_10b = t0
     params, opt, step = launch_train.setup(cfg, fed=True, lr=TRAIN["lr"],
                                            device=device)
     _sync(device)
@@ -5509,6 +5750,7 @@ def phase_train(card: str, device="cuda", full: bool = True,
     del params, opt, run, adapters0
     if device == "cuda":
         torch.cuda.empty_cache()
+    parts["10b"] = time.perf_counter() - t_10b
 
     # 10c: the steps on a mesh of 4 ranks
     mcfg = (get_config("qwen3-0.6b").replace(
@@ -5520,6 +5762,7 @@ def phase_train(card: str, device="cuda", full: bool = True,
                         seq, device, device_type=device,
                         timeout_s=TRAIN_MESH["timeout_s"])
     mesh_s = time.perf_counter() - t0
+    parts["10c"] = mesh_s
     n = TRAIN_MESH["steps"]
     for name, (shape, names) in TRAIN_MESH["runs"].items():
         rs = [rk["runs"][name] for rk in ranks]
@@ -5566,7 +5809,9 @@ def phase_train(card: str, device="cuda", full: bool = True,
               + ", ".join(f"{r['peak_gib']:.2f}" for r in rs) + " GiB")
     if full:
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
         moe_launches = _phase_train_moe(card, device)
+        parts["10d"] = time.perf_counter() - t0
     launches = {k: v for mod in _kernel_modules()
                 for k, v in mod.LAUNCHES.items()}
     rank_launches = [rk["launches"] for rk in ranks]
@@ -5579,23 +5824,30 @@ def phase_train(card: str, device="cuda", full: bool = True,
     print(f"[{card}] phase 10 kernel launches on the train path: "
           f"{launches}, in each rank of 10c {rank_launches[0]}; 10c wall "
           f"{mesh_s:.1f} s with the world's start; phase 10 wall "
-          f"{time.perf_counter() - t_start:.1f} s (host clock)")
+          f"{time.perf_counter() - t_start:.1f} s (host clock; parts "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + ")")
 
 
 # ---------------------------------------------------------------------------
 # phase 11: the dry run against the card
 # ---------------------------------------------------------------------------
 
-# 11a: dry runs of the production world on the installed PyTorch:
-# (arch, shape, multi_pod, fed).
-DRYRUN_PAIRS = (("qwen3-0.6b", "decode_32k", False, False),
-                ("qwen3-0.6b", "long_500k", False, False),
-                ("qwen3-0.6b", "train_4k", True, True))
-# 11b: one rank's steps, predicted on fakes and run on the card.
-DRYRUN_STEPS = (("train", "qwen3-0.6b", "train", 2, 4096, False),
-                ("fed_train", "fedtime-llama2-7b", "train", 8, 256, True),
-                ("prefill", "qwen3-0.6b", "prefill", 1, 8192, False),
-                ("serve", "qwen3-0.6b", "decode", 0, 32768, False))
+# 11a: a dry run of the production world on the installed PyTorch, held
+# to its committed record: (arch, shape, multi_pod, fed).  One pair: the
+# long_500k and the multi-pod train_4k --fed pairs that ran here until PR
+# 34 are pinned by their committed records and by tests/test_torch_dryrun.py
+# (the fed step's collectives in a fake world, its FLOPs against the
+# reference).
+DRYRUN_PAIRS = (("qwen3-0.6b", "decode_32k", False, False),)
+# 11b: one rank's steps, predicted on fakes and run on the card: (name,
+# arch, kind, batch, seq, fed, layers; 0 = published depth).  The train,
+# fed_train and prefill steps run 8 of their 28 / 32 layers (since PR 34:
+# the prediction dispatches every layer's ops on fakes, ~3,000 a second,
+# and a layer repeats the one before); serve runs at published depth.
+DRYRUN_STEPS = (("train", "qwen3-0.6b", "train", 2, 4096, False, 8),
+                ("fed_train", "fedtime-llama2-7b", "train", 8, 256, True, 8),
+                ("prefill", "qwen3-0.6b", "prefill", 1, 8192, False, 8),
+                ("serve", "qwen3-0.6b", "decode", 0, 32768, False, 0))
 SERVE_BUDGET = 70e9               # bytes the serve step's B must fit in
 # measured peak above the arguments vs the prediction: 5% or 256 MiB
 PEAK_TOL = (0.05, 256 * 2 ** 20)
@@ -5821,10 +6073,13 @@ def phase_dryrun(card: str, device="cuda", pairs=DRYRUN_PAIRS,
              else CARD_BYTES)
     _phase_dry_world(card, total, pairs)
     t_a = time.perf_counter() - t_start
+    parts = []                       # (step, predict s, card run s)
     cfg_of = (configs or {}).get
     launches = 0
-    for name, arch, kind, batch, seq, fed in steps:
+    for name, arch, kind, batch, seq, fed, layers in steps:
         cfg = cfg_of(arch) or get_config(arch)
+        if layers:
+            cfg = cfg.replace(num_layers=min(layers, cfg.num_layers))
         t0 = time.perf_counter()
         if kind == "decode":
             batch, c_f, m_f = _serve_batch_that_fits(cfg, seq, serve_budget)
@@ -5839,6 +6094,7 @@ def phase_dryrun(card: str, device="cuda", pairs=DRYRUN_PAIRS,
             del fargs
         predict_s = time.perf_counter() - t0
         pred = analyze(c_f)
+        t_run = time.perf_counter()
         if cuda:
             torch.cuda.empty_cache()
         args = _real_args(cfg, kind, batch, seq, fed, device)
@@ -5903,10 +6159,16 @@ def phase_dryrun(card: str, device="cuda", pairs=DRYRUN_PAIRS,
         del args, c_r, c_f
         if cuda:
             torch.cuda.empty_cache()
+        parts.append((name, predict_s, time.perf_counter() - t_run))
+    t0 = time.perf_counter()
     if cuda:
         _shape_rules_vs_kernels(card, device)
     print(f"[{card}] phase 11 wall {time.perf_counter() - t_start:.1f} s "
-          f"(11a {t_a:.1f} s; host clock)")
+          f"(host clock; 11a {t_a:.1f} s; 11b "
+          + ", ".join(f"{n} {p:.1f} s predicted on fakes + {r:.1f} s on the "
+                      f"card" for n, p, r in parts)
+          + f"; the shape rules vs the kernels "
+          f"{time.perf_counter() - t0:.1f} s)")
     return {"flash_decode": launches}
 
 
@@ -5920,43 +6182,44 @@ def _to(tree, dev):
 
 # Phase 6's smoke configs besides SERVED's: qwen3-1.7b, gemma2-27b (its
 # local and global rings; no paged pool), smollm-360m (G 3, D 64),
-# mixtral-8x7b (G 2, D 64), qwen2-moe-a2.7b, whose smoke heads (G 1, D 64)
-# have no kernel instance and run at D 128 here (G 1, D 128: its full
-# width's), xlstm-350m (its recurrent states; no paged pool, no kernel) and
-# zamba2-2.7b, whose smoke heads (G 1, D 64) run at D 80 here (its full
-# width's instance; contiguous rings, no paged pool).
+# mixtral-8x7b (G 2, D 64), qwen2-moe-a2.7b (G 1, D 64), xlstm-350m (its
+# recurrent states; no paged pool, no kernel), zamba2-2.7b (G 1, D 64;
+# contiguous rings, no paged pool) and seamless-m4t-medium (G 1, D 64, its
+# self rings and cross memory over seeded frames; no paged pool).
 PHASE6_EXTRA = ("qwen3-1.7b", "gemma2-27b", "smollm-360m", "mixtral-8x7b",
-                "qwen2-moe-a2.7b", "xlstm-350m", "zamba2-2.7b")
-# Phase 6's head widths where a smoke config's heads have no instance.
-PHASE6_HEAD_DIM = {"qwen2-moe-a2.7b": 128, "zamba2-2.7b": 80}
+                "qwen2-moe-a2.7b", "xlstm-350m", "zamba2-2.7b", ENCDEC)
 
 
 def phase_reference(card: str, arch: str) -> None:
     """``arch``'s smoke config in f32 (qwen3-0.6b: G = 2, D 64;
     fedtime-llama2-7b: G = 1, D 32; PHASE6_EXTRA's): the card (kernels)
-    against the CPU (plain versions), same weights, teacher-forced tokens;
-    ring and (but for an alternating config) paged."""
+    against the CPU (plain versions), same weights, teacher-forced tokens
+    (an encoder-decoder's over 24 seeded frames); ring and (but for an
+    alternating config and the families served on contiguous lanes)
+    paged."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.registry import get_model
     cfg = get_smoke_config(arch)
-    if arch in PHASE6_HEAD_DIM:
-        cfg = cfg.replace(head_dim=PHASE6_HEAD_DIM[arch])
     api = get_model(cfg)
     params = api.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     rng = np.random.default_rng(0)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (3, 20)))
     teacher = torch.as_tensor(rng.integers(0, cfg.vocab_size, (8, 3, 1)))
+    src = ({"frames": _seeded_frames(cfg, 3, 24, 0, "cpu")}
+           if cfg.family == "encdec" else {})
     ring, bs = 32, 8
     table = torch.tensor([[3, 9, 0, 6], [1, 11, 4, -1], [10, 2, 7, 5]],
                          dtype=torch.int32)
     layouts = (("ring",) if cfg.local_global_alternating
-               or cfg.family in ("ssm", "hybrid") else ("ring", "paged"))
+               or cfg.family in ("ssm", "hybrid", "encdec")
+               else ("ring", "paged"))
     outs = {}
     for dev in ("cpu", "cuda"):
         p = _to(params, dev)
         for layout in layouts:
-            cache, lg = api.prefill(p, cfg, {"tokens": prompt.to(dev)},
-                                    cache_len=ring)
+            cache, lg = api.prefill(p, cfg, {
+                "tokens": prompt.to(dev),
+                **{k: x.to(dev) for k, x in src.items()}}, cache_len=ring)
             steps = [lg]
             batch = {}
             if layout == "paged":
@@ -6099,6 +6362,10 @@ def main() -> None:
     for name in ("flash_decode", "flash_decode_paged", "paged_block_copy"):
         rows[name][f"phase 12c {HYBRID}"] = {
             "launches": hybrid_launches[name]}
+    encdec_launches = phase_encdec(card)
+    for name in ("flash_decode", "flash_decode_paged", "paged_block_copy"):
+        rows[name][f"phase 12d {ENCDEC}"] = {
+            "launches": encdec_launches[name]}
 
     for arch in SERVED + PHASE6_EXTRA:
         phase_reference(card, arch)

@@ -126,6 +126,31 @@ def _check_hybrid(params, cfg: ModelConfig) -> None:
                              f"not {shape} of {cfg.name}")
 
 
+def _check_encdec(params, cfg: ModelConfig) -> None:
+    """An encoder-decoder tree: ``frame_proj``, the embedding table, the
+    stacks of encoder and decoder blocks (each decoder block with its
+    ``cross`` attention), ``enc_norm`` and ``final_norm``."""
+    if cfg.encdec is None:
+        raise ValueError(f"params_from_jax: {cfg.name} is not an "
+                         f"encoder-decoder config")
+    d, Le, Ld = cfg.d_model, cfg.encdec.encoder_layers, cfg.num_layers
+    want = {("frame_proj", "w"): (d, d),
+            ("embed", "table"): (cfg.vocab_size, d),
+            ("encoder", "attn", "wq", "w"): (Le, d, cfg.q_dim),
+            ("encoder", "mlp", "down", "w"): (Le, cfg.d_ff, d),
+            ("enc_norm", "scale"): (d,),
+            ("decoder", "attn", "wq", "w"): (Ld, d, cfg.q_dim),
+            ("decoder", "cross", "wk", "w"): (Ld, d, cfg.kv_dim),
+            ("decoder", "cross", "wo", "w"): (Ld, cfg.q_dim, d),
+            ("decoder", "mlp", "down", "w"): (Ld, cfg.d_ff, d),
+            ("final_norm", "scale"): (d,)}
+    for path, shape in want.items():
+        got = _shape(params, *path)
+        if got != shape:
+            raise ValueError(f"params_from_jax: {'/'.join(path)} is {got}, "
+                             f"not {shape} of {cfg.name}")
+
+
 def _check_fedtime(params, cfg: ModelConfig) -> None:
     """The FedTime tree: patch embedding, a block stack whose attention
     weights are plain ``w`` or NF4 ``w_nf4``/``absmax`` (with or without
@@ -167,8 +192,9 @@ def params_from_jax(tree, cfg: ModelConfig, device="cuda"):
     """The reference's parameter tree (leaves as numpy arrays) -> the port's
     parameters on ``device``.  A tree with a ``patch`` embedding is a
     FedTime model and is checked as one, one with ``mlstm`` stacks an
-    xLSTM model, one with ``mamba`` stacks a Zamba2 model; any other must
-    describe ``cfg``'s dense or MoE model.
+    xLSTM model, one with ``mamba`` stacks a Zamba2 model, one with an
+    ``encoder`` stack an encoder-decoder; any other must describe
+    ``cfg``'s dense or MoE model.
     Raises if the tree does not match ``cfg``."""
     params = tree_to_torch(tree, device)
     if "patch" in params:
@@ -177,6 +203,8 @@ def params_from_jax(tree, cfg: ModelConfig, device="cuda"):
         _check_xlstm(params, cfg)
     elif "mamba" in params:
         _check_hybrid(params, cfg)
+    elif "encoder" in params:
+        _check_encdec(params, cfg)
     else:
         _check_dense(params, cfg)
     return params

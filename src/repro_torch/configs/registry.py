@@ -17,6 +17,7 @@ _ARCH_MODULES: Dict[str, str] = {
     "gemma2-27b": "gemma2_27b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "mixtral-8x7b": "mixtral_8x7b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
     "xlstm-350m": "xlstm_350m",
     "zamba2-2.7b": "zamba2_2_7b",
     "fedtime-llama2-7b": "fedtime_llama2_7b",

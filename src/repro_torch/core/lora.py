@@ -20,6 +20,7 @@ from repro_torch.core.quant import nf4_quantize
 DEFAULT_TARGETS = ("wq", "wk", "wv", "wo")
 FAMILY_TARGETS = {"dense": DEFAULT_TARGETS,
                   "moe": DEFAULT_TARGETS + ("router",),
+                  "encdec": DEFAULT_TARGETS,
                   "ssm": DEFAULT_TARGETS + ("up", "down"),  # xLSTM blocks
                   "hybrid": DEFAULT_TARGETS + ("in_proj", "out_proj")}
 

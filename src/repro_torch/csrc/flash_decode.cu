@@ -67,10 +67,10 @@
 // ported configurations only (with_heads below): G = 2 with D 64
 // (qwen3-0.6b's smoke config) or 128 (qwen3-0.6b, qwen3-1.7b, gemma2-27b),
 // G = 1 (multi-head attention) with D 32 (fedtime-llama2-7b's smoke config),
-// 80 (zamba2-2.7b's shared attention) or 128 (fedtime-llama2-7b,
-// qwen2-moe-a2.7b), G = 3 with D 64 (smollm-360m) and G = 4 with D 128
-// (mixtral-8x7b), each for the three cache types and both layouts: 42
-// kernels.  A lane keeps G query rows and G accumulators of
+// 64 (seamless-m4t-medium's self and cross attention), 80 (zamba2-2.7b's
+// shared attention) or 128 (fedtime-llama2-7b, qwen2-moe-a2.7b), G = 3 with
+// D 64 (smollm-360m) and G = 4 with D 128 (mixtral-8x7b), each for the
+// three cache types and both layouts: 48 kernels.  A lane keeps G query rows and G accumulators of
 // VE floats in registers, so G = 4 at D 128 in f32 is the instance nearest
 // to spilling: ptxas's report (chip_smoke.py, phase 1) says what it holds.  A slot is owned by a lane group of D * elem / 16 lanes, which at
 // D 32 is 4 lanes for bf16, 8 for f32 and 2 for int8; the dot products are
@@ -611,6 +611,7 @@ int with_heads(int G, int D, Fn&& fn) {
   if (G == 2 && D == 64) return fn(IntC<64>{}, IntC<2>{});
   if (G == 2 && D == 128) return fn(IntC<128>{}, IntC<2>{});
   if (G == 1 && D == 32) return fn(IntC<32>{}, IntC<1>{});
+  if (G == 1 && D == 64) return fn(IntC<64>{}, IntC<1>{});
   if (G == 1 && D == 80) return fn(IntC<80>{}, IntC<1>{});
   if (G == 1 && D == 128) return fn(IntC<128>{}, IntC<1>{});
   if (G == 3 && D == 64) return fn(IntC<64>{}, IntC<3>{});

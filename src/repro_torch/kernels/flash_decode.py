@@ -63,10 +63,11 @@ _KINDS = {"causal": 0, "prefix": 1, "full": 2}
 # configurations (csrc/flash_decode.cu, with_heads): qwen3-0.6b's smoke
 # config and full width (G 2, D 64 / 128; qwen3-1.7b and gemma2-27b too),
 # fedtime-llama2-7b's (G 1, D 32 / 128; qwen2-moe-a2.7b too), smollm-360m's
-# (G 3, D 64), mixtral-8x7b's (G 4, D 128) and zamba2-2.7b's shared
-# attention (G 1, D 80).
+# (G 3, D 64), mixtral-8x7b's (G 4, D 128), zamba2-2.7b's shared
+# attention (G 1, D 80) and seamless-m4t-medium's self and cross attention
+# (G 1, D 64; the smoke heads of qwen2-moe-a2.7b and zamba2-2.7b too).
 HEAD_GEOMETRIES = ((2, 64), (2, 128), (1, 32), (1, 128), (3, 64), (4, 128),
-                   (1, 80))
+                   (1, 80), (1, 64))
 _KV_TYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 
 LAUNCHES: Dict[str, int] = {"flash_decode": 0, "flash_decode_paged": 0,

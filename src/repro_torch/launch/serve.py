@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ALL_ARCHS, get_config, get_smoke_config
-from repro_torch.models.registry import get_model
+from repro_torch.models.registry import get_model, train_batch_shapes
 
 
 def make_trace(cfg, n: int, *, gen: int, max_prompt: int, rate: float,
@@ -178,18 +178,30 @@ def _sync(device) -> None:
 
 
 def run_fixed_batch(cfg, params, *, batch: int, prompt_len: int, gen: int,
-                    device="cuda", seed: int = 0, quiet: bool = False):
+                    device="cuda", seed: int = 0, quiet: bool = False,
+                    inputs=None):
     """One prefill of ``batch`` random prompts, then ``gen`` synchronous
-    decode steps.  Returns a dict with the tokens, every step's logits
-    finiteness and the prefill / steady-state decode rates."""
+    decode steps.  The prefill's batch is ``train_batch_shapes`` less its
+    labels, as the reference's: the tokens drawn from ``seed``, any other
+    input (an encoder-decoder's frames) zeros, or the tensor ``inputs``
+    gives by its name.  Returns a dict with the tokens, every step's
+    logits finiteness and the prefill / steady-state decode rates."""
     api = get_model(cfg)
     B, P = batch, prompt_len
     rng = np.random.default_rng(seed)
-    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, P)),
-                             device=device)
+    shapes = train_batch_shapes(cfg, B, P)
+    shapes.pop("labels")
+    fb = {}
+    for k, (shp, dt) in shapes.items():
+        if k == "tokens":
+            fb[k] = torch.as_tensor(rng.integers(0, cfg.vocab_size, shp),
+                                    device=device)
+        elif inputs is not None and k in inputs:
+            fb[k] = inputs[k].to(device)
+        else:
+            fb[k] = torch.zeros(shp, dtype=dt, device=device)
     t0 = time.perf_counter()
-    cache, logits = api.prefill(params, cfg, {"tokens": tokens},
-                                cache_len=P + gen)
+    cache, logits = api.prefill(params, cfg, fb, cache_len=P + gen)
     _sync(device)
     t_prefill = time.perf_counter() - t0
     finite = [bool(torch.isfinite(logits).all())]

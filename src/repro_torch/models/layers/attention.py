@@ -222,32 +222,48 @@ def _sdpa_blockwise(q, k, v, q_pos, kv_pos, kind, window, prefix_len,
     return out.reshape(B, Sq_pad, H, D)[:, :Sq]
 
 
-def _project_qkv(params, cfg, x, positions):
+def _project_qkv(params, cfg, x, positions, kv_x=None, kv_positions=None,
+                 use_rope: bool = True):
+    """q from ``x``, k and v from ``kv_x`` (``x`` by default), each with
+    the config's qk-norm, then RoPE at ``positions`` / ``kv_positions``
+    (``positions`` by default) unless ``use_rope`` is off (a cross
+    attention's memory carries no positions of the queries' sequence)."""
     dh = cfg.resolved_head_dim()
-    B, S = x.shape[0], x.shape[1]
-    q = dense(params["wq"], x).reshape(B, S, cfg.num_heads, dh)
-    k = dense(params["wk"], x).reshape(B, S, cfg.num_kv_heads, dh)
-    v = dense(params["wv"], x).reshape(B, S, cfg.num_kv_heads, dh)
+    kv_x = x if kv_x is None else kv_x
+    B, Sq, Skv = x.shape[0], x.shape[1], kv_x.shape[1]
+    q = dense(params["wq"], x).reshape(B, Sq, cfg.num_heads, dh)
+    k = dense(params["wk"], kv_x).reshape(B, Skv, cfg.num_kv_heads, dh)
+    v = dense(params["wv"], kv_x).reshape(B, Skv, cfg.num_kv_heads, dh)
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
-    pos = _as_b(positions, B, x.device)
-    return (apply_rope(q, pos, cfg.rope_theta),
-            apply_rope(k, pos, cfg.rope_theta), v)
+    if use_rope:
+        kv_positions = positions if kv_positions is None else kv_positions
+        q = apply_rope(q, _as_b(positions, B, x.device), cfg.rope_theta)
+        k = apply_rope(k, _as_b(kv_positions, B, x.device), cfg.rope_theta)
+    return q, k, v
 
 
 def attention(params, cfg, x, *, positions, kind: str = "causal",
-              window: int = 0, prefix_len=None, block_q: int = 0,
-              block_kv: int = 0, return_kv: bool = False):
-    """Full-sequence self-attention. x: (B, S, d) -> (B, S, d).
-    ``positions`` is ``arange(S)``, as every caller builds it, so the
-    blockwise path reads its causal skip table off the shapes (``sdpa``'s
-    ``arange``)."""
-    q, k, v = _project_qkv(params, cfg, x, positions)
-    o = sdpa(q, k, v, q_pos=positions, kv_pos=positions, kind=kind,
-             window=window, prefix_len=prefix_len,
+              window: int = 0, prefix_len=None, kv_x=None, kv_positions=None,
+              use_rope: bool = True, block_q: int = 0, block_kv: int = 0,
+              return_kv: bool = False):
+    """Full-sequence attention. x: (B, S, d_in) -> (B, S, out_dim).
+
+    Self-attention by default; with ``kv_x`` (B, Skv, d_kv) a cross
+    attention whose keys and values come from ``kv_x`` at
+    ``kv_positions`` (an encoder-decoder's memory, with ``use_rope`` off).
+    A self-attention's ``positions`` are ``arange(S)``, as every caller
+    builds them, so the blockwise path reads its causal skip table off the
+    shapes (``sdpa``'s ``arange``); a cross call reads its positions."""
+    self_attn = kv_x is None and kv_positions is None
+    q, k, v = _project_qkv(params, cfg, x, positions, kv_x, kv_positions,
+                           use_rope)
+    o = sdpa(q, k, v, q_pos=positions,
+             kv_pos=positions if kv_positions is None else kv_positions,
+             kind=kind, window=window, prefix_len=prefix_len,
              softcap=cfg.attn_logit_softcap, block_q=block_q,
-             block_kv=block_kv, arange=True)
+             block_kv=block_kv, arange=self_attn)
     B, S = x.shape[0], x.shape[1]
     y = dense(params["wo"], o.reshape(B, S, -1))
     if return_kv:
@@ -418,3 +434,34 @@ def attn_decode(params, cfg, x_t, cache, pos, *, window: int = 0,
                              cache["kv_pos"], pos, **kw)
     y = dense(params["wo"], o.reshape(B, 1, -1))
     return y, cache
+
+
+def attn_cross_decode(params, cfg, x_t, mem_k, mem_v, mem_pos):
+    """One decode step of a cross attention against a fixed memory.
+
+    x_t: (B, 1, d); mem_k, mem_v: (B, F, Hk, D) one layer's memory K/V,
+    projected once at prefill with no RoPE; mem_pos: (B, F) int32, -1 on an
+    empty slot.  q is projected (and qk-normed where the config says so)
+    and attends through ``ops.flash_decode`` with ``kind="full"`` at q
+    position 0: every valid memory slot takes part, a slot at -1 adds
+    nothing, and a row with no valid slot decodes to exactly 0.  The CUDA
+    kernel on the card, its plain version on the CPU.  The memory is not
+    changed.
+
+    Under an ambient mesh with a real ``model`` axis the memory this layer
+    receives is this rank's stripe of its slots (``dist.sharding``'s seq
+    layout of ``mem_k``), and the partials are combined over ``model``
+    (``dist.decode.stripe_flash_decode``), as the self ring's are."""
+    B = x_t.shape[0]
+    dh = cfg.resolved_head_dim()
+    q = dense(params["wq"], x_t).reshape(B, 1, cfg.num_heads, dh)
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
+    ways = model_ways(current_mesh())
+    mesh, _, _ = cache_stripe(mem_k.shape[1] * ways)
+    kw = dict(kind="full", softcap=cfg.attn_logit_softcap)
+    if mesh is not None:
+        o = stripe_flash_decode(q, mem_k, mem_v, mem_pos, 0, mesh, **kw)
+    else:
+        o = ops.flash_decode(q.contiguous(), mem_k, mem_v, mem_pos, 0, **kw)
+    return dense(params["wo"], o.reshape(B, 1, -1))

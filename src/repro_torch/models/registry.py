@@ -18,11 +18,12 @@ router_stats``; None for the other families).  An MoE model's ``loss`` is
 loss summed over layers, as the reference's.
 
 Batch dicts: train ``{"tokens": (B, S), "labels": (B, S)}`` (labels -1 =
-ignore); prefill ``{"tokens": (B, S)}``; decode ``{"token": (B, 1), "pos":
-scalar or (B,)}`` plus ``block_tbl``/``ring_len`` for a paged pool.  The
-dense, MoE, ssm (xLSTM) and hybrid (Zamba2) families are ported; encdec
-and vlm raise.  An ssm or hybrid prefill refuses ``true_len`` (bucketing
-pads through the recurrence), as the reference's does.
+ignore), plus ``"frames": (B, F, d_model)`` for an encoder-decoder;
+prefill the same without labels; decode ``{"token": (B, 1), "pos": scalar
+or (B,)}`` plus ``block_tbl``/``ring_len`` for a paged pool.  The dense,
+MoE, encdec (seamless-m4t), ssm (xLSTM) and hybrid (Zamba2) families are
+ported; vlm raises.  An encdec, ssm or hybrid prefill refuses
+``true_len``, as the reference's does.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from types import SimpleNamespace
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer, xlstm_model, zamba2
+from repro_torch.models import encdec, transformer, xlstm_model, zamba2
 from repro_torch.models.layers.moe import router_aux
 from repro_torch.models.losses import chunked_ce, chunked_ce_sum
 
@@ -82,6 +83,12 @@ def _moe_api():
     return api
 
 
+def _refuse_true_len(true_len) -> None:
+    if true_len is not None:
+        raise ValueError("prefill bucketing (true_len) is only supported "
+                         "for attention-ring-cache families (dense/moe)")
+
+
 def _recurrent_api(module):
     """The API of a family whose prefill carries a recurrent state through
     the prompt (``ssm``: xLSTM; ``hybrid``: Zamba2): ``module`` is its
@@ -96,9 +103,7 @@ def _recurrent_api(module):
 
     def prefill(params, cfg, batch, *, force_window=0, cache_len=0,
                 true_len=None):
-        if true_len is not None:
-            raise ValueError("prefill bucketing (true_len) is only supported "
-                             "for attention-ring-cache families (dense/moe)")
+        _refuse_true_len(true_len)
         return module.prefill(params, cfg, batch["tokens"],
                               force_window=force_window, cache_len=cache_len)
 
@@ -120,8 +125,39 @@ def _hybrid_api():
     return _recurrent_api(zamba2)
 
 
-_FAMILIES = {"dense": _dense_api, "moe": _moe_api, "ssm": _ssm_api,
-             "hybrid": _hybrid_api}
+def _encdec_api():
+    """The encoder-decoder's API: every call but decode takes the batch's
+    ``frames`` beside its tokens; the loss is over the decoder's hidden
+    states."""
+    def hidden(params, cfg, batch):
+        return encdec.forward(params, cfg, batch["frames"], batch["tokens"])
+
+    def loss(params, cfg, batch):
+        return chunked_ce(hidden(params, cfg, batch), params, cfg,
+                          batch["labels"])
+
+    def loss_parts(params, cfg, batch):
+        return (*chunked_ce_sum(hidden(params, cfg, batch), params, cfg,
+                                batch["labels"]), None)
+
+    def prefill(params, cfg, batch, *, force_window=0, cache_len=0,
+                true_len=None):
+        _refuse_true_len(true_len)
+        return encdec.prefill(params, cfg, batch["frames"], batch["tokens"],
+                              force_window=force_window, cache_len=cache_len)
+
+    def decode_step(params, cfg, cache, batch, *, force_window=0):
+        return encdec.decode_step(params, cfg, cache, batch["token"],
+                                  batch["pos"], force_window=force_window)
+
+    return SimpleNamespace(init=encdec.init, loss=loss,
+                           loss_parts=loss_parts, prefill=prefill,
+                           decode_step=decode_step,
+                           init_cache=encdec.init_cache)
+
+
+_FAMILIES = {"dense": _dense_api, "moe": _moe_api, "encdec": _encdec_api,
+             "ssm": _ssm_api, "hybrid": _hybrid_api}
 
 
 def get_model(cfg: ModelConfig):
@@ -136,10 +172,16 @@ def _ported_only(cfg: ModelConfig) -> None:
 
 
 def train_batch_shapes(cfg: ModelConfig, batch: int, seq: int) -> dict:
-    """``{name: (shape, dtype)}`` of a training batch."""
+    """``{name: (shape, dtype)}`` of a training batch: an encoder-decoder's
+    also carries ``frames`` of ``min(seq, max_source_len)`` bf16 frame
+    embeddings a row, as the reference's."""
     _ported_only(cfg)
-    return {"tokens": ((batch, seq), torch.int32),
-            "labels": ((batch, seq), torch.int32)}
+    out = {"tokens": ((batch, seq), torch.int32),
+           "labels": ((batch, seq), torch.int32)}
+    if cfg.family == "encdec":
+        F = min(seq, cfg.encdec.max_source_len)
+        out = {"frames": ((batch, F, cfg.d_model), torch.bfloat16), **out}
+    return out
 
 
 def decode_batch_shapes(cfg: ModelConfig, batch: int) -> dict:

@@ -93,7 +93,8 @@ def test_input_shapes_equal_the_reference():
 
 
 @pytest.mark.parametrize("fed", [False, True])
-@pytest.mark.parametrize("arch", ARCHS + ("zamba2-2.7b",))
+@pytest.mark.parametrize("arch", ARCHS + ("zamba2-2.7b",
+                                          "seamless-m4t-medium"))
 def test_param_shapes_equal_the_reference(arch, fed):
     """Full width: every leaf's path, shape and type, fakes against the
     reference's ``jax.eval_shape`` tree (with ``fed``: LoRA at the
@@ -153,7 +154,7 @@ def spec_of(spec_tree, path):
 
 
 @pytest.mark.parametrize("multi", [False, True], ids=["single", "multi"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ("seamless-m4t-medium",))
 def test_dryrun_args_local_shapes_follow_the_reference_specs(arch, multi):
     """Rank 0's arguments of every input shape in a fake 256 / 512-rank
     world: the batch rows and the cache stripe are the reference's specs
@@ -161,7 +162,9 @@ def test_dryrun_args_local_shapes_follow_the_reference_specs(arch, multi):
     blocks without its ``model`` split (the parameters, and so the
     moments, are whole over ``model`` in the port: its divergence, which
     ``in_specs`` states as ``()`` for every parameter); the parameters
-    are whole.  The fake group is gone after the world."""
+    are whole.  An encoder-decoder's frames and memory (K/V and positions)
+    follow the same specs: the memory's slots over ``model``, as a ring's.
+    The fake group is gone after the world."""
     mesh_shape = PRODUCTION_MESH_SHAPES["multi" if multi else "single"]
     cfg = configs.get_config(arch)
     with dry_world(math.prod(mesh_shape.values())):
@@ -298,6 +301,45 @@ def test_counted_flops_of_the_hybrid_against_the_reference():
         == 191_627_264
 
 
+def test_counted_flops_of_the_encdec_against_the_reference():
+    """seamless-m4t-medium's smoke config at B 2 x S 64 (64 frames, a
+    memory of 128 slots in the serve step's cache): prefill and serve
+    count the reference's FLOPs exactly (the encoder, the decoder's self
+    and cross attention over the memory, the last token's logits; the
+    serve step's cross decode over every memory slot, as the reference's
+    wide decode computes it: 738,721,792 and 6,553,600).  Train: the port
+    counts the chunked cross-entropy's recompute of the logits once more,
+    2 B S d V, as for qwen3-0.6b's step."""
+    arch = "seamless-m4t-medium"
+    cfg = configs.get_smoke_config(arch)
+    jcfg = jconfigs.get_smoke_config(arch)
+    api = jget_model(jcfg)
+    jp = jax.eval_shape(lambda k: api.init(jcfg, k), jax.random.PRNGKey(0))
+    from repro.models.registry import train_batch_shapes as jshapes
+    from repro.optim.adamw import adamw_init as jadamw_init
+    batch = {k: jax.ShapeDtypeStruct(*v)
+             for k, v in jshapes(jcfg, B, S).items()}
+    rows = {k: v for k, v in batch.items() if k != "labels"}
+    cache = jax.eval_shape(lambda: api.init_cache(jcfg, B, S,
+                                                  dtype=jnp.bfloat16))
+    dec = {"token": jax.ShapeDtypeStruct((B, 1), jnp.int32),
+           "pos": jax.ShapeDtypeStruct((), jnp.int32)}
+    ref = {"train": _reference_flops(jsteps.make_train_step(jcfg), (
+               jp, jax.eval_shape(jadamw_init, jp), batch,
+               jax.ShapeDtypeStruct((), jnp.int32))),
+           "prefill": _reference_flops(jsteps.make_prefill_step(jcfg),
+                                       (jp, rows)),
+           "decode": _reference_flops(jsteps.make_serve_step(jcfg),
+                                      (jp, cache, dec))}
+    got = {k: analyze(_port_count(cfg, k)[0])["flops_per_device"]
+           for k in ("train", "prefill", "decode")}
+    assert ref["prefill"] == got["prefill"] == 738_721_792
+    assert ref["decode"] == got["decode"] == 6_553_600
+    logits = 2 * B * S * cfg.d_model * cfg.vocab_size
+    assert ref["train"] == 2_885_681_152
+    assert got["train"] - ref["train"] == logits
+
+
 def _real(x):
     """Real zero tensors of the fakes' shapes and types."""
     if isinstance(x, torch.Tensor):
@@ -355,6 +397,26 @@ def test_peak_on_fakes_equals_peak_on_real_tensors(kind, fed):
             else make_train_step(cfg), "prefill": make_prefill_step(cfg),
             "decode": make_serve_step(cfg)}[kind]
     c_real, m_real = dryrun.measure(step, real)
+    assert analyze(c_real) == analyze(c_fake)
+    assert m_real == m_fake
+    assert c_fake.peak_bytes > 0
+
+
+@pytest.mark.parametrize("kind,fed", [("train", False), ("train", True),
+                                      ("prefill", False),
+                                      ("decode", False)],
+                         ids=["train", "fed_train", "prefill", "serve"])
+def test_encdec_peak_on_fakes_equals_peak_on_real_tensors(kind, fed):
+    """``test_peak_on_fakes_equals_peak_on_real_tensors`` on
+    seamless-m4t-medium's smoke config: its frames beside the tokens, the
+    serve step's cross decode over the memory."""
+    cfg = configs.get_smoke_config("seamless-m4t-medium")
+    c_fake, m_fake = _port_count(cfg, kind, fed)
+    _, fargs, _, _ = specs.step_args(cfg, kind, B, S, fed=fed)
+    step = {"train": make_fed_train_step(cfg) if fed
+            else make_train_step(cfg), "prefill": make_prefill_step(cfg),
+            "decode": make_serve_step(cfg)}[kind]
+    c_real, m_real = dryrun.measure(step, _real(fargs))
     assert analyze(c_real) == analyze(c_fake)
     assert m_real == m_fake
     assert c_fake.peak_bytes > 0

@@ -286,8 +286,9 @@ def test_bridge_round_trip_pair_and_moe_trees(arch):
 
 
 @pytest.mark.parametrize("G,D,built", [(3, 64, True), (4, 128, True),
-                                       (1, 80, True), (3, 128, False),
-                                       (4, 64, False), (2, 80, False)])
+                                       (1, 80, True), (1, 64, True),
+                                       (3, 128, False), (4, 64, False),
+                                       (2, 80, False), (1, 96, False)])
 @pytest.mark.parametrize("paged", [False, True], ids=["ring", "paged"])
 def test_head_geometries_on_fake_cuda_tensors(G, D, built, paged):
     """The shape rule (the kernel's own argument checks) takes the new

@@ -16,7 +16,8 @@ what rounding those f32 outputs allows: |got - want| <= 2**-8 (|got| +
 value).  Block copies
 and empty rows are exact.  Both flash-decode kernels are built for the
 ported configurations' head geometries, (G, D) in {(2, 64), (2, 128), (1,
-32), (1, 128), (3, 64), (4, 128), (1, 80)}, and refuse the rest; at D 80
+32), (1, 128), (3, 64), (4, 128), (1, 80), (1, 64)}, and refuse the
+rest; at D 80
 a row is not a power of two of 16-byte vectors, so part of each lane
 group idles.  Ring
 and paged are held at the card's split policy and at explicit split
@@ -133,7 +134,7 @@ def _assert_matches_plain(args, kw):
 
 
 HEADS = [(2, 64), (2, 128), (1, 32), (1, 128), (3, 64), (4, 128),
-         (1, 80)]                                                  # built
+         (1, 80), (1, 64)]                                         # built
 HEAD_IDS = [f"G{g}-D{d}" for g, d in HEADS]
 
 
@@ -147,7 +148,7 @@ def test_contiguous_kernel_matches_plain(cuda, dtype, G, D):
     assert torch.count_nonzero(got[1]) == 0          # empty row: exactly 0
 
 
-@pytest.mark.parametrize("G,D", [(4, 64), (3, 128), (2, 96), (1, 64),
+@pytest.mark.parametrize("G,D", [(4, 64), (3, 128), (2, 96), (1, 96),
                                  (2, 32)])
 def test_kernel_refuses_other_head_geometries(cuda, G, D):
     """Ring and paged alike refuse a geometry they are not built for, and
@@ -172,9 +173,9 @@ def test_kernel_refuses_other_head_geometries(cuda, G, D):
                                 dict(kind="full"), dict(softcap=5.0)],
                          ids=["window", "prefix", "full", "softcap"])
 @pytest.mark.parametrize("G,D", [(2, 128), (1, 128), (1, 32), (3, 64),
-                                 (4, 128), (1, 80)],
+                                 (4, 128), (1, 80), (1, 64)],
                          ids=["G2-D128", "G1-D128", "G1-D32", "G3-D64",
-                              "G4-D128", "G1-D80"])
+                              "G4-D128", "G1-D80", "G1-D64"])
 def test_contiguous_kernel_masks(cuda, kw, G, D):
     q, k, v, kv_pos, pos, _ = _ring(cuda, B=2, S=640, Hk=2, G=G, D=D,
                                     dtype=torch.float32, wrap=True, seed=3)
@@ -182,9 +183,9 @@ def test_contiguous_kernel_masks(cuda, kw, G, D):
 
 
 @pytest.mark.parametrize("G,D", [(2, 128), (1, 128), (1, 32), (3, 64),
-                                 (4, 128), (1, 80)],
+                                 (4, 128), (1, 80), (1, 64)],
                          ids=["G2-D128", "G1-D128", "G1-D32", "G3-D64",
-                              "G4-D128", "G1-D80"])
+                              "G4-D128", "G1-D80", "G1-D64"])
 def test_return_partials(cuda, G, D):
     q, k, v, kv_pos, pos, _ = _ring(cuda, B=2, S=4096, Hk=2, G=G, D=D,
                                     dtype=torch.float32, empty_row=0, seed=4)
@@ -262,9 +263,9 @@ def test_paged_kernel_matches_plain(cuda, dtype, G, D, n_splits):
 @pytest.mark.parametrize("n_splits", [0, 1, 3, 8],
                          ids=["card", "1", "3", "8"])
 @pytest.mark.parametrize("G,D", [(2, 128), (1, 128), (1, 32), (3, 64),
-                                 (4, 128), (1, 80)],
+                                 (4, 128), (1, 80), (1, 64)],
                          ids=["G2-D128", "G1-D128", "G1-D32", "G3-D64",
-                              "G4-D128", "G1-D80"])
+                              "G4-D128", "G1-D80", "G1-D64"])
 def test_paged_return_partials(cuda, G, D, n_splits):
     """The paged kernel's merged f32 partials (m, l, acc) against the plain
     version's; an idle lane (no granted entry) gives m = -1e30, l = 0,
@@ -298,8 +299,9 @@ def test_paged_kernel_masks(cuda, dtype, kw):
                          ids=["card", "1", "3", "8"])
 @pytest.mark.parametrize("S", [577, 100, 1])
 @pytest.mark.parametrize("Hk,G,D", [(8, 2, 128), (32, 1, 128), (4, 1, 32),
-                                    (32, 1, 80)],
-                         ids=["qwen3", "fedtime", "fedtime-smoke", "zamba2"])
+                                    (32, 1, 80), (16, 1, 64)],
+                         ids=["qwen3", "fedtime", "fedtime-smoke", "zamba2",
+                              "seamless"])
 def test_ring_kernel_splits(cuda, S, n_splits, Hk, G, D):
     """The card's split policy (0) and explicit counts, at ring lengths no
     count divides and at one slot, at the served configs' heads; lane 1
@@ -492,14 +494,16 @@ def test_launch_counters(cuda):
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "fedtime-llama2-7b",
                                   "qwen3-1.7b", "gemma2-27b", "smollm-360m",
-                                  "mixtral-8x7b"])
+                                  "mixtral-8x7b", "qwen2-moe-a2.7b",
+                                  "seamless-m4t-medium"])
 def test_smoke_model_on_card_matches_cpu(cuda, arch):
     """The smoke config in f32 (qwen3-0.6b, qwen3-1.7b, gemma2-27b's local
     and global rings, mixtral-8x7b: G = 2, D 64; fedtime-llama2-7b: G = 1,
-    D 32; smollm-360m: G = 3, D 64): prefill + 4 decode steps on the card
-    (the kernels) against the CPU (the plain versions), same weights.
-    qwen2-moe-a2.7b's smoke heads (G 1, D 64) have no instance: its full
-    width (G 1, D 128) runs in chip_smoke.py's phase 12."""
+    D 32; smollm-360m: G = 3, D 64; qwen2-moe-a2.7b and
+    seamless-m4t-medium's self and cross attention: G = 1, D 64): prefill
+    + 4 decode steps on the card (the kernels) against the CPU (the plain
+    versions), same weights; an encoder-decoder's frames drawn beside its
+    tokens."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.registry import get_model
     cfg = get_smoke_config(arch)
@@ -508,11 +512,15 @@ def test_smoke_model_on_card_matches_cpu(cuda, arch):
                       device="cpu")
     params_gpu = _to(params, cuda)
     g = torch.Generator().manual_seed(1)
-    toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=g)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 12),
+                                     generator=g)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((2, 24, cfg.d_model), generator=g)
     teacher = torch.randint(0, cfg.vocab_size, (4, 2, 1), generator=g)
     outs = []
     for dev, p in (("cpu", params), (cuda, params_gpu)):
-        cache, lg = api.prefill(p, cfg, {"tokens": toks.to(dev)},
+        cache, lg = api.prefill(p, cfg, {k: x.to(dev)
+                                         for k, x in batch.items()},
                                 cache_len=32)
         steps = [lg]
         for i in range(4):

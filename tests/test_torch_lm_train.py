@@ -242,33 +242,40 @@ def test_loss_and_gradient_match_reference(arch):
 
 
 def test_batch_shapes_match_reference():
-    """The dense, MoE, ssm and hybrid families' batch shapes are the
-    reference's (zamba2-2.7b's at full width too); a family still
-    unported (``encdec``) raises."""
-    for arch in ARCHS + ("mixtral-8x7b", "xlstm-350m", "zamba2-2.7b"):
+    """The dense, MoE, ssm, hybrid and encdec families' batch shapes are
+    the reference's (zamba2-2.7b's and seamless-m4t-medium's at full width
+    too; seamless's ``frames`` in bf16); a family still unported (``vlm``)
+    raises."""
+    for arch in ARCHS + ("mixtral-8x7b", "xlstm-350m", "zamba2-2.7b",
+                         "seamless-m4t-medium"):
         jcfg, cfg = jax_smoke_config(arch), get_smoke_config(arch)
         want = jregistry.train_batch_shapes(jcfg, 3, 40)
         got = registry.train_batch_shapes(cfg, 3, 40)
         assert {k: s for k, (s, _) in got.items()} == \
             {k: s for k, (s, _) in want.items()}
-        assert all(dt == torch.int32 for _, dt in got.values())
+        assert all(dt == (torch.bfloat16 if k == "frames" else torch.int32)
+                   for k, (_, dt) in got.items())
         want = jregistry.decode_batch_shapes(jcfg, 5)
         got = registry.decode_batch_shapes(cfg, 5)
         assert {k: s for k, (s, _) in got.items()} == \
             {k: s for k, (s, _) in want.items()}
-    jcfg, cfg = jax_config("zamba2-2.7b"), get_config("zamba2-2.7b")
-    for fn, jfn, args in ((registry.train_batch_shapes,
-                           jregistry.train_batch_shapes, (256, 4096)),
-                          (registry.decode_batch_shapes,
-                           jregistry.decode_batch_shapes, (128,))):
-        assert {k: s for k, (s, _) in fn(cfg, *args).items()} == \
-            {k: s for k, (s, _) in jfn(jcfg, *args).items()}
-    encdec = get_smoke_config("qwen3-0.6b").replace(family="encdec")
+    for arch in ("zamba2-2.7b", "seamless-m4t-medium"):
+        jcfg, cfg = jax_config(arch), get_config(arch)
+        for fn, jfn, args in ((registry.train_batch_shapes,
+                               jregistry.train_batch_shapes, (256, 4096)),
+                              (registry.decode_batch_shapes,
+                               jregistry.decode_batch_shapes, (128,))):
+            assert {k: s for k, (s, _) in fn(cfg, *args).items()} == \
+                {k: s for k, (s, _) in jfn(jcfg, *args).items()}
+    assert registry.train_batch_shapes(
+        get_config("seamless-m4t-medium"), 2, 8192)["frames"] == (
+            (2, 4096, 1024), torch.bfloat16)
+    vlm = get_smoke_config("qwen3-0.6b").replace(family="vlm")
     for fn, args in ((registry.train_batch_shapes, (2, 8)),
                      (registry.decode_batch_shapes, (2,)),
                      (registry.get_model, ())):
         with pytest.raises(NotImplementedError):
-            fn(encdec, *args)
+            fn(vlm, *args)
 
 
 def test_smollm_config_equals_reference():
